@@ -1,0 +1,172 @@
+"""DRR projector and backprojector, PyTorch port of ``liftreg_tpu/ops/drr.py``.
+
+The ray/plane intersection coordinates of the reference geometry are
+separable, so the bilinear line integral is a pair of products with 2-tap
+interpolation matrices per coronal plane ``k``:
+
+    proj[p,u,v] = 0.1*dx[p,u,v] * sum_k  Rx[p,k] @ vol[:,k,:] @ Rz[p,k]^T
+
+and the backprojection lift is ``out[b,p,:,k,:] = Bu[p,k] @ proj[b,p] @
+Bv[p,k]^T`` with the reversed coronal axis folded into ``Bu``/``Bv``. The
+products stay plain f32 ``torch.matmul`` (the JAX package leaves them to
+XLA at HIGHEST precision); callers that need f32 parity on CUDA turn TF32
+off (``RegistrationPipeline`` does).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def calc_relative_atten_coef(img):
+    """HU -> linear attenuation, water = 0.2/cm."""
+    return (img.clamp(min=-1000.0) + 1000.0) / 1000.0 * 0.2
+
+
+def normalize_drr(proj):
+    """DRR clip [0, 6] -> [-1, 1], the dataset's stored-projection
+    normalization."""
+    return proj.clamp(0.0, 6.0) / 6.0 * 2.0 - 1.0
+
+
+def synthesize_poses(scan_range_deg, n_proj, width, emitter_y_scale=3.5):
+    """Limited-angle emitter poses in voxel units, ``(P, 3)`` numpy f32:
+    y = 3.5*W, x = tan(linspace(-r/2, r/2))*3*W, z = linspace(-0.2,0.2)*W."""
+    half = scan_range_deg / 2.0
+    poses = np.zeros((n_proj, 3), dtype=np.float64)
+    poses[:, 1] = emitter_y_scale
+    poses[:, 0] = np.tan(np.linspace(-half, half, num=n_proj)
+                         / 180.0 * np.pi) * 3.0
+    poses[:, 2] = np.linspace(-0.2, 0.2, num=n_proj)
+    return (poses * width).astype(np.float32)
+
+
+def default_resolution(vol_shape, scale=1.5):
+    """Detector resolution default: 1.5x the volume's axes 0 and 2."""
+    return (int(vol_shape[0] * scale), int(vol_shape[2] * scale))
+
+
+def _two_tap_matrix(pix, n):
+    """``relu(1 - |pix[..., None] - arange(n)|)``: 2-tap linear
+    interpolation rows with implicit zeros padding."""
+    grid = torch.arange(n, dtype=pix.dtype, device=pix.device)
+    return (1.0 - (pix[..., None] - grid).abs()).clamp(min=0.0)
+
+
+def _linspace(a, b, n, like):
+    return torch.linspace(a, b, n, dtype=like.dtype, device=like.device)
+
+
+def forward_matrices(poses, vol_shape, resolution, spacing):
+    """(Rx (P, W, res_d, D), Rz (P, W, res_h, H), dx (P, res_d, res_h)) for
+    :func:`project`; ``poses`` is a (P, 3) f32 tensor on the target device,
+    dx the path length per plane step in mm."""
+    D, W, H = [int(s) for s in vol_shape]
+    res_d, res_h = [int(r) for r in resolution]
+    spacing = torch.as_tensor(spacing, dtype=poses.dtype, device=poses.device)
+    lin_x = _linspace(-res_d / 2.0, res_d / 2.0 - 1.0, res_d, poses)
+    lin_y = _linspace(-res_h / 2.0, res_h / 2.0 - 1.0, res_h, poses)
+    planes = _linspace(0.0, W - 1.0, W, poses)
+
+    ex, ey, ez = poses[:, 0], poses[:, 1], poses[:, 2]
+    s = (planes[None, :] - ey[:, None]) / (-ey[:, None])             # (P, W)
+    px = ex[:, None, None] + s[:, :, None] * (lin_x[None, None, :]
+                                              - ex[:, None, None])
+    pz = ez[:, None, None] + s[:, :, None] * (lin_y[None, None, :]
+                                              - ez[:, None, None])
+    x_pix = (px / D + 0.5) * (D - 1.0)                               # (P, W, res_d)
+    z_pix = (pz / H + 0.5) * (H - 1.0)                               # (P, W, res_h)
+    Rx = _two_tap_matrix(x_pix, D)
+    Rz = _two_tap_matrix(z_pix, H)
+
+    rx = (lin_x[None, :] - ex[:, None]) / (-ey[:, None])             # (P, res_d)
+    rz = (lin_y[None, :] - ez[:, None]) / (-ey[:, None])             # (P, res_h)
+    dx = torch.sqrt((rx[:, :, None] * spacing[0]) ** 2
+                    + spacing[1] ** 2
+                    + (rz[:, None, :] * spacing[2]) ** 2)
+    return Rx, Rz, dx
+
+
+def backward_matrices(poses, vol_shape, proj_shape):
+    """(Bu (P, W, D, proj_w), Bv (P, W, H, proj_h)) for :func:`backproject`,
+    with the reversed coronal axis ``y_world = W-1-j``."""
+    D, W, H = [int(s) for s in vol_shape]
+    proj_w, proj_h = [int(s) for s in proj_shape]
+    ex, ey, ez = poses[:, 0], poses[:, 1], poses[:, 2]
+    gx = _linspace(-D / 2.0, D / 2.0 - 1.0, D, poses)
+    yw = _linspace(W - 1.0, 0.0, W, poses)                           # reversed
+    gz = _linspace(-H / 2.0, H / 2.0 - 1.0, H, poses)
+
+    scale = ey[:, None] / (ey[:, None] - yw[None, :])                # (P, W)
+    u3 = (gx[None, None, :] - ex[:, None, None]) * scale[:, :, None] \
+        + ex[:, None, None]
+    v3 = (gz[None, None, :] - ez[:, None, None]) * scale[:, :, None] \
+        + ez[:, None, None]
+    u_pix = (u3 / proj_w + 0.5) * (proj_w - 1.0)                     # (P, W, D)
+    v_pix = (v3 / proj_h + 0.5) * (proj_h - 1.0)                     # (P, W, H)
+    return _two_tap_matrix(u_pix, proj_w), _two_tap_matrix(v_pix, proj_h)
+
+
+def project_with_mats(vol, Rx, Rz, dx, plane_chunk=32):
+    """vol (B, D, W, H) attenuation -> (B, P, res_d, res_h), accumulated
+    over chunks of coronal planes to bound the intermediate."""
+    B, D, W, H = vol.shape
+    P, _, res_d, _ = Rx.shape
+    res_h = Rz.shape[2]
+    total = torch.zeros((B, P, res_d, res_h), dtype=torch.float32,
+                        device=vol.device)
+    for k0 in range(0, W, plane_chunk):
+        k1 = min(k0 + plane_chunk, W)
+        kc = k1 - k0
+        vol_c = vol[:, :, k0:k1, :].permute(0, 2, 1, 3)              # (B, kc, D, H)
+        # (1, P, kc, res_d, D) @ (B, 1, kc, D, H) -> (B, P, kc, res_d, H)
+        t = torch.matmul(Rx[None, :, k0:k1], vol_c[:, None])
+        t = t.permute(0, 1, 3, 2, 4).reshape(B, P, res_d, kc * H)
+        rz = Rz[:, k0:k1].permute(0, 1, 3, 2).reshape(P, kc * H, res_h)
+        total = total + torch.matmul(t, rz[None])
+    return total * dx[None] * 0.1  # mm -> cm
+
+
+def project(vol, poses, resolution=None, spacing=(2.2, 2.2, 2.2),
+            plane_chunk=32):
+    """DRR of ``(B, D, W, H)`` (or ``(D, W, H)``) attenuation volumes;
+    ``poses`` (P, 3) numpy or tensor in voxel units."""
+    squeeze = vol.dim() == 3
+    if squeeze:
+        vol = vol[None]
+    if resolution is None:
+        resolution = default_resolution(vol.shape[1:])
+    poses = torch.as_tensor(poses, dtype=vol.dtype, device=vol.device)
+    Rx, Rz, dx = forward_matrices(poses, vol.shape[1:], resolution, spacing)
+    out = project_with_mats(vol, Rx, Rz, dx, plane_chunk=plane_chunk)
+    return out[0] if squeeze else out
+
+
+def backproject_with_mats(proj, Bu, Bv, plane_chunk=16):
+    """proj (B, P, proj_w, proj_h) -> (B, P, D, W, H), chunked over the
+    coronal axis."""
+    B, P = proj.shape[:2]
+    W, D = Bu.shape[1], Bu.shape[2]
+    H = Bv.shape[2]
+    out = torch.empty((B, P, D, W, H), dtype=torch.float32,
+                      device=proj.device)
+    for j0 in range(0, W, plane_chunk):
+        j1 = min(j0 + plane_chunk, W)
+        # (1, P, jc, D, pw) @ (B, P, 1, pw, ph) -> (B, P, jc, D, ph)
+        t = torch.matmul(Bu[None, :, j0:j1], proj[:, :, None])
+        # (B, P, jc, D, ph) @ (1, P, jc, ph, H) -> (B, P, jc, D, H)
+        t = torch.matmul(t, Bv[None, :, j0:j1].transpose(-1, -2))
+        out[:, :, :, j0:j1, :] = t.permute(0, 1, 3, 2, 4)
+    return out
+
+
+def backproject(proj, poses, vol_shape, plane_chunk=16):
+    """Backproject ``(B, P, proj_w, proj_h)`` (or unbatched) projections
+    into ``(B, P, D, W, H)`` feature volumes."""
+    squeeze = proj.dim() == 3
+    if squeeze:
+        proj = proj[None]
+    poses = torch.as_tensor(poses, dtype=proj.dtype, device=proj.device)
+    Bu, Bv = backward_matrices(poses, vol_shape, proj.shape[2:])
+    out = backproject_with_mats(proj, Bu, Bv, plane_chunk=plane_chunk)
+    return out[0] if squeeze else out
