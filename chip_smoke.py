@@ -7,26 +7,34 @@ Needs one CUDA card (Hopper: the kernels are built for sm_90a) and nvcc;
 imports nothing of JAX or of liftreg_tpu. Phases, each printing one JSON
 line with its elapsed seconds:
 
-1. build: compile the port's CUDA kernels (one nvcc call, into build/);
+1. build: compile the port's CUDA kernels (one nvcc per source, started
+   together, and one link, into build/);
 2. device: the card's name and power limit from nvidia-smi;
-3. pca_check / warp_check: each kernel against its plain PyTorch version
-   on the card, at the shapes of the serving path (plus ragged PCA
-   lengths, both tap types, both paddings, coordinates far outside);
+3. pca_check / warp_check / drr_check / grad_check: each kernel against
+   its plain PyTorch version on the card, at the shapes of the serving
+   path (plus ragged shapes, both tap types, both paddings, coordinates
+   far outside, on integers and on the edges of the DRR's zero padding);
 4. main_path: RegistrationPipeline.register at 160^3, B=4, 4 views on a
    240^2 detector, latent 56, bf16 encoder, basis and taps, with random
    seeded weights; the kernels' launch counts are zeroed just before and
    read just after; then register_projections the same way;
-5. reference: the pipeline on the card against the same pipeline on the
-   CPU (the kernels' plain versions) at 32^3;
-6. times: each kernel, its plain version and one PyTorch library call of
-   the same function, with CUDA events; the steady-state register time
-   and peak memory;
-7. profile: one register call under torch.profiler, device time by layer
-   (from kernel names) and the device's idle share.
+5. refine: register with refine_steps=30 (image domain) at the same
+   config on smooth seeded volumes and a smooth basis, counts zeroed just
+   before and read just after; the refined objective of each case must not
+   exceed its unrefined objective;
+6. reference / refine_reference: the pipeline on the card against the same
+   pipeline on the CPU (the kernels' plain versions) at 32^3, without and
+   with 5 refinement steps;
+7. times: each kernel, its plain version and one PyTorch library call of
+   the same function, with CUDA events; the steady-state register time,
+   with and without refinement, and peak memory;
+8. profile / profile_refine: one register call, without and with
+   refinement, under torch.profiler: device time by layer (from kernel
+   names) and the device's idle share.
 
 Then the nvidia-smi line, one JSON line of per-kernel numbers, and last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero; so does a
-missing card, and a watchdog after 10 minutes.
+missing card, and a watchdog after 15 minutes.
 """
 import json
 import os
@@ -35,7 +43,7 @@ import sys
 import threading
 import time
 
-WATCHDOG_S = 600
+WATCHDOG_S = 900
 # H100 SXM data sheet: HBM3 rate, dense bf16 tensor-core and f32 peaks
 HBM_BYTES_PER_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
@@ -43,12 +51,37 @@ PEAK_F32_FLOPS = 67e12
 # f32 operations per output of the warp: 3 axes x (clip, floor, t, two
 # weights) and 8 corners x (2 weight products, 1 tap product, 1 sum)
 WARP_OPS_PER_OUTPUT = 50
+# the warp's coordinate gradient per output: the forward's weights plus
+# their derivatives (3 axes x ~8), and 8 corners x 3 axes x (2 weight
+# products, 1 multiply-add) per channel
+WARP_GRAD_OPS_PER_OUTPUT = 24 + 8 * 3 * 4
+# f32 operations of one 2-tap interpolation: 2 x (1 multiply, 1 add). The
+# DRR sums are separable, so their least work interpolates one axis per
+# pass: per (b, p, plane) the projector needs res_d*H such values along x
+# and res_d*res_h along z (accumulated over planes), the lift D*ph along u
+# and D*H along v
+DRR_OPS_PER_TWO_TAPS = 4
 
 SZ = 160
 B = 4
 LATENT = 56
+REFINE_STEPS = 30
 PCA_TOL = 1e-5
 WARP_TOL = 1e-6
+# the projector sums the planes in another order than the plain dense
+# products (relative to the largest line integral); the lift adds <= 4 taps
+PROJ_REL_TOL = 1e-5
+LIFT_TOL = 1e-6
+# the coordinate gradient fuses multiply-adds that the plain version rounds
+# twice (relative to the largest component); the PCA backward rounds an f32
+# sum taken in another order to bf16 (one bf16 step, plus 1e-4 of the
+# largest value for sums that cancel to near zero)
+WARP_GRAD_REL_TOL = 1e-5
+PCA_GRAD_RTOL, PCA_GRAD_REL_ATOL = 2.0 ** -8, 1e-4
+# refinement on the card against the CPU at 32^3 over 5 steps, f32 encoder
+# and taps, bf16 basis: the f32 differences of the encoder and the kernels
+# reach the Adam updates, and dcoefs can round to the neighbouring bf16
+REFINE_REF_TOL = (1e-4, 1e-3)
 # card against CPU at 32^3, (phi, warped): the two round the f32 HU
 # normalisation differently by an ulp (CUDA divides by a scalar through its
 # reciprocal), and the encoder's f32 convolutions sum in another order. With
@@ -108,8 +141,12 @@ def _max_err(a, b):
 def _layer(kernel_name):
     """Layer of a device kernel, from its name."""
     name = kernel_name.lower()
-    for layer, keys in (("pca_expand", ("pca_expand",)),
+    for layer, keys in (("pca_grad", ("pca_grad",)),
+                        ("pca_expand", ("pca_expand",)),
+                        ("warp_coord_grad", ("warp_coord_grad",)),
                         ("warp_trilinear", ("warp_trilinear",)),
+                        ("drr_project", ("drr_project",)),
+                        ("drr_backproject", ("drr_backproject",)),
                         ("conv", ("conv", "cudnn", "winograd", "implicit")),
                         ("matmul", ("gemm", "cublas", "cutlass")),
                         ("gather", ("gather", "index")),):
@@ -132,6 +169,47 @@ def _smooth_coords(torch, F, g, batch, sz, amp, device):
     return coords.reshape(batch, -1, 3)
 
 
+def _smooth_field(torch, F, g, shape, low, device):
+    """(shape[0], shape[1], *shape[2:]) smooth random field in [-1, 1]:
+    normal noise on a low^3 grid, trilinear up to the full size."""
+    coarse = torch.randn(tuple(shape[:2]) + (low,) * 3, generator=g,
+                         device=device)
+    field = F.interpolate(coarse, size=tuple(shape[2:]), mode="trilinear",
+                          align_corners=True)
+    return field / field.abs().amax(dim=(2, 3, 4), keepdim=True)
+
+
+def _smooth_basis(torch, F, g, latent, sz, amp, device):
+    """(latent, 3*sz^3) bf16 basis of smooth displacement fields of up to
+    ``amp`` in normalized units, built a few rows at a time."""
+    rows = []
+    for start in range(0, latent, 8):
+        n = min(8, latent - start)
+        rows.append((_smooth_field(torch, F, g, (n, 3) + (sz,) * 3, 6, device)
+                     * amp).reshape(n, -1).to(torch.bfloat16))
+    return torch.cat(rows)
+
+
+def _edge_pix(torch, g, shape, n, device):
+    """Uniform coordinates with a third replaced by the edges of the DRR's
+    per-tap zero padding: (-1, 0), 0, n-1, (n-1, n) and beyond."""
+    pix = torch.rand(shape, generator=g, device=device) * (n + 3.0) - 2.0
+    special = torch.tensor([-1.5, -1.0, -0.25, 0.0, 0.5, n - 1.0, n - 0.75,
+                            n - 1.5, float(n), n + 2.0], device=device)
+    pick = torch.randint(0, len(special), shape, generator=g, device=device)
+    mask = torch.rand(shape, generator=g, device=device) < 0.33
+    return torch.where(mask, special[pick], pix).contiguous()
+
+
+def _counts(kernels):
+    return {name: fn.launches for name, fn in kernels.items()}
+
+
+def _zero(kernels):
+    for fn in kernels.values():
+        fn.launches = 0
+
+
 def main():
     timer = threading.Timer(WATCHDOG_S, _expire)
     timer.daemon = True
@@ -144,10 +222,27 @@ def main():
     import torch.nn.functional as F
 
     from liftreg_tpu_torch import RegistrationPipeline
+    from liftreg_tpu_torch.models.subspace_backproj import mask_lung
     from liftreg_tpu_torch.ops import _build, drr
-    from liftreg_tpu_torch.ops.pca_kernel import pca_expand, pca_expand_plain
-    from liftreg_tpu_torch.ops.warp_kernel import (warp_trilinear,
+    from liftreg_tpu_torch.ops.drr_kernel import (backproject_taps,
+                                                  backproject_taps_plain,
+                                                  project, project_taps,
+                                                  project_taps_plain)
+    from liftreg_tpu_torch.ops.pca_kernel import (pca_expand,
+                                                  pca_expand_plain, pca_grad,
+                                                  pca_grad_plain)
+    from liftreg_tpu_torch.ops.warp_kernel import (warp_coord_grad,
+                                                   warp_coord_grad_plain,
+                                                   warp_trilinear,
                                                    warp_trilinear_plain)
+    from liftreg_tpu_torch.pipeline import normalize_hu
+    from liftreg_tpu_torch.refine import make_refiner
+
+    KERNELS = {"pca_expand": pca_expand, "pca_grad": pca_grad,
+               "warp_trilinear": warp_trilinear,
+               "warp_coord_grad": warp_coord_grad,
+               "drr_project": project_taps,
+               "drr_backproject": backproject_taps}
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -157,7 +252,8 @@ def main():
     fresh = not _build.library_path().is_file()
     lib_path = _build.build()
     _build.library()
-    _emit(nvcc_calls=int(fresh), library=os.path.relpath(lib_path))
+    _emit(nvcc_processes=(len(_build.SOURCES) + 1) * int(fresh),
+          library=os.path.relpath(lib_path))
 
     _begin("device")
     smi = subprocess.run(
@@ -169,6 +265,7 @@ def main():
 
     g = torch.Generator(device=dev).manual_seed(0)
     n = 3 * SZ ** 3
+    errs = {}
 
     # -- each kernel against its plain version -----------------------------
     _begin("pca_check")
@@ -184,9 +281,10 @@ def main():
         m2 = torch.randn((m,), generator=g, device=dev) * 0.01
         ragged[m] = _max_err(pca_expand(c2, v2, m2),
                              pca_expand_plain(c2, v2, m2))
-    pca_max = max(pca_err, *ragged.values())
+    errs["pca_expand"] = max(pca_err, *ragged.values())
     _emit(max_abs_err=pca_err, ragged_max_abs_err=ragged, tol=PCA_TOL)
-    _require(pca_max <= PCA_TOL, f"PCA kernel error {pca_max} > {PCA_TOL}")
+    _require(errs["pca_expand"] <= PCA_TOL,
+             f"PCA kernel error {errs['pca_expand']} > {PCA_TOL}")
 
     _begin("warp_check")
     vol01 = torch.rand((B, 1, SZ, SZ, SZ), generator=g, device=dev)
@@ -200,10 +298,101 @@ def main():
             warp_errs[key] = _max_err(
                 warp_trilinear(taps[tdt], coords, border),
                 warp_trilinear_plain(taps[tdt], coords, border))
-    warp_max = max(warp_errs.values())
+    errs["warp_trilinear"] = max(warp_errs.values())
     _emit(max_abs_err=warp_errs, tol=WARP_TOL)
-    _require(warp_max <= WARP_TOL, f"warp kernel error {warp_max} > "
-                                   f"{WARP_TOL}")
+    _require(errs["warp_trilinear"] <= WARP_TOL,
+             f"warp kernel error {errs['warp_trilinear']} > {WARP_TOL}")
+
+    _begin("drr_check")
+    pipe_poses = torch.from_numpy(drr.synthesize_poses(30.0, 4, SZ)).to(dev)
+    res = drr.default_resolution((SZ,) * 3)
+    fwd_geom = drr.forward_geometry(pipe_poses, (SZ,) * 3, res,
+                                    (2.2, 2.2, 2.2))
+    bwd_geom = drr.backward_geometry(pipe_poses, (SZ,) * 3, res)
+    att = torch.rand((B, SZ, SZ, SZ), generator=g, device=dev) * 0.2
+    proj_in = torch.rand((B, 4) + res, generator=g, device=dev) * 2.0 - 1.0
+    drr_errs = {}
+
+    def proj_err(vol, geom):
+        """(max abs error, that error over the largest line integral)"""
+        want = project_taps_plain(vol, *geom)
+        err = _max_err(project_taps(vol, *geom), want)
+        return err, err / float(want.abs().max())
+
+    def lift_err(p, geom):
+        return _max_err(backproject_taps(p, *geom),
+                        backproject_taps_plain(p, *geom))
+
+    drr_errs["project_serving"], drr_errs["project_serving_rel"] = \
+        proj_err(att, fwd_geom)
+    drr_errs["lift_serving"] = lift_err(proj_in, bwd_geom)
+    # a ragged shape with coordinates on the edges of the zero padding
+    D2, W2, H2, rd, rh = 37, 29, 41, 53, 47
+    vol2 = torch.rand((3, D2, W2, H2), generator=g, device=dev)
+    geom2 = (_edge_pix(torch, g, (3, W2, rd), D2, dev),
+             _edge_pix(torch, g, (3, W2, rh), H2, dev),
+             torch.rand((3, rd, rh), generator=g, device=dev) + 1.0)
+    drr_errs["project_ragged"], drr_errs["project_ragged_rel"] = \
+        proj_err(vol2, geom2)
+    p2 = torch.rand((2, 3, rd, rh), generator=g, device=dev)
+    geom2b = (_edge_pix(torch, g, (3, W2, D2), rd, dev),
+              _edge_pix(torch, g, (3, W2, H2), rh, dev))
+    drr_errs["lift_ragged"] = lift_err(p2, geom2b)
+    errs["drr_project"] = max(drr_errs["project_serving"],
+                              drr_errs["project_ragged"])
+    errs["drr_backproject"] = max(drr_errs["lift_serving"],
+                                  drr_errs["lift_ragged"])
+    _emit(max_err=drr_errs, tol={"project_rel": PROJ_REL_TOL,
+                                 "lift": LIFT_TOL})
+    proj_rel = max(drr_errs["project_serving_rel"],
+                   drr_errs["project_ragged_rel"])
+    _require(proj_rel <= PROJ_REL_TOL,
+             f"projector kernel relative error {proj_rel}")
+    _require(errs["drr_backproject"] <= LIFT_TOL,
+             f"lift kernel error {errs['drr_backproject']}")
+
+    _begin("grad_check")
+    cot = torch.randn((B, 1, SZ ** 3), generator=g, device=dev)
+    grad_errs = {}
+    int_coords = torch.floor(coords)
+    for tdt in (torch.bfloat16, torch.float32):
+        for border in (False, True):
+            for name, c in (("smooth", coords), ("integer", int_coords)):
+                key = (f"{str(tdt).split('.')[-1]}/"
+                       f"{'border' if border else 'zeros'}/{name}")
+                want = warp_coord_grad_plain(taps[tdt], c, cot, border)
+                err = _max_err(warp_coord_grad(taps[tdt], c, cot, border),
+                               want)
+                grad_errs[key] = [err, err / float(want.abs().max())]
+                del want
+    errs["warp_coord_grad"] = max(e[0] for e in grad_errs.values())
+    grad_rel = max(e[1] for e in grad_errs.values())
+    cot_pca = torch.randn((B, n), generator=g, device=dev)
+    pca_grad_errs = {}
+    for key, (cg, vg) in {
+            "serving": (cot_pca, V),
+            "ragged": (torch.randn((3, 3 * 49 ** 3), generator=g, device=dev),
+                       (torch.randn((13, 3 * 49 ** 3), generator=g,
+                                    device=dev) * 0.01).bfloat16())}.items():
+        want = pca_grad_plain(cg, vg)
+        got = pca_grad(cg, vg)
+        excess = ((got - want).abs() - PCA_GRAD_RTOL * want.abs()
+                  - PCA_GRAD_REL_ATOL * float(want.abs().max())).max()
+        pca_grad_errs[key] = {"max_abs_err": _max_err(got, want),
+                              "excess_over_tol": float(excess),
+                              "bf16_values": bool(torch.equal(
+                                  got, got.bfloat16().float()))}
+    errs["pca_grad"] = max(e["max_abs_err"] for e in pca_grad_errs.values())
+    _emit(warp_grad_abs_rel_err=grad_errs,
+          warp_grad_rel_tol=WARP_GRAD_REL_TOL,
+          pca_grad=pca_grad_errs,
+          pca_grad_tol={"rtol": PCA_GRAD_RTOL,
+                        "rel_atol": PCA_GRAD_REL_ATOL})
+    _require(grad_rel <= WARP_GRAD_REL_TOL,
+             f"warp gradient kernel relative error {grad_rel}")
+    _require(all(e["excess_over_tol"] <= 0 and e["bf16_values"]
+                 for e in pca_grad_errs.values()),
+             f"PCA backward kernel disagrees: {pca_grad_errs}")
 
     # -- the main path -----------------------------------------------------
     _begin("main_path")
@@ -216,35 +405,100 @@ def main():
     tgt_hu = torch.rand(shape, generator=g, device=dev) * -1000.0
     seg = (torch.rand(shape, generator=g, device=dev) > 0.4).float()
 
-    pca_expand.launches = warp_trilinear.launches = 0
+    _zero(KERNELS)
     warped, phi = pipe.register(pca, src_hu, tgt_hu, seg, seg)
     torch.cuda.synchronize()
-    launches = {"pca_expand": pca_expand.launches,
-                "warp_trilinear": warp_trilinear.launches}
+    launches = _counts(KERNELS)
     _require(warped.shape == shape and phi.shape == (B, 3, SZ, SZ, SZ),
              f"shapes {tuple(warped.shape)}, {tuple(phi.shape)}")
     _require(bool(torch.isfinite(warped).all() and torch.isfinite(phi).all()),
              "non-finite output")
-    _require(all(v >= 1 for v in launches.values()),
+    path = ("pca_expand", "warp_trilinear", "drr_project", "drr_backproject")
+    _require(all(launches[k] >= 1 for k in path),
              f"a kernel was not launched on the main path: {launches}")
 
-    proj = drr.normalize_drr(drr.project(
+    proj = drr.normalize_drr(project(
         drr.calc_relative_atten_coef(tgt_hu[:, 0]), pipe.poses,
         pipe.resolution, pipe.spacing))
-    pca_expand.launches = warp_trilinear.launches = 0
+    _zero(KERNELS)
     warped_p, phi_p = pipe.register_projections(pca, src_hu, proj, seg)
     torch.cuda.synchronize()
-    launches_p = {"pca_expand": pca_expand.launches,
-                  "warp_trilinear": warp_trilinear.launches}
+    launches_p = _counts(KERNELS)
     _require(bool(torch.isfinite(warped_p).all()
                   and torch.isfinite(phi_p).all()),
              "non-finite output of register_projections")
-    _require(all(v >= 1 for v in launches_p.values()),
+    _require(all(launches_p[k] >= 1 for k in path if k != "drr_project"),
              f"a kernel was not launched by register_projections: "
              f"{launches_p}")
     _emit(launches=launches, launches_projections=launches_p,
           warped=list(warped.shape), phi=list(phi.shape),
           phi_range=[float(phi.min()), float(phi.max())])
+
+    # -- per-case refinement at the serving config -------------------------
+    _begin("refine")
+    # structured volumes: smooth HU fields, the target a smooth shift of
+    # the source, so that NCC has something to align; a smooth basis
+    base_hu = _smooth_field(torch, F, g, shape, 12, dev)
+    r_src = (base_hu * 400.0 - 500.0).contiguous()
+    r_tgt = (torch.roll(base_hu, shifts=(2, -3, 1), dims=(2, 3, 4)) * 400.0
+             - 500.0 + _smooth_field(torch, F, g, shape, 8, dev) * 50.0)
+    r_seg = (_smooth_field(torch, F, g, shape, 4, dev) > -0.6).float()
+    r_pca = {"vectors": _smooth_basis(torch, F, g, LATENT, SZ, 0.05, dev),
+             "mean": torch.zeros((n,), device=dev)}
+    pipe_r = RegistrationPipeline((SZ,) * 3, latent_dim=LATENT,
+                                  compute_dtype=torch.bfloat16,
+                                  refine_steps=REFINE_STEPS)
+    pipe_r.model.load_state_dict(pipe.model.state_dict())
+    torch.cuda.reset_peak_memory_stats()
+    _zero(KERNELS)
+    t0 = time.perf_counter()
+    warped_r, phi_r = pipe_r.register(r_pca, r_src, r_tgt, r_seg, r_seg)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    refine_launches = _counts(KERNELS)
+    refine_peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    expected = {"drr_project": 1, "drr_backproject": 1,
+                "pca_expand": REFINE_STEPS + 3,
+                "pca_grad": REFINE_STEPS + 1,
+                "warp_trilinear": REFINE_STEPS + 3,
+                "warp_coord_grad": REFINE_STEPS + 1}
+    res_r = pipe_r.last_refine
+    _require(bool(torch.isfinite(warped_r).all()
+                  and torch.isfinite(phi_r).all()),
+             "non-finite refined output")
+    _require(refine_launches == expected,
+             f"launch counts {refine_launches}, expected {expected}")
+    # the unrefined objective of each case: the same objective at the
+    # encoder's coefficients (a refiner of 0 steps), from the same inputs
+    inputs = {"source": normalize_hu(r_src), "target": normalize_hu(r_tgt),
+              "target_proj": drr.normalize_drr(project(
+                  drr.calc_relative_atten_coef(r_tgt[:, 0]), pipe_r.poses,
+                  pipe_r.resolution, pipe_r.spacing)),
+              "target_poses": pipe_r.poses[None],
+              "source_label": r_seg, "target_label": r_seg}
+    with torch.no_grad():
+        out0 = pipe_r.model(inputs, r_pca)
+    res0 = make_refiner((SZ,) * 3, n_steps=0,
+                        warp_taps_dtype=torch.bfloat16)(
+        out0["pca_coefs"], r_pca, mask_lung(inputs["source"], r_seg),
+        out0["target"])
+    unrefined = res0["total_per_sample"]
+    refined = res_r["total_per_sample"]
+    hist = res_r["total_history"]
+    _require(bool(torch.equal(res0["total_history"][0], hist[0])),
+             f"unrefined objective {float(res0['total_history'][0])} is not "
+             f"the refinement's step 0 {float(hist[0])}")
+    _require(bool((refined <= unrefined).all()),
+             f"refinement made a case worse: {refined.tolist()} > "
+             f"{unrefined.tolist()}")
+    _emit(launches=refine_launches, steps=REFINE_STEPS,
+          unrefined_total_per_sample=unrefined.tolist(),
+          refined_total_per_sample=refined.tolist(),
+          total_history=[round(float(x), 6) for x in hist],
+          sim_history_first_last=[float(res_r["sim_history"][0]),
+                                  float(res_r["sim_history"][-1])],
+          first_call_ms=first_ms, peak_memory_gib=refine_peak_gib)
+    del out0, res0, inputs
 
     # -- the card against the CPU at a small size --------------------------
     _begin("reference")
@@ -280,91 +534,198 @@ def main():
         _require(e["phi"] <= e["tol"][0] and e["warped"] <= e["tol"][1],
                  f"pipeline on the card disagrees with the CPU ({key} taps)")
 
+    _begin("refine_reference")
+    gs = torch.Generator(device=dev).manual_seed(2)
+    small_pca = {k: v.cpu() for k, v in {
+        "vectors": _smooth_basis(torch, F, gs, L_small, 32, 0.05, dev),
+        "mean": torch.zeros((n_small,), device=dev)}.items()}
+    field = _smooth_field(torch, F, gs, (2, 1) + small, 6, dev).cpu()
+    s_args = [field * 400.0 - 500.0,
+              torch.roll(field, shifts=(1, -2, 1), dims=(2, 3, 4)) * 400.0
+              - 500.0] + [torch.ones((2, 1) + small)] * 2
+    outs = {}
+    for where in ("cpu", "cuda"):
+        p = RegistrationPipeline(small, latent_dim=L_small,
+                                 warp_taps_dtype=torch.float32,
+                                 refine_steps=5, refine_lr=0.02, device=where)
+        p.model.load_state_dict(state)
+        pc = {k: v.to(where) for k, v in small_pca.items()}
+        outs[where] = [t.cpu() for t in
+                       p.register(pc, *(a.to(where) for a in s_args))]
+        outs[where].append(p.last_refine["total_history"].cpu())
+    refine_ref = {"phi": _max_err(outs["cuda"][1], outs["cpu"][1]),
+                  "warped": _max_err(outs["cuda"][0], outs["cpu"][0]),
+                  "total_history": _max_err(outs["cuda"][2], outs["cpu"][2]),
+                  "tol": REFINE_REF_TOL}
+    _emit(max_abs_err=refine_ref,
+          history_cpu=[float(x) for x in outs["cpu"][2]])
+    _require(refine_ref["phi"] <= REFINE_REF_TOL[0]
+             and refine_ref["warped"] <= REFINE_REF_TOL[1],
+             "refinement on the card disagrees with the CPU")
+
     # -- times -------------------------------------------------------------
     _begin("times")
+    ms, plain_ms, lib_ms = {}, {}, {}
     coefs_bf16 = coefs.to(torch.bfloat16)
-    pca_ms = _cuda_ms(lambda: pca_expand(coefs, V, mean), 20)
-    pca_plain_ms = _cuda_ms(lambda: pca_expand_plain(coefs, V, mean), 5)
-    pca_lib_ms = _cuda_ms(lambda: torch.addmm(
+    ms["pca_expand"] = _cuda_ms(lambda: pca_expand(coefs, V, mean), 20)
+    plain_ms["pca_expand"] = _cuda_ms(
+        lambda: pca_expand_plain(coefs, V, mean), 5)
+    lib_ms["pca_expand"] = _cuda_ms(lambda: torch.addmm(
         mean, coefs_bf16, V, out_dtype=torch.float32), 20)
+
+    ms["pca_grad"] = _cuda_ms(lambda: pca_grad(cot_pca, V), 20)
+    plain_ms["pca_grad"] = _cuda_ms(lambda: pca_grad_plain(cot_pca, V), 5)
+    # one cuBLAS call of the same product; it rounds g to bf16 first
+    cot_bf16 = cot_pca.bfloat16()
+    lib_ms["pca_grad"] = _cuda_ms(lambda: torch.mm(
+        cot_bf16, V.T, out_dtype=torch.float32), 20)
 
     t16 = taps[torch.bfloat16]
     t32 = taps[torch.float32]
-    warp_ms = _cuda_ms(lambda: warp_trilinear(t16, coords, False), 20)
-    warp_plain_ms = _cuda_ms(lambda: warp_trilinear_plain(t16, coords, False),
-                             3)
+    ms["warp_trilinear"] = _cuda_ms(
+        lambda: warp_trilinear(t16, coords, False), 20)
+    plain_ms["warp_trilinear"] = _cuda_ms(
+        lambda: warp_trilinear_plain(t16, coords, False), 3)
     scale = torch.tensor([2.0 / (SZ - 1)] * 3, device=dev)
     grid = (coords * scale - 1.0).flip(-1).reshape(B, SZ, SZ, SZ, 3)
-    warp_lib_ms = _cuda_ms(lambda: F.grid_sample(
+    lib_ms["warp_trilinear"] = _cuda_ms(lambda: F.grid_sample(
         t32, grid, mode="bilinear", padding_mode="zeros",
         align_corners=True), 10)
 
+    ms["warp_coord_grad"] = _cuda_ms(
+        lambda: warp_coord_grad(t16, coords, cot, False), 20)
+    plain_ms["warp_coord_grad"] = _cuda_ms(
+        lambda: warp_coord_grad_plain(t16, coords, cot, False), 3)
+    cot5 = cot.reshape(B, 1, SZ, SZ, SZ)
+    lib_ms["warp_coord_grad"] = _cuda_ms(
+        lambda: torch.ops.aten.grid_sampler_3d_backward(
+            cot5, t32, grid, 0, 0, True, [False, True]), 10)
+
+    ms["drr_project"] = _cuda_ms(lambda: project_taps(att, *fwd_geom), 20)
+    plain_ms["drr_project"] = _cuda_ms(
+        lambda: project_taps_plain(att, *fwd_geom), 5)
+    Rx, Rz, dx = drr.forward_matrices(pipe_poses, (SZ,) * 3, res,
+                                      (2.2, 2.2, 2.2))
+    lib_ms["drr_project"] = _cuda_ms(
+        lambda: drr.project_with_mats(att, Rx, Rz, dx), 5)
+    del Rx, Rz
+    ms["drr_backproject"] = _cuda_ms(
+        lambda: backproject_taps(proj_in, *bwd_geom), 20)
+    plain_ms["drr_backproject"] = _cuda_ms(
+        lambda: backproject_taps_plain(proj_in, *bwd_geom), 5)
+    Bu, Bv = drr.backward_matrices(pipe_poses, (SZ,) * 3, res)
+    lib_ms["drr_backproject"] = _cuda_ms(
+        lambda: drr.backproject_with_mats(proj_in, Bu, Bv), 5)
+    del Bu, Bv
+
     M = coords.shape[1]
-    warp_bytes = t16.numel() * 2 + coords.numel() * 4 + B * M * 4
-    del vol01, taps, t16, t32, coords, grid
+    nbytes = {
+        "pca_expand": coefs.numel() * 4 + V.numel() * 2 + mean.numel() * 4
+        + B * n * 4,
+        "pca_grad": cot_pca.numel() * 4 + V.numel() * 2 + B * LATENT * 4,
+        "warp_trilinear": t16.numel() * 2 + coords.numel() * 4 + B * M * 4,
+        "warp_coord_grad": t16.numel() * 2 + coords.numel() * 4
+        + cot.numel() * 4 + coords.numel() * 4,
+        "drr_project": att.numel() * 4 + sum(t.numel() * 4 for t in fwd_geom)
+        + B * 4 * res[0] * res[1] * 4,
+        "drr_backproject": proj_in.numel() * 4
+        + sum(t.numel() * 4 for t in bwd_geom) + B * 4 * SZ ** 3 * 4,
+    }
+    ops = {
+        "pca_expand": (2 * B * LATENT * n, PEAK_BF16_FLOPS),
+        "pca_grad": (2 * B * LATENT * n, PEAK_F32_FLOPS),
+        "warp_trilinear": (WARP_OPS_PER_OUTPUT * B * M, PEAK_F32_FLOPS),
+        "warp_coord_grad": (WARP_GRAD_OPS_PER_OUTPUT * B * M,
+                            PEAK_F32_FLOPS),
+        "drr_project": (DRR_OPS_PER_TWO_TAPS * B * 4 * SZ * res[0]
+                        * (SZ + res[1]), PEAK_F32_FLOPS),
+        "drr_backproject": (DRR_OPS_PER_TWO_TAPS * B * 4 * SZ * SZ
+                            * (res[1] + SZ), PEAK_F32_FLOPS),
+    }
+    del vol01, taps, t16, t32, coords, int_coords, grid, cot, cot5, cot_pca
+    del cot_bf16, att, proj_in
     torch.cuda.empty_cache()
-    for _ in range(2):
-        pipe.register(pca, src_hu, tgt_hu, seg, seg)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    iters = 5
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        pipe.register(pca, src_hu, tgt_hu, seg, seg)
-    torch.cuda.synchronize()
-    register_ms = (time.perf_counter() - t0) * 1e3 / iters
-    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-    _emit(register_ms=register_ms, register_per_s=B * 1e3 / register_ms,
-          peak_memory_gib=peak_gib, batch=B)
+
+    def steady(p, pca_, args_, iters):
+        for _ in range(2):
+            p.register(pca_, *args_)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            p.register(pca_, *args_)
+        torch.cuda.synchronize()
+        return ((time.perf_counter() - t0) * 1e3 / iters,
+                torch.cuda.max_memory_allocated() / 2 ** 30)
+
+    register_ms, peak_gib = steady(pipe, pca, (src_hu, tgt_hu, seg, seg), 5)
+    r_args = (r_src, r_tgt, r_seg, r_seg)
+    refine_ms, refine_peak = steady(pipe_r, r_pca, r_args, 3)
+    _emit(kernel_ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+          register_ms=register_ms, register_per_s=B * 1e3 / register_ms,
+          peak_memory_gib=peak_gib, register_refine_ms=refine_ms,
+          register_refine_per_s=B * 1e3 / refine_ms,
+          refine_ms_per_step=(refine_ms - register_ms) / (REFINE_STEPS + 1),
+          refine_peak_memory_gib=refine_peak, batch=B,
+          refine_steps=REFINE_STEPS)
+
+    def profile_call(fn):
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        kernel_ms = {}
+        for e in prof.key_averages():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                kernel_ms[e.key] = e.self_device_time_total / 1e3
+        by_layer = {}
+        for name, t in kernel_ms.items():
+            by_layer[_layer(name)] = by_layer.get(_layer(name), 0.0) + t
+        busy_ms = sum(kernel_ms.values())
+        top = sorted(kernel_ms.items(), key=lambda kv: -kv[1])[:8]
+        _emit(wall_ms=wall_ms, device_busy_ms=busy_ms,
+              device_idle_share=1.0 - busy_ms / wall_ms if busy_ms else None,
+              device_ms_by_layer={k: round(v, 4) for k, v in
+                                  sorted(by_layer.items(),
+                                         key=lambda kv: -kv[1])},
+              top_kernels=[[name[:60], round(t, 4)] for name, t in top])
 
     _begin("profile")
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        pipe.register(pca, src_hu, tgt_hu, seg, seg)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    kernel_ms = {}
-    for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            kernel_ms[e.key] = e.self_device_time_total / 1e3
-    by_layer = {}
-    for name, ms in kernel_ms.items():
-        by_layer[_layer(name)] = by_layer.get(_layer(name), 0.0) + ms
-    busy_ms = sum(kernel_ms.values())
-    top = sorted(kernel_ms.items(), key=lambda kv: -kv[1])[:6]
-    _emit(wall_ms=wall_ms, device_busy_ms=busy_ms,
-          device_idle_share=1.0 - busy_ms / wall_ms if busy_ms else None,
-          device_ms_by_layer={k: round(v, 4) for k, v in
-                              sorted(by_layer.items(), key=lambda kv: -kv[1])},
-          top_kernels=[[name[:60], round(ms, 4)] for name, ms in top])
+    profile_call(lambda: pipe.register(pca, src_hu, tgt_hu, seg, seg))
+    _begin("profile_refine")
+    profile_call(lambda: pipe_r.register(r_pca, *r_args))
 
-    def bound(nbytes, ops, peak):
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = ops / peak * 1e3
-        return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else \
-            "operations"
-
-    pca_bound, pca_by = bound(
-        coefs.numel() * 4 + V.numel() * 2 + mean.numel() * 4 + B * n * 4,
-        2 * B * LATENT * n, PEAK_BF16_FLOPS)
-    warp_bound, warp_by = bound(warp_bytes, WARP_OPS_PER_OUTPUT * B * M,
-                                PEAK_F32_FLOPS)
-    kernels = [
-        {"name": "pca_expand", "route": "cuda",
-         "source": "liftreg_tpu_torch/csrc/pca_expand.cu",
-         "replaces": "liftreg_tpu/ops/pallas_pca.py:30",
-         "launches": launches["pca_expand"], "max_abs_err": pca_max,
-         "ms": pca_ms, "plain_ms": pca_plain_ms, "bound_ms": pca_bound,
-         "bound_by": pca_by, "library_ms": pca_lib_ms},
-        {"name": "warp_trilinear", "route": "cuda",
-         "source": "liftreg_tpu_torch/csrc/warp_trilinear.cu",
-         "replaces": "liftreg_tpu/ops/pallas_warp.py:61",
-         "launches": launches["warp_trilinear"], "max_abs_err": warp_max,
-         "ms": warp_ms, "plain_ms": warp_plain_ms, "bound_ms": warp_bound,
-         "bound_by": warp_by, "library_ms": warp_lib_ms},
-    ]
+    replaces = {
+        "pca_expand": "liftreg_tpu/ops/pallas_pca.py:30",
+        "pca_grad": "liftreg_tpu/ops/pallas_pca.py:78",
+        "warp_trilinear": "liftreg_tpu/ops/pallas_warp.py:61",
+        "warp_coord_grad": "liftreg_tpu/ops/pallas_warp.py:61",
+        "drr_project": "liftreg_tpu/ops/pallas_drr.py:27",
+        "drr_backproject": "liftreg_tpu/ops/pallas_drr.py:59",
+    }
+    sources = {
+        "pca_expand": "liftreg_tpu_torch/csrc/pca_expand.cu",
+        "pca_grad": "liftreg_tpu_torch/csrc/pca_expand.cu",
+        "warp_trilinear": "liftreg_tpu_torch/csrc/warp_trilinear.cu",
+        "warp_coord_grad": "liftreg_tpu_torch/csrc/warp_trilinear.cu",
+        "drr_project": "liftreg_tpu_torch/csrc/drr_project.cu",
+        "drr_backproject": "liftreg_tpu_torch/csrc/drr_backproject.cu",
+    }
+    kernels = []
+    for name in KERNELS:
+        t_bytes = nbytes[name] / HBM_BYTES_PER_S * 1e3
+        t_ops = ops[name][0] / ops[name][1] * 1e3
+        kernels.append({
+            "name": name, "route": "cuda", "source": sources[name],
+            "replaces": replaces[name],
+            "launches": refine_launches[name], "max_abs_err": errs[name],
+            "ms": ms[name], "plain_ms": plain_ms[name],
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": lib_ms[name]})
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

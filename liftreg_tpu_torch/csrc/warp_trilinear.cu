@@ -22,7 +22,26 @@
 // the (image+1)/2 intensity shift cast to the tap type, and phi converted to
 // pixel coordinates; reading phi here instead would save the coordinate
 // buffer and is left to a later change.
+//
+// The second entry, liftreg_warp_coord_grad, is the coordinate gradient:
+// dcoords (B, M, 3) = sum_c g[b,c,m] * d out[b,c,m] / d coords[b,m,:], for
+// the cotangent g (B, C, M). It replaces the with_grad variant of the TPU
+// kernel (pallas_warp.py:_warp_plane_kernel with with_grad=True, reached
+// through warp_plane_sample's custom VJP) by gathering the 8 taps again
+// rather than storing the per-channel residual (197 MB at the serving
+// shape). At a kink it follows the path the refinement differentiates in the
+// JAX package, XLA autodiff of resample.warp_image, and not the TPU kernel's
+// own where(w > 0, -sign(t), 0):
+//   d|t|/dt = +1 at t = 0; d max(0, y)/dy = 1/2 at y = 0; d clip/dc = 1/2 at
+//   either bound of border padding;
+//   bf16 taps (resample._oct_plain): every axis as in axis_weights above;
+//   f32 taps (resample._trilinear_quad): y and x as above, but z from
+//   z0 = floor(c), weights (1 - f, f) with f = c - z0, times the zeros
+//   padding mask of each tap, so d/dz is (-mask0, +mask1) even at integers.
+// Bound: bytes, as the forward plus the cotangent and dcoords (~0.46 GB at
+// the serving shape, ~0.14 ms).
 #include <cstdint>
+#include <type_traits>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -99,6 +118,135 @@ cudaError_t launch(const void* taps, const float* coords, float* out,
   return cudaGetLastError();
 }
 
+// d clip(c, 0, n-1) / dc under JAX's convention (1/2 at either bound)
+__device__ __forceinline__ float clip_grad(float c, float hi) {
+  if (c > 0.f && c < hi) return 1.f;
+  return (c == 0.f || c == hi) ? 0.5f : 0.f;
+}
+
+// d max(0, y) / dy with 1/2 at the tie, and d|t|/dt with +1 at 0
+__device__ __forceinline__ float relu_grad(float y) {
+  return y > 0.f ? 1.f : (y == 0.f ? 0.5f : 0.f);
+}
+
+__device__ __forceinline__ float abs_grad(float t) {
+  return t >= 0.f ? 1.f : -1.f;
+}
+
+// One axis of the warp: the two tap indices, their weights and the weights'
+// derivatives with respect to the (unclipped) coordinate.
+struct AxisGrad {
+  int64_t i0, i1;
+  float w0, w1, d0, d1;
+};
+
+__device__ __forceinline__ AxisGrad oct_axis(float c, int64_t n, int border) {
+  float cg = 1.f;
+  if (border) {
+    const float hi = static_cast<float>(n - 1);
+    cg = clip_grad(c, hi);
+    c = fminf(fmaxf(c, 0.f), hi);
+  }
+  const float s = fminf(fmaxf(floorf(c), 0.f), static_cast<float>(n - 2));
+  const float t = c - s;
+  const float y0 = 1.f - fabsf(t);
+  const float y1 = 1.f - fabsf(t - 1.f);
+  AxisGrad a;
+  a.i0 = static_cast<int64_t>(s);
+  a.i1 = a.i0 + 1;
+  a.w0 = fmaxf(0.f, y0);
+  a.w1 = fmaxf(0.f, y1);
+  a.d0 = -abs_grad(t) * relu_grad(y0) * cg;
+  a.d1 = -abs_grad(t - 1.f) * relu_grad(y1) * cg;
+  return a;
+}
+
+__device__ __forceinline__ AxisGrad quad_z_axis(float c, int64_t n,
+                                                int border) {
+  float cg = 1.f;
+  if (border) {
+    const float hi = static_cast<float>(n - 1);
+    cg = clip_grad(c, hi);
+    c = fminf(fmaxf(c, 0.f), hi);
+  }
+  const float z0 = floorf(c);
+  const float f = c - z0;
+  const int64_t k0 = static_cast<int64_t>(z0);
+  const float m0 = (border || (k0 >= 0 && k0 <= n - 1)) ? 1.f : 0.f;
+  const float m1 = (border || (k0 + 1 >= 0 && k0 + 1 <= n - 1)) ? 1.f : 0.f;
+  AxisGrad a;
+  a.i0 = k0 < 0 ? 0 : (k0 > n - 1 ? n - 1 : k0);
+  a.i1 = k0 + 1 < 0 ? 0 : (k0 + 1 > n - 1 ? n - 1 : k0 + 1);
+  a.w0 = (1.f - f) * m0;
+  a.w1 = f * m1;
+  a.d0 = -m0 * cg;
+  a.d1 = m1 * cg;
+  return a;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+warp_coord_grad_kernel(const T* __restrict__ taps,
+                       const float* __restrict__ coords,
+                       const float* __restrict__ g,
+                       float* __restrict__ dcoords, int64_t B, int64_t C,
+                       int64_t D, int64_t W, int64_t H, int64_t M,
+                       int border) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= B * M) return;
+  const int64_t b = i / M;
+  const int64_t m = i - b * M;
+
+  const float cz = __ldg(coords + 3 * i + 0);
+  const AxisGrad z = std::is_same<T, float>::value
+                         ? quad_z_axis(cz, D, border)
+                         : oct_axis(cz, D, border);
+  const AxisGrad y = oct_axis(__ldg(coords + 3 * i + 1), W, border);
+  const AxisGrad x = oct_axis(__ldg(coords + 3 * i + 2), H, border);
+  const int64_t zi[2] = {z.i0, z.i1}, yi[2] = {y.i0, y.i1},
+                xi[2] = {x.i0, x.i1};
+  const float wz[2] = {z.w0, z.w1}, wy[2] = {y.w0, y.w1}, wx[2] = {x.w0, x.w1};
+  const float dz[2] = {z.d0, z.d1}, dy[2] = {y.d0, y.d1}, dx[2] = {x.d0, x.d1};
+
+  const int64_t S = D * W * H;
+  float gz = 0.f, gy = 0.f, gx = 0.f;
+  for (int64_t ch = 0; ch < C; ++ch) {
+    const float gc = __ldg(g + (b * C + ch) * M + m);
+    const T* v = taps + (b * C + ch) * S;
+    float sz = 0.f, sy = 0.f, sx = 0.f;
+#pragma unroll
+    for (int a = 0; a < 2; ++a)
+#pragma unroll
+      for (int c = 0; c < 2; ++c)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float tap = load_tap(v, (zi[a] * W + yi[c]) * H + xi[e]);
+          sz = fmaf(tap, dz[a] * wy[c] * wx[e], sz);
+          sy = fmaf(tap, wz[a] * dy[c] * wx[e], sy);
+          sx = fmaf(tap, wz[a] * wy[c] * dx[e], sx);
+        }
+    gz = fmaf(gc, sz, gz);
+    gy = fmaf(gc, sy, gy);
+    gx = fmaf(gc, sx, gx);
+  }
+  dcoords[3 * i + 0] = gz;
+  dcoords[3 * i + 1] = gy;
+  dcoords[3 * i + 2] = gx;
+}
+
+template <typename T>
+cudaError_t launch_grad(const void* taps, const float* coords, const float* g,
+                        float* dcoords, int64_t B, int64_t C, int64_t D,
+                        int64_t W, int64_t H, int64_t M, int border,
+                        cudaStream_t stream) {
+  const unsigned blocks =
+      static_cast<unsigned>((B * M + kThreads - 1) / kThreads);
+  warp_coord_grad_kernel<T><<<blocks, kThreads, 0, stream>>>(
+      static_cast<const T*>(taps), coords, g, dcoords, B, C, D, W, H, M,
+      border);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Launches on `stream` without synchronising; returns cudaGetLastError().
@@ -115,4 +263,21 @@ extern "C" int liftreg_warp_trilinear(const void* taps, int taps_bf16,
     return launch<__nv_bfloat16>(taps, coords, out, B, C, D, W, H, M, border,
                                  s);
   return launch<float>(taps, coords, out, B, C, D, W, H, M, border, s);
+}
+
+// Launches on `stream` without synchronising; returns cudaGetLastError().
+// g (B, C, M) is the cotangent of the forward's output, dcoords (B, M, 3)
+// receives the coordinate gradient; other arguments as above.
+extern "C" int liftreg_warp_coord_grad(const void* taps, int taps_bf16,
+                                       const float* coords, const float* g,
+                                       float* dcoords, int64_t B, int64_t C,
+                                       int64_t D, int64_t W, int64_t H,
+                                       int64_t M, int border, void* stream) {
+  if (B * M == 0) return static_cast<int>(cudaSuccess);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (taps_bf16)
+    return launch_grad<__nv_bfloat16>(taps, coords, g, dcoords, B, C, D, W,
+                                      H, M, border, s);
+  return launch_grad<float>(taps, coords, g, dcoords, B, C, D, W, H, M,
+                            border, s);
 }

@@ -14,7 +14,8 @@ from torch import nn
 
 from ..coords import identity_map
 from ..ops import drr, resample
-from ..ops.pca_kernel import pca_expand
+from ..ops.drr_kernel import backproject_taps
+from ..ops.pca_kernel import pca_expand_ad
 from .blocks import ConvBlock, FullyConnectBlock
 
 
@@ -69,10 +70,12 @@ def expand_pca(coefs, pca_vectors, pca_mean, img_sz):
 
     ``pca_vectors`` (L, 3*D*W*H) in the on-disk layout, ``pca_mean``
     (3*D*W*H,) f32. A bf16 basis goes to the PCA kernel (the plain version
-    on CPU); an f32 basis to an f32 ``torch.matmul``."""
+    on CPU), differentiable in ``coefs`` through the kernel's backward; an
+    f32 basis to an f32 ``torch.matmul``."""
     B = coefs.shape[0]
     if pca_vectors.dtype == torch.bfloat16:
-        disp = pca_expand(coefs.float().contiguous(), pca_vectors, pca_mean)
+        disp = pca_expand_ad(coefs.float().contiguous(), pca_vectors,
+                             pca_mean)
     else:
         disp = coefs @ pca_vectors.float() + pca_mean
     return disp.reshape(B, 3, *img_sz)
@@ -80,7 +83,10 @@ def expand_pca(coefs, pca_vectors, pca_mean, img_sz):
 
 class LiftRegSubspaceBackproj(nn.Module):
     """``forward(inputs, pca)`` with ``pca = {'vectors': (L, 3*D*W*H),
-    'mean': (3*D*W*H,)}``; returns the JAX model's output dict."""
+    'mean': (3*D*W*H,)}``; returns the JAX model's output dict. An optional
+    ``inputs["lift_geometry"]`` carries the lift's prebuilt
+    ``drr.backward_geometry``, which must be built for the detector size of
+    ``inputs["target_proj"]``."""
 
     def __init__(self, img_sz, latent_dim=56, drr_feature_num=4,
                  enc_filters=(16, 32, 32, 32, 32, 32), compute_dtype=None,
@@ -95,12 +101,17 @@ class LiftRegSubspaceBackproj(nn.Module):
                                        self.img_sz, enc_filters,
                                        dtype=compute_dtype)
 
-    def lift(self, target_proj, poses):
+    def lift(self, target_proj, poses, geometry=None):
         """Backproject (B, P, pw, ph) projections into (B, P, D, W, H)
-        feature volumes, without gradient (the reference detaches)."""
+        feature volumes, without gradient (the reference detaches).
+        ``geometry`` is ``drr.backward_geometry`` of the poses, built here
+        when not given."""
         with torch.no_grad():
-            return drr.backproject(target_proj, poses, self.img_sz,
-                                   plane_chunk=self.backproject_chunk)
+            if geometry is None:
+                geometry = drr.backward_geometry(poses, self.img_sz,
+                                                 target_proj.shape[2:])
+            return backproject_taps(target_proj.contiguous(), *geometry,
+                                    plane_chunk=self.backproject_chunk)
 
     def forward(self, inputs, pca):
         moving = inputs["source"]            # (B, 1, D, W, H)
@@ -115,7 +126,7 @@ class LiftRegSubspaceBackproj(nn.Module):
         else:
             moving_cp, target_cp = moving, target
 
-        lifted = self.lift(target_proj, poses)
+        lifted = self.lift(target_proj, poses, inputs.get("lift_geometry"))
         x = torch.cat([moving, lifted], dim=1)           # (B, 1+P, D, W, H)
         if self.compute_dtype is not None:
             x = x.to(self.compute_dtype)

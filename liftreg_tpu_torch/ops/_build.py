@@ -1,12 +1,13 @@
 """Build the port's CUDA kernels and load them.
 
-One ``nvcc`` call compiles every source under ``liftreg_tpu_torch/csrc/``
-for ``sm_90a`` into one shared library with a plain ``extern "C"``
+Every source under ``liftreg_tpu_torch/csrc/`` is compiled for ``sm_90a``
+by its own ``nvcc`` process, all started together, and one more ``nvcc``
+links the objects into one shared library with a plain ``extern "C"``
 interface, which is loaded with ``ctypes`` (no PyTorch headers, so the
 build takes seconds). The library goes to
 ``build/liftreg_tpu_torch/<hash of the sources and flags>/`` beside the
 package, at first use, and is reused while the sources are unchanged.
-The compiler's output goes to ``build.log`` in that directory.
+The compilers' output goes to ``build.log`` in that directory.
 """
 from __future__ import annotations
 
@@ -22,10 +23,11 @@ from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = tuple(_PKG / "csrc" / name
-                for name in ("pca_expand.cu", "warp_trilinear.cu"))
+                for name in ("pca_expand.cu", "warp_trilinear.cu",
+                             "drr_project.cu", "drr_backproject.cu"))
 BUILD_ROOT = _PKG.parent / "build" / "liftreg_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _LIB_NAME = "libliftreg_kernels.so"
 
 
@@ -63,19 +65,34 @@ def build() -> Path:
         return lib
     nvcc = find_nvcc()
     lib.parent.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{_LIB_NAME}.{os.getpid()}.tmp")
-    log = lib.parent / "build.log"
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *(str(s) for s in SOURCES)]
+    tag = os.getpid()
+    tmp = lib.with_name(f"{_LIB_NAME}.{tag}.tmp")
+    objs = [lib.with_name(f"{src.stem}.{tag}.o") for src in SOURCES]
+    logs = [lib.with_name(f"{src.stem}.{tag}.log") for src in SOURCES]
     t0 = time.perf_counter()
-    with open(log, "w") as f:
-        f.write(" ".join(cmd) + "\n")
-        f.flush()
-        rc = subprocess.run(cmd, stdout=f, stderr=subprocess.STDOUT).returncode
+    procs = []
+    for src, obj, log in zip(SOURCES, objs, logs):
+        with open(log, "w") as f:
+            procs.append(subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                stdout=f, stderr=subprocess.STDOUT))
+    rcs = [p.wait() for p in procs]
+    if not any(rcs):
+        with open(logs[0], "a") as f:
+            rcs.append(subprocess.run(
+                [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
+                 *map(str, objs)],
+                stdout=f, stderr=subprocess.STDOUT).returncode)
     seconds = time.perf_counter() - t0
-    if rc != 0:
+    log = lib.parent / "build.log"
+    log.write_text("".join(f"== {src.name}\n{lg.read_text(errors='replace')}"
+                           for src, lg in zip(SOURCES, logs)))
+    for path in (*objs, *logs):
+        path.unlink(missing_ok=True)
+    if any(rcs):
         tail = log.read_text(errors="replace").splitlines()[-40:]
         print("\n".join(tail), file=sys.stderr)
-        raise RuntimeError(f"nvcc failed with exit code {rc} after "
+        raise RuntimeError(f"nvcc failed (exit codes {rcs}) after "
                            f"{seconds:.1f} s; full log: {log}")
     os.replace(tmp, lib)  # atomic: a concurrent loader sees all or nothing
     print(f"liftreg_tpu_torch: nvcc built {len(SOURCES)} sources in "
@@ -94,9 +111,41 @@ def library() -> ctypes.CDLL:
     lib.liftreg_warp_trilinear.argtypes = [ptr, i32, ptr, ptr, i64, i64, i64,
                                            i64, i64, i64, i32, ptr]
     lib.liftreg_warp_trilinear.restype = i32
+    lib.liftreg_pca_grad.argtypes = [ptr, ptr, ptr, ptr, i64, i64, i64, i32,
+                                     i64, ptr]
+    lib.liftreg_pca_grad.restype = i32
+    lib.liftreg_warp_coord_grad.argtypes = [ptr, i32, ptr, ptr, ptr, i64, i64,
+                                            i64, i64, i64, i64, i32, ptr]
+    lib.liftreg_warp_coord_grad.restype = i32
+    lib.liftreg_drr_project.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, i64,
+                                        i64, i64, i64, i64, i64, ptr]
+    lib.liftreg_drr_project.restype = i32
+    lib.liftreg_drr_backproject.argtypes = [ptr, ptr, ptr, ptr, i64, i64, i64,
+                                            i64, i64, i64, i64, ptr]
+    lib.liftreg_drr_backproject.restype = i32
     lib.liftreg_error_string.argtypes = [i32]
     lib.liftreg_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def inputs_device(name: str, tensors: dict, cuda_dtypes: dict):
+    """The one device that a wrapper's ``tensors`` (``{label: tensor}``) lie
+    on, which must be the CPU or a CUDA card. On CUDA each tensor must also
+    be contiguous, with a dtype in ``cuda_dtypes[label]`` (a tuple)."""
+    devices = {t.device for t in tensors.values()}
+    if len(devices) != 1:
+        raise ValueError(f"{name}: tensors on several devices {devices}")
+    (device,) = devices
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {device}")
+    if device.type == "cuda":
+        for label, t in tensors.items():
+            if t.dtype not in cuda_dtypes[label]:
+                raise TypeError(f"{name}: {label} must be one of "
+                                f"{cuda_dtypes[label]}, got {t.dtype}")
+            if not t.is_contiguous():
+                raise ValueError(f"{name}: {label} is not contiguous")
+    return device
 
 
 def check(rc: int, what: str) -> None:

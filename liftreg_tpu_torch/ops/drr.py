@@ -7,10 +7,14 @@ interpolation matrices per coronal plane ``k``:
     proj[p,u,v] = 0.1*dx[p,u,v] * sum_k  Rx[p,k] @ vol[:,k,:] @ Rz[p,k]^T
 
 and the backprojection lift is ``out[b,p,:,k,:] = Bu[p,k] @ proj[b,p] @
-Bv[p,k]^T`` with the reversed coronal axis folded into ``Bu``/``Bv``. The
-products stay plain f32 ``torch.matmul`` (the JAX package leaves them to
-XLA at HIGHEST precision); callers that need f32 parity on CUDA turn TF32
-off (``RegistrationPipeline`` does).
+Bv[p,k]^T`` with the reversed coronal axis folded into ``Bu``/``Bv``.
+:func:`forward_geometry` and :func:`backward_geometry` give the pixel
+coordinates whose 2-tap rows make those matrices; the kernels of
+:mod:`.drr_kernel` read the coordinates, and the dense products here
+(plain f32 ``torch.matmul``, as the JAX package leaves them to XLA at
+HIGHEST precision) are their plain versions; ``project`` and
+``backproject`` from poses are in :mod:`.drr_kernel`. Callers that need f32 parity
+on CUDA turn TF32 off (``RegistrationPipeline`` does).
 """
 from __future__ import annotations
 
@@ -57,10 +61,12 @@ def _linspace(a, b, n, like):
     return torch.linspace(a, b, n, dtype=like.dtype, device=like.device)
 
 
-def forward_matrices(poses, vol_shape, resolution, spacing):
-    """(Rx (P, W, res_d, D), Rz (P, W, res_h, H), dx (P, res_d, res_h)) for
-    :func:`project`; ``poses`` is a (P, 3) f32 tensor on the target device,
-    dx the path length per plane step in mm."""
+def forward_geometry(poses, vol_shape, resolution, spacing):
+    """Per-plane pixel coordinates of the projector's rays: ``x_pix``
+    (P, W, res_d) along axis 0 and ``z_pix`` (P, W, res_h) along axis 2 for
+    each coronal plane, and ``dx`` (P, res_d, res_h), the path length per
+    plane step in mm. ``poses`` is a (P, 3) f32 tensor on the target
+    device. The poses are static, so callers build this once."""
     D, W, H = [int(s) for s in vol_shape]
     res_d, res_h = [int(r) for r in resolution]
     spacing = torch.as_tensor(spacing, dtype=poses.dtype, device=poses.device)
@@ -76,20 +82,27 @@ def forward_matrices(poses, vol_shape, resolution, spacing):
                                               - ez[:, None, None])
     x_pix = (px / D + 0.5) * (D - 1.0)                               # (P, W, res_d)
     z_pix = (pz / H + 0.5) * (H - 1.0)                               # (P, W, res_h)
-    Rx = _two_tap_matrix(x_pix, D)
-    Rz = _two_tap_matrix(z_pix, H)
 
     rx = (lin_x[None, :] - ex[:, None]) / (-ey[:, None])             # (P, res_d)
     rz = (lin_y[None, :] - ez[:, None]) / (-ey[:, None])             # (P, res_h)
     dx = torch.sqrt((rx[:, :, None] * spacing[0]) ** 2
                     + spacing[1] ** 2
                     + (rz[:, None, :] * spacing[2]) ** 2)
-    return Rx, Rz, dx
+    return x_pix.contiguous(), z_pix.contiguous(), dx.contiguous()
 
 
-def backward_matrices(poses, vol_shape, proj_shape):
-    """(Bu (P, W, D, proj_w), Bv (P, W, H, proj_h)) for :func:`backproject`,
-    with the reversed coronal axis ``y_world = W-1-j``."""
+def forward_matrices(poses, vol_shape, resolution, spacing):
+    """(Rx (P, W, res_d, D), Rz (P, W, res_h, H), dx (P, res_d, res_h)) for
+    :func:`project_with_mats`: the dense form of :func:`forward_geometry`."""
+    x_pix, z_pix, dx = forward_geometry(poses, vol_shape, resolution, spacing)
+    return (_two_tap_matrix(x_pix, int(vol_shape[0])),
+            _two_tap_matrix(z_pix, int(vol_shape[2])), dx)
+
+
+def backward_geometry(poses, vol_shape, proj_shape):
+    """Per-plane detector coordinates of the lift: ``u_pix`` (P, W, D) and
+    ``v_pix`` (P, W, H), with the reversed coronal axis ``y_world = W-1-j``
+    folded in."""
     D, W, H = [int(s) for s in vol_shape]
     proj_w, proj_h = [int(s) for s in proj_shape]
     ex, ey, ez = poses[:, 0], poses[:, 1], poses[:, 2]
@@ -104,7 +117,16 @@ def backward_matrices(poses, vol_shape, proj_shape):
         + ez[:, None, None]
     u_pix = (u3 / proj_w + 0.5) * (proj_w - 1.0)                     # (P, W, D)
     v_pix = (v3 / proj_h + 0.5) * (proj_h - 1.0)                     # (P, W, H)
-    return _two_tap_matrix(u_pix, proj_w), _two_tap_matrix(v_pix, proj_h)
+    return u_pix.contiguous(), v_pix.contiguous()
+
+
+def backward_matrices(poses, vol_shape, proj_shape):
+    """(Bu (P, W, D, proj_w), Bv (P, W, H, proj_h)) for
+    :func:`backproject_with_mats`: the dense form of
+    :func:`backward_geometry`."""
+    u_pix, v_pix = backward_geometry(poses, vol_shape, proj_shape)
+    return (_two_tap_matrix(u_pix, int(proj_shape[0])),
+            _two_tap_matrix(v_pix, int(proj_shape[1])))
 
 
 def project_with_mats(vol, Rx, Rz, dx, plane_chunk=32):
@@ -127,21 +149,6 @@ def project_with_mats(vol, Rx, Rz, dx, plane_chunk=32):
     return total * dx[None] * 0.1  # mm -> cm
 
 
-def project(vol, poses, resolution=None, spacing=(2.2, 2.2, 2.2),
-            plane_chunk=32):
-    """DRR of ``(B, D, W, H)`` (or ``(D, W, H)``) attenuation volumes;
-    ``poses`` (P, 3) numpy or tensor in voxel units."""
-    squeeze = vol.dim() == 3
-    if squeeze:
-        vol = vol[None]
-    if resolution is None:
-        resolution = default_resolution(vol.shape[1:])
-    poses = torch.as_tensor(poses, dtype=vol.dtype, device=vol.device)
-    Rx, Rz, dx = forward_matrices(poses, vol.shape[1:], resolution, spacing)
-    out = project_with_mats(vol, Rx, Rz, dx, plane_chunk=plane_chunk)
-    return out[0] if squeeze else out
-
-
 def backproject_with_mats(proj, Bu, Bv, plane_chunk=16):
     """proj (B, P, proj_w, proj_h) -> (B, P, D, W, H), chunked over the
     coronal axis."""
@@ -158,15 +165,3 @@ def backproject_with_mats(proj, Bu, Bv, plane_chunk=16):
         t = torch.matmul(t, Bv[None, :, j0:j1].transpose(-1, -2))
         out[:, :, :, j0:j1, :] = t.permute(0, 1, 3, 2, 4)
     return out
-
-
-def backproject(proj, poses, vol_shape, plane_chunk=16):
-    """Backproject ``(B, P, proj_w, proj_h)`` (or unbatched) projections
-    into ``(B, P, D, W, H)`` feature volumes."""
-    squeeze = proj.dim() == 3
-    if squeeze:
-        proj = proj[None]
-    poses = torch.as_tensor(poses, dtype=proj.dtype, device=proj.device)
-    Bu, Bv = backward_matrices(poses, vol_shape, proj.shape[2:])
-    out = backproject_with_mats(proj, Bu, Bv, plane_chunk=plane_chunk)
-    return out[0] if squeeze else out

@@ -11,6 +11,14 @@ of any length is masked (the TPU wrapper instead fell back to XLA there).
 :func:`pca_expand` launches the kernel for CUDA tensors and runs
 :func:`pca_expand_plain` for CPU tensors; it never falls back from one to
 the other. ``pca_expand.launches`` counts kernel launches.
+
+The backward, ``dcoefs = bf16(g @ V^T)``, is the kernel's second entry
+(:func:`pca_grad`, plain version :func:`pca_grad_plain`); it rounds the f32
+product to bf16 as JAX's autodiff of ``expand_pca`` does (the cast of the
+coefficients to bf16 is the last op before the dot). :func:`pca_expand_ad`
+wraps forward and backward in a ``torch.autograd.Function``,
+differentiable in the coefficients only: every JAX path holds the basis
+and the mean fixed.
 """
 from __future__ import annotations
 
@@ -21,6 +29,11 @@ from . import _build
 #: the kernel keeps one accumulator row per batch row in registers
 MAX_BATCH = 8
 _MAX_SMEM = 48 * 1024
+_F32 = (torch.float32,)
+#: the backward's threads per block (csrc/pca_expand.cu kThreads) and the
+#: blocks it starts per SM; each block keeps an (L, B) sum per warp
+_GRAD_WARPS = 256 // 32
+_GRAD_BLOCKS_PER_SM = 4
 
 
 def pca_expand_plain(coefs, vectors, mean):
@@ -29,37 +42,37 @@ def pca_expand_plain(coefs, vectors, mean):
     return coefs.to(torch.bfloat16).float() @ vectors.float() + mean
 
 
+def _check(coefs, vectors, name, rows, **more):
+    """Device, dtypes and shapes of a call; returns (device, B, L, n).
+    ``more`` holds further f32 operands (the mean)."""
+    device = _build.inputs_device(
+        name, {"first operand": coefs, "vectors": vectors, **more},
+        {"first operand": _F32, "vectors": (torch.bfloat16,), "mean": _F32})
+    if coefs.dim() != 2 or vectors.dim() != 2:
+        raise ValueError(f"{name}: want 2-D tensors; got "
+                         f"{tuple(coefs.shape)}, {tuple(vectors.shape)}")
+    B = coefs.shape[0]
+    L, n = vectors.shape
+    if coefs.shape[1] != rows(L, n):
+        raise ValueError(f"{name}: shapes {tuple(coefs.shape)}, "
+                         f"{tuple(vectors.shape)} do not agree")
+    if device.type == "cuda" and not 1 <= B <= MAX_BATCH:
+        raise ValueError(f"{name}: batch {B} outside [1, {MAX_BATCH}]")
+    return device, B, L, n
+
+
 def pca_expand(coefs, vectors, mean):
     """The kernel on CUDA tensors, the plain version on CPU tensors."""
-    devices = {t.device for t in (coefs, vectors, mean)}
-    if len(devices) != 1:
-        raise ValueError(f"pca_expand: tensors on several devices {devices}")
-    (device,) = devices
+    device, B, L, n = _check(coefs, vectors, "pca_expand", lambda L, n: L,
+                             mean=mean)
+    if mean.shape != (n,):
+        raise ValueError(f"pca_expand: want mean ({n},); got "
+                         f"{tuple(mean.shape)}")
     if device.type == "cpu":
         return pca_expand_plain(coefs, vectors, mean)
-    if device.type != "cuda":
-        raise ValueError(f"pca_expand: unsupported device {device}")
-    if coefs.dtype != torch.float32 or vectors.dtype != torch.bfloat16 \
-            or mean.dtype != torch.float32:
-        raise TypeError("pca_expand: want coefs f32, vectors bf16, mean f32; "
-                        f"got {coefs.dtype}, {vectors.dtype}, {mean.dtype}")
-    if coefs.dim() != 2 or vectors.dim() != 2 or mean.dim() != 1:
-        raise ValueError("pca_expand: want coefs (B, L), vectors (L, n), "
-                         "mean (n,)")
-    B, L = coefs.shape
-    n = vectors.shape[1]
-    if vectors.shape[0] != L or mean.shape[0] != n:
-        raise ValueError(f"pca_expand: shapes {tuple(coefs.shape)}, "
-                         f"{tuple(vectors.shape)}, {tuple(mean.shape)} "
-                         "do not agree")
-    if not 1 <= B <= MAX_BATCH:
-        raise ValueError(f"pca_expand: batch {B} outside [1, {MAX_BATCH}]")
     if B * L * 4 > _MAX_SMEM:
         raise ValueError(f"pca_expand: B*L = {B * L} coefficients exceed "
                          "the kernel's shared memory")
-    for name, t in (("coefs", coefs), ("vectors", vectors), ("mean", mean)):
-        if not t.is_contiguous():
-            raise ValueError(f"pca_expand: {name} is not contiguous")
     out = torch.empty((B, n), dtype=torch.float32, device=device)
     vec = int(n % 8 == 0 and all(t.data_ptr() % 16 == 0
                                  for t in (vectors, mean, out)))
@@ -75,3 +88,66 @@ def pca_expand(coefs, vectors, mean):
 
 
 pca_expand.launches = 0
+
+
+def pca_grad_plain(g, vectors):
+    """g (B, n) f32, vectors (L, n) bf16 -> dcoefs (B, L) f32: the f32
+    product with the widened basis, rounded to bf16 and back."""
+    return (g.float() @ vectors.float().T).to(torch.bfloat16).float()
+
+
+def pca_grad(g, vectors):
+    """The backward kernel on CUDA tensors, the plain version on CPU
+    tensors. ``pca_grad.launches`` counts kernel launches."""
+    device, B, L, n = _check(g, vectors, "pca_grad", lambda L, n: n)
+    if device.type == "cpu":
+        return pca_grad_plain(g, vectors)
+    if _GRAD_WARPS * L * B * 4 > _MAX_SMEM:
+        raise ValueError(f"pca_grad: B*L = {B * L} exceeds the kernel's "
+                         "shared memory")
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    tiles = -(-n // (_GRAD_WARPS * 32 * 8))
+    blocks = max(1, min(tiles, _GRAD_BLOCKS_PER_SM * sms))
+    partial = torch.empty((blocks, L, B), dtype=torch.float32, device=device)
+    dcoefs = torch.empty((B, L), dtype=torch.float32, device=device)
+    vec = int(n % 8 == 0 and g.data_ptr() % 16 == 0
+              and vectors.data_ptr() % 16 == 0)
+    lib = _build.library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.liftreg_pca_grad(g.data_ptr(), vectors.data_ptr(),
+                                  partial.data_ptr(), dcoefs.data_ptr(), B, L,
+                                  n, vec, blocks, stream)
+    _build.check(rc, "pca_grad")
+    pca_grad.launches += 1
+    return dcoefs
+
+
+pca_grad.launches = 0
+
+
+class _PcaExpand(torch.autograd.Function):
+    """Forward :func:`pca_expand`, backward :func:`pca_grad`."""
+
+    @staticmethod
+    def forward(ctx, coefs, vectors, mean):
+        ctx.save_for_backward(vectors)
+        return pca_expand(coefs, vectors, mean)
+
+    @staticmethod
+    def backward(ctx, g):
+        (vectors,) = ctx.saved_tensors
+        return pca_grad(g.contiguous(), vectors), None, None
+
+
+def pca_expand_ad(coefs, vectors, mean):
+    """:func:`pca_expand`, differentiable with respect to ``coefs``. Raises
+    if the basis or the mean requires grad: they are fixed in every path of
+    the JAX package."""
+    if torch.is_grad_enabled() and (vectors.requires_grad
+                                    or mean.requires_grad):
+        raise NotImplementedError("pca_expand_ad: the basis and the mean "
+                                  "are fixed; detach them")
+    if torch.is_grad_enabled() and coefs.requires_grad:
+        return _PcaExpand.apply(coefs, vectors, mean)
+    return pca_expand(coefs, vectors, mean)

@@ -4,13 +4,15 @@
 Semantics are ``align_corners=True`` with ``zeros`` / ``border`` padding;
 ``phi`` follows :mod:`liftreg_tpu_torch.coords` (channel ``c`` indexes
 spatial axis ``c``). On CUDA tensors the sampling is the Hopper kernel of
-:mod:`.warp_kernel`; on CPU tensors its plain version.
+:mod:`.warp_kernel`; on CPU tensors its plain version. The sampling is
+differentiable with respect to the coordinates (and so to ``phi``), through
+the kernel's coordinate-gradient entry; not with respect to the image.
 """
 from __future__ import annotations
 
 import torch
 
-from .warp_kernel import warp_trilinear
+from .warp_kernel import warp_trilinear_ad
 
 
 def grid_sample(vol, coords, padding="zeros", taps_dtype=None):
@@ -27,9 +29,9 @@ def grid_sample(vol, coords, padding="zeros", taps_dtype=None):
                          f"{tuple(vol.shape)}, coords {tuple(coords.shape)}")
     B, C = vol.shape[:2]
     out_shape = coords.shape[1:-1]
-    out = warp_trilinear(vol.to(taps_dtype).contiguous(),
-                         coords.reshape(B, -1, 3).float().contiguous(),
-                         border=padding == "border")
+    out = warp_trilinear_ad(vol.to(taps_dtype).contiguous(),
+                            coords.reshape(B, -1, 3).float().contiguous(),
+                            border=padding == "border")
     return out.reshape(B, C, *out_shape)
 
 

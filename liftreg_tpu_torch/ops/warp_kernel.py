@@ -12,6 +12,18 @@ thread computes one output position.
 :func:`warp_trilinear` launches the kernel for CUDA tensors and runs
 :func:`warp_trilinear_plain` for CPU tensors; it never falls back from one
 to the other. ``warp_trilinear.launches`` counts kernel launches.
+
+The coordinate gradient (the TPU kernel's ``with_grad`` variant) is the
+kernel's second entry, :func:`warp_coord_grad`, with the analytic plain
+version :func:`warp_coord_grad_plain`; :func:`warp_trilinear_ad` wraps the
+two in a ``torch.autograd.Function``. At a kink (a coordinate on an integer
+or on a border clip) the gradient follows XLA's autodiff of
+``liftreg_tpu/ops/resample.py:warp_image``, the path that the JAX
+refinement differentiates: there ``d|t|/dt = 1`` at 0, ``max(0, y)`` and
+``clip`` split the derivative in halves at a tie, and the z axis of f32
+taps (``_trilinear_quad``) differentiates ``floor``-based weights. Plain
+autograd of :func:`warp_trilinear_plain` uses other conventions and is not
+the reference.
 """
 from __future__ import annotations
 
@@ -20,6 +32,7 @@ import torch
 from . import _build
 
 TAPS_DTYPES = (torch.bfloat16, torch.float32)
+_F32 = (torch.float32,)
 
 
 def warp_trilinear_plain(taps, coords, border):
@@ -56,30 +69,30 @@ def warp_trilinear_plain(taps, coords, border):
     return out
 
 
-def warp_trilinear(taps, coords, border):
-    """The kernel on CUDA tensors, the plain version on CPU tensors."""
-    if taps.device != coords.device:
-        raise ValueError(f"warp_trilinear: taps on {taps.device}, coords on "
-                         f"{coords.device}")
+def _check(taps, coords, name, **more):
+    """Device, dtypes and shapes of a call. ``more`` holds further f32
+    operands (the cotangent)."""
+    _build.inputs_device(name, {"taps": taps, "coords": coords, **more},
+                         {"taps": TAPS_DTYPES, "coords": _F32, "g": _F32})
     if taps.dim() != 5 or coords.dim() != 3 or coords.shape[-1] != 3 \
             or coords.shape[0] != taps.shape[0]:
-        raise ValueError(f"warp_trilinear: want taps (B, C, D, W, H) and "
+        raise ValueError(f"{name}: want taps (B, C, D, W, H) and "
                          f"coords (B, M, 3); got {tuple(taps.shape)}, "
                          f"{tuple(coords.shape)}")
-    B, C, D, W, H = taps.shape
-    if min(D, W, H) < 2:
-        raise ValueError(f"warp_trilinear: spatial dims {(D, W, H)} must "
-                         "be >= 2")
+    if min(taps.shape[2:]) < 2:
+        raise ValueError(f"{name}: spatial dims {tuple(taps.shape[2:])} "
+                         "must be >= 2")
     if taps.dtype not in TAPS_DTYPES or coords.dtype != torch.float32:
-        raise TypeError(f"warp_trilinear: want bf16/f32 taps and f32 "
-                        f"coords; got {taps.dtype}, {coords.dtype}")
+        raise TypeError(f"{name}: want bf16/f32 taps and f32 coords; got "
+                        f"{taps.dtype}, {coords.dtype}")
+
+
+def warp_trilinear(taps, coords, border):
+    """The kernel on CUDA tensors, the plain version on CPU tensors."""
+    _check(taps, coords, "warp_trilinear")
     if taps.device.type == "cpu":
         return warp_trilinear_plain(taps, coords, border)
-    if taps.device.type != "cuda":
-        raise ValueError(f"warp_trilinear: unsupported device {taps.device}")
-    if not (taps.is_contiguous() and coords.is_contiguous()):
-        raise ValueError("warp_trilinear: taps and coords must be "
-                         "contiguous")
+    B, C, D, W, H = taps.shape
     M = coords.shape[1]
     out = torch.empty((B, C, M), dtype=torch.float32, device=taps.device)
     lib = _build.library()
@@ -95,3 +108,135 @@ def warp_trilinear(taps, coords, border):
 
 
 warp_trilinear.launches = 0
+
+
+def _clip_grad(c, hi):
+    """d clip(c, 0, hi)/dc under JAX's convention: 1/2 at either bound."""
+    inside = ((c > 0) & (c < hi)).float()
+    return inside + 0.5 * ((c == 0) | (c == hi)).float()
+
+
+def _relu_grad(y):
+    return (y > 0).float() + 0.5 * (y == 0).float()
+
+
+def _abs_grad(t):
+    return torch.where(t >= 0, 1.0, -1.0)
+
+
+def _axis_grad(c, n, border, quad):
+    """Tap indices, weights and the weights' derivatives along one axis
+    (see the module docstring), as the kernel computes them."""
+    cg = torch.ones_like(c)
+    if border:
+        cg = _clip_grad(c, n - 1.0)
+        c = c.clamp(0.0, n - 1.0)
+    if quad:
+        z0 = torch.floor(c)
+        f = c - z0
+        k0 = z0.long()
+        if border:
+            m0 = m1 = torch.ones_like(c)
+        else:
+            m0 = ((k0 >= 0) & (k0 <= n - 1)).float()
+            m1 = ((k0 + 1 >= 0) & (k0 + 1 <= n - 1)).float()
+        idx = (k0.clamp(0, n - 1), (k0 + 1).clamp(0, n - 1))
+        return idx, ((1.0 - f) * m0, f * m1), (-m0 * cg, m1 * cg)
+    s = torch.floor(c).clamp(0, n - 2)
+    t = c - s
+    y0, y1 = 1.0 - t.abs(), 1.0 - (t - 1.0).abs()
+    idx = (s.long(), s.long() + 1)
+    weights = (y0.clamp(min=0.0), y1.clamp(min=0.0))
+    grads = (-_abs_grad(t) * _relu_grad(y0) * cg,
+             -_abs_grad(t - 1.0) * _relu_grad(y1) * cg)
+    return idx, weights, grads
+
+
+def warp_coord_grad_plain(taps, coords, g, border):
+    """taps (B, C, D, W, H) bf16/f32, coords (B, M, 3) f32, cotangent g
+    (B, C, M) f32 -> dcoords (B, M, 3) f32, the gradient of
+    ``sum(g * warp_trilinear(taps, coords, border))`` with respect to the
+    coordinates, at kinks as XLA's autodiff of the JAX warp gives it."""
+    B, C, D, W, H = taps.shape
+    M = coords.shape[1]
+    c = coords.float()
+    quad_z = taps.dtype == torch.float32
+    axes = [_axis_grad(c[..., d], n, border, quad_z and d == 0)
+            for d, n in enumerate((D, W, H))]
+    v = taps.reshape(B, C, D * W * H)
+    g = g.float()
+    grad = [torch.zeros((B, M), dtype=torch.float32, device=taps.device)
+            for _ in range(3)]
+    for a in (0, 1):
+        for b in (0, 1):
+            for e in (0, 1):
+                (iz, wz, dz), (iy, wy, dy), (ix, wx, dx) = [
+                    (idx[k], w[k], dw[k])
+                    for (idx, w, dw), k in zip(axes, (a, b, e))]
+                flat = ((iz * W + iy) * H + ix)[:, None, :]
+                gt = (g * torch.gather(v, 2, flat.expand(B, C, M)).float()
+                      ).sum(dim=1)
+                grad[0] = grad[0] + gt * (dz * wy * wx)
+                grad[1] = grad[1] + gt * (wz * dy * wx)
+                grad[2] = grad[2] + gt * (wz * wy * dx)
+    return torch.stack(grad, dim=-1)
+
+
+def warp_coord_grad(taps, coords, g, border):
+    """The coordinate-gradient kernel on CUDA tensors, the plain version on
+    CPU tensors. ``warp_coord_grad.launches`` counts kernel launches."""
+    _check(taps, coords, "warp_coord_grad", g=g)
+    B, C, D, W, H = taps.shape
+    M = coords.shape[1]
+    if g.shape != (B, C, M) or g.dtype != torch.float32:
+        raise ValueError(f"warp_coord_grad: want an f32 cotangent of shape "
+                         f"{(B, C, M)}; got {tuple(g.shape)} {g.dtype}")
+    if taps.device.type == "cpu":
+        return warp_coord_grad_plain(taps, coords, g, border)
+    dcoords = torch.empty((B, M, 3), dtype=torch.float32, device=taps.device)
+    lib = _build.library()
+    with torch.cuda.device(taps.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.liftreg_warp_coord_grad(
+            taps.data_ptr(), int(taps.dtype == torch.bfloat16),
+            coords.data_ptr(), g.data_ptr(), dcoords.data_ptr(), B, C, D, W,
+            H, M, int(border), stream)
+    _build.check(rc, "warp_coord_grad")
+    warp_coord_grad.launches += 1
+    return dcoords
+
+
+warp_coord_grad.launches = 0
+
+
+class _WarpTrilinear(torch.autograd.Function):
+    """Forward :func:`warp_trilinear`, backward :func:`warp_coord_grad`;
+    differentiable in the coordinates only."""
+
+    @staticmethod
+    def forward(ctx, taps, coords, border):
+        ctx.save_for_backward(taps, coords)
+        ctx.border = border
+        return warp_trilinear(taps, coords, border)
+
+    @staticmethod
+    def backward(ctx, g):
+        taps, coords = ctx.saved_tensors
+        dcoords = None
+        if ctx.needs_input_grad[1]:
+            dcoords = warp_coord_grad(taps, coords, g.contiguous(),
+                                      ctx.border)
+        return None, dcoords, None
+
+
+def warp_trilinear_ad(taps, coords, border):
+    """:func:`warp_trilinear`, differentiable with respect to ``coords``.
+    Raises if ``taps`` requires grad: the image gradient is not ported
+    (the TPU kernel returns NaN for it)."""
+    if taps.requires_grad and torch.is_grad_enabled():
+        raise NotImplementedError(
+            "warp_trilinear_ad: the gradient with respect to the image is "
+            "not ported (ROADMAP B3); detach the image")
+    if coords.requires_grad and torch.is_grad_enabled():
+        return _WarpTrilinear.apply(taps, coords, border)
+    return warp_trilinear(taps, coords, border)

@@ -1,6 +1,8 @@
 """Inference pipeline, PyTorch port of ``liftreg_tpu/pipeline.py``:
 HU clip -> attenuation -> DRR -> projection normalization ->
-backprojection lift -> encoder -> PCA expansion -> warp.
+backprojection lift -> encoder -> PCA expansion -> warp, then optionally
+per-case refinement of the PCA coefficients (``refine_steps``, image
+domain).
 
 Example::
 
@@ -17,8 +19,10 @@ from __future__ import annotations
 import torch
 
 from .device import resolve_device
-from .models.subspace_backproj import LiftRegSubspaceBackproj
+from .models.subspace_backproj import LiftRegSubspaceBackproj, mask_lung
 from .ops import drr
+from .ops.drr_kernel import project_taps
+from .refine import make_refiner
 
 normalize_drr = drr.normalize_drr
 
@@ -37,52 +41,105 @@ class RegistrationPipeline:
     overrides it. ``device`` None means the CUDA card and raises without
     one; pass ``"cpu"`` to run the kernels' plain versions. The pipeline
     turns TF32 off process-wide so that f32 products and convolutions
-    keep f32 precision, as the JAX package asks XLA for HIGHEST.
+    keep f32 precision, as the JAX package asks XLA for HIGHEST. The DRR
+    geometry of the (static) poses is built once, here, for a detector of
+    ``resolution``; :meth:`register_projections` builds the lift's anew
+    for projections of another size, as the JAX model does.
+
+    ``refine_steps > 0`` continues each case after the encoder's
+    prediction with that many Adam steps on the PCA coefficients
+    (:func:`.refine.make_refiner`), against the (lung-masked) target CT.
+    Only ``refine_domain="image"`` is ported. ``refiner`` is the refinement
+    function (None without refinement); ``last_refine`` holds its output
+    dict from the last :meth:`register` call.
     """
 
     def __init__(self, img_sz=(160, 160, 160), latent_dim=56, n_proj=4,
                  scan_range_deg=30.0, spacing=(2.2, 2.2, 2.2),
                  resolution=None, compute_dtype=None, mask_ct=True,
-                 warp_taps_dtype="auto", device=None):
+                 warp_taps_dtype="auto", refine_steps=0, refine_lr=0.05,
+                 refine_sim="ncc", refine_sim_opts=None,
+                 refine_reg_factor=1e-3, refine_domain="image",
+                 refine_early_stop_patience=None, refine_early_stop_tol=1e-4,
+                 device=None):
         self.device = resolve_device(device)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         self.img_sz = tuple(int(s) for s in img_sz)
         self.spacing = tuple(float(s) for s in spacing)
-        self.resolution = tuple(resolution) if resolution is not None \
-            else drr.default_resolution(self.img_sz)
+        self.resolution = tuple(int(r) for r in resolution) \
+            if resolution is not None else drr.default_resolution(self.img_sz)
         self.poses = torch.from_numpy(drr.synthesize_poses(
             scan_range_deg, n_proj, self.img_sz[1])).to(self.device)
+        self.project_geometry = drr.forward_geometry(
+            self.poses, self.img_sz, self.resolution, self.spacing)
+        self.lift_geometry = drr.backward_geometry(
+            self.poses, self.img_sz, self.resolution)
         if warp_taps_dtype == "auto":
             warp_taps_dtype = compute_dtype
+        self.mask_ct = mask_ct
         self.model = LiftRegSubspaceBackproj(
             self.img_sz, latent_dim=latent_dim, drr_feature_num=n_proj,
             compute_dtype=compute_dtype, warp_taps_dtype=warp_taps_dtype,
             mask_ct=mask_ct).to(self.device).eval()
+        self.refiner = None
+        self.last_refine = None
+        if refine_steps:
+            if refine_domain == "projection":
+                raise NotImplementedError(
+                    "refine_domain='projection' is not ported yet: it needs "
+                    "the projector's adjoint (ROADMAP.md, next slice: "
+                    "projection-domain refinement)")
+            if refine_domain != "image":
+                raise ValueError(f"refine_domain {refine_domain!r} not in "
+                                 "('image', 'projection')")
+            self.refiner = make_refiner(
+                self.img_sz, sim=refine_sim, sim_opts=refine_sim_opts,
+                n_steps=int(refine_steps), lr=refine_lr,
+                reg_factor=refine_reg_factor,
+                warp_taps_dtype=warp_taps_dtype,
+                early_stop_patience=refine_early_stop_patience,
+                early_stop_tol=refine_early_stop_tol)
 
     def _inputs(self, source_hu, target, target_proj):
-        return {
+        inputs = {
             "source": normalize_hu(source_hu),
             "target": target,
             "target_proj": target_proj,
             "target_poses": self.poses[None],
         }
+        # the cached lift geometry holds pixel coordinates of a detector of
+        # ``resolution``; projections of another size get their own
+        if tuple(target_proj.shape[2:]) == self.resolution:
+            inputs["lift_geometry"] = self.lift_geometry
+        return inputs
+
+    def _moving_cp(self, inputs):
+        if self.mask_ct and "source_label" in inputs:
+            return mask_lung(inputs["source"], inputs["source_label"])
+        return inputs["source"]
 
     @torch.no_grad()
     def register(self, pca, source_hu, target_hu, source_seg=None,
                  target_seg=None):
         """source_hu/target_hu: (B, 1, D, W, H) HU volumes (SPR
         orientation); segs optional (B, 1, D, W, H) in {0, 1}. Returns
-        ``(warped, phi)``."""
-        att = drr.calc_relative_atten_coef(target_hu[:, 0])
-        proj = normalize_drr(drr.project(att, self.poses, self.resolution,
-                                         self.spacing))
+        ``(warped, phi)``, refined when the pipeline refines."""
+        att = drr.calc_relative_atten_coef(target_hu[:, 0]).contiguous()
+        proj = normalize_drr(project_taps(att, *self.project_geometry))
         inputs = self._inputs(source_hu, normalize_hu(target_hu), proj)
         if source_seg is not None:
             inputs["source_label"] = source_seg
             inputs["target_label"] = target_seg
         out = self.model(inputs, pca)
-        return out["warped"], out["phi"]
+        if self.refiner is None:
+            return out["warped"], out["phi"]
+        # the encoder's weights gather no gradient: the refinement starts
+        # from detached coefficients and only they require grad
+        res = self.refiner(out["pca_coefs"].detach(), pca,
+                           self._moving_cp(inputs), out["target"])
+        self.last_refine = res
+        return res["warped"], res["phi"]
 
     @torch.no_grad()
     def register_projections(self, pca, source_hu, target_proj,
@@ -90,6 +147,11 @@ class RegistrationPipeline:
         """Register from projections only (no target CT): ``target_proj``
         (B, P, pw, ph) in the normalized DRR convention. Returns
         ``(warped, phi)``."""
+        if self.refiner is not None:
+            raise ValueError(
+                "register_projections with refine_steps requires "
+                "refine_domain='projection' (image-domain refinement needs "
+                "a target CT, which this entry does not take)")
         inputs = self._inputs(source_hu, torch.zeros_like(source_hu),
                               target_proj)
         if source_seg is not None:

@@ -12,6 +12,7 @@ from liftreg_tpu import coords as jcoords
 from liftreg_tpu.ops import drr as jdrr
 from liftreg_tpu_torch import coords as tcoords
 from liftreg_tpu_torch.ops import drr as tdrr
+from liftreg_tpu_torch.ops import drr_kernel as tdrrk
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 VOL = (12, 16, 10)
@@ -76,7 +77,7 @@ def test_backward_matrices():
 def test_project(plane_chunk):
     vol = np.random.default_rng(2).uniform(0, 0.3, (2,) + VOL).astype(
         np.float32)
-    got = tdrr.project(torch.from_numpy(vol), _poses(), (18, 15),
+    got = tdrrk.project(torch.from_numpy(vol), _poses(), (18, 15),
                        (2.2, 2.2, 2.2), plane_chunk=plane_chunk)
     want = jdrr.project(jnp.asarray(vol), _poses(), (18, 15),
                         (2.2, 2.2, 2.2), plane_chunk=plane_chunk)
@@ -88,7 +89,7 @@ def test_project(plane_chunk):
 def test_backproject(plane_chunk):
     proj = np.random.default_rng(3).uniform(-1, 1, (2, 3, 18, 15)).astype(
         np.float32)
-    got = tdrr.backproject(torch.from_numpy(proj), _poses(), VOL,
+    got = tdrrk.backproject(torch.from_numpy(proj), _poses(), VOL,
                            plane_chunk=plane_chunk)
     want = jdrr.backproject(jnp.asarray(proj), _poses(), VOL,
                             plane_chunk=plane_chunk)
@@ -98,9 +99,9 @@ def test_backproject(plane_chunk):
 
 def test_unbatched_project_and_backproject():
     vol = np.random.default_rng(4).uniform(0, 0.3, VOL).astype(np.float32)
-    got = tdrr.project(torch.from_numpy(vol), _poses(), (18, 15))
+    got = tdrrk.project(torch.from_numpy(vol), _poses(), (18, 15))
     want = jdrr.project(jnp.asarray(vol), _poses(), (18, 15))
     np.testing.assert_allclose(_np(got), np.asarray(want), **TOL)
-    got = tdrr.backproject(got, _poses(), VOL)
+    got = tdrrk.backproject(got, _poses(), VOL)
     want = jdrr.backproject(want, _poses(), VOL)
     np.testing.assert_allclose(_np(got), np.asarray(want), **TOL)

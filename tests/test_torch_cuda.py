@@ -6,12 +6,26 @@ torch and the port, so it runs where JAX is absent:
 
 Tolerances: the PCA kernel sums the same bf16 products in f32 in another
 order than cuBLAS, atol/rtol 1e-5; the warp kernel repeats the plain
-version's f32 operations in the same order, atol 1e-6."""
+version's f32 operations in the same order, atol 1e-6. The DRR projector
+sums the planes in another order than the plain dense products: atol
+1e-5 * max|plain|, rtol 1e-5; the lift adds at most 4 taps: atol 1e-6,
+rtol 1e-5. The warp's coordinate gradient uses fused multiply-adds where
+the plain version rounds twice: atol 1e-5 * max|plain|. The PCA backward
+rounds an f32 sum taken in another order to bf16: one bf16 step, rtol
+2^-8, plus atol 1e-4 * max|plain| for sums that cancel to near zero."""
 import pytest
 import torch
 
-from liftreg_tpu_torch.ops.pca_kernel import pca_expand, pca_expand_plain
-from liftreg_tpu_torch.ops.warp_kernel import (warp_trilinear,
+from liftreg_tpu_torch.ops import drr
+from liftreg_tpu_torch.ops.drr_kernel import (backproject_taps,
+                                              backproject_taps_plain,
+                                              project_taps,
+                                              project_taps_plain)
+from liftreg_tpu_torch.ops.pca_kernel import (pca_expand, pca_expand_plain,
+                                              pca_grad, pca_grad_plain)
+from liftreg_tpu_torch.ops.warp_kernel import (warp_coord_grad,
+                                               warp_coord_grad_plain,
+                                               warp_trilinear,
                                                warp_trilinear_plain)
 
 pytestmark = pytest.mark.cuda
@@ -69,3 +83,90 @@ def test_wrappers_reject_bad_cuda_inputs(device):
         warp_trilinear(torch.zeros((1, 1, 4, 4, 4), device=device),
                        torch.zeros((1, 3, 6), device=device)[..., ::2],
                        False)
+
+
+def _edge_pix(g, shape, n, device):
+    """Uniform coordinates with a third replaced by the edges of the
+    per-tap zero padding: (-1, 0), 0, n-1, (n-1, n) and beyond."""
+    pix = torch.rand(shape, generator=g, device=device) * (n + 3.0) - 2.0
+    special = torch.tensor([-1.5, -1.0, -0.25, 0.0, 0.5, n - 1.0, n - 0.75,
+                            n - 1.5, float(n), n + 2.0], device=device)
+    pick = torch.randint(0, len(special), shape, generator=g, device=device)
+    mask = torch.rand(shape, generator=g, device=device) < 0.33
+    return torch.where(mask, special[pick], pix).contiguous()
+
+
+@pytest.mark.parametrize("geometry", ["poses", "edges"])
+def test_drr_project_kernel_matches_plain(device, geometry):
+    g = torch.Generator(device=device).manual_seed(2)
+    B, D, W, H, res = 2, 20, 17, 22, (30, 27)
+    vol = torch.rand((B, D, W, H), generator=g, device=device)
+    poses = torch.from_numpy(drr.synthesize_poses(30.0, 3, W)).to(device)
+    x_pix, z_pix, dx = drr.forward_geometry(poses, (D, W, H), res,
+                                            (2.2, 2.0, 2.4))
+    if geometry == "edges":
+        x_pix = _edge_pix(g, tuple(x_pix.shape), D, device)
+        z_pix = _edge_pix(g, tuple(z_pix.shape), H, device)
+    before = project_taps.launches
+    got = project_taps(vol, x_pix, z_pix, dx)
+    torch.cuda.synchronize()
+    assert project_taps.launches == before + 1
+    want = project_taps_plain(vol, x_pix, z_pix, dx)
+    torch.testing.assert_close(got, want, rtol=1e-5,
+                               atol=1e-5 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("geometry", ["poses", "edges"])
+def test_drr_backproject_kernel_matches_plain(device, geometry):
+    g = torch.Generator(device=device).manual_seed(3)
+    vol_shape, det = (16, 13, 19), (24, 25)
+    proj = torch.rand((2, 3) + det, generator=g, device=device) * 2.0 - 1.0
+    poses = torch.from_numpy(drr.synthesize_poses(30.0, 3, 13)).to(device)
+    u_pix, v_pix = drr.backward_geometry(poses, vol_shape, det)
+    if geometry == "edges":
+        u_pix = _edge_pix(g, tuple(u_pix.shape), det[0], device)
+        v_pix = _edge_pix(g, tuple(v_pix.shape), det[1], device)
+    before = backproject_taps.launches
+    got = backproject_taps(proj, u_pix, v_pix)
+    torch.cuda.synchronize()
+    assert backproject_taps.launches == before + 1
+    torch.testing.assert_close(got, backproject_taps_plain(proj, u_pix, v_pix),
+                               rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("taps", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("border", [False, True])
+@pytest.mark.parametrize("kind", ["uniform", "integer"])
+def test_warp_coord_grad_kernel_matches_plain(device, taps, border, kind):
+    g = torch.Generator(device=device).manual_seed(4)
+    B, C, D, W, H, M = 2, 2, 9, 12, 10, 6000
+    vol = torch.rand((B, C, D, W, H), generator=g, device=device).to(taps)
+    scale = torch.tensor([D, W, H], dtype=torch.float32, device=device)
+    coords = torch.rand((B, M, 3), generator=g, device=device) \
+        * (scale + 6.0) - 3.0
+    if kind == "integer":
+        coords = torch.floor(coords)
+    cot = torch.randn((B, C, M), generator=g, device=device)
+    before = warp_coord_grad.launches
+    got = warp_coord_grad(vol, coords, cot, border)
+    torch.cuda.synchronize()
+    assert warp_coord_grad.launches == before + 1
+    want = warp_coord_grad_plain(vol, coords, cot, border)
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-5 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("B,L,n", [(4, 56, 3 * 40 ** 3), (3, 7, 3 * 49 ** 3),
+                                   (8, 5, 1001), (1, 3, 7)])
+def test_pca_grad_kernel_matches_plain(device, B, L, n):
+    g = torch.Generator(device=device).manual_seed(5)
+    cot = torch.randn((B, n), generator=g, device=device)
+    V = (torch.randn((L, n), generator=g, device=device) * 0.01).bfloat16()
+    before = pca_grad.launches
+    got = pca_grad(cot, V)
+    torch.cuda.synchronize()
+    assert pca_grad.launches == before + 1
+    want = pca_grad_plain(cot, V)
+    assert torch.equal(got, got.bfloat16().float())
+    torch.testing.assert_close(got, want, rtol=2.0 ** -8,
+                               atol=1e-4 * float(want.abs().max()))

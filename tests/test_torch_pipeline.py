@@ -128,6 +128,21 @@ def test_register_projections_matches_jax(dtype):
     _check(cfg, got, want)
 
 
+def test_register_projections_other_detector_matches_jax():
+    # projections of another size than the pipeline's DRR resolution: the
+    # lift must follow the projections' own detector, as the JAX model does
+    cfg, jp, params, jpca, tp, tpca, (src, _), seg = _case("f32")
+    det = (40, 44)
+    assert det != tuple(jp.resolution)
+    proj = np.random.default_rng(6).uniform(
+        -1, 1, (B, 4) + det).astype(np.float32)
+    want = jp.register_projections(params, jpca, src, proj, seg)
+    got = tp.register_projections(tpca, torch.from_numpy(src),
+                                  torch.from_numpy(proj),
+                                  torch.from_numpy(seg))
+    _check(cfg, got, want)
+
+
 def test_register_without_segmentation_matches_jax():
     cfg, jp, params, jpca, tp, tpca, (src, tgt), _ = _case("f32")
     want = jp.register(params, jpca, src, tgt)
