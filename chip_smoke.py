@@ -13,11 +13,16 @@ line with its elapsed seconds:
 3. pca_check / warp_check / drr_check / grad_check: each kernel against
    its plain PyTorch version on the card, at the shapes of the serving
    path (plus ragged shapes, both tap types, both paddings, coordinates
-   far outside, on integers and on the edges of the DRR's zero padding);
+   far outside, on integers and on the edges of the DRR's zero padding,
+   a batch of 9 for the PCA expansion, volumes with a spatial dim of 1 for
+   the warp and its gradient, and the lift written as bf16 into the
+   encoder's input buffer, which must be its f32 output rounded once);
 4. main_path: RegistrationPipeline.register at 160^3, B=4, 4 views on a
    240^2 detector, latent 56, bf16 encoder, basis and taps, with random
    seeded weights; the kernels' launch counts are zeroed just before and
-   read just after; then register_projections the same way;
+   read just after, and must be exactly one each of the projector, the
+   lift, the PCA expansion and the warp; then register_projections the
+   same way (no projector);
 5. refine: register with refine_steps=30 (image domain) at the same
    config on smooth seeded volumes and a smooth basis, counts zeroed just
    before and read just after; the refined objective of each case must not
@@ -26,13 +31,17 @@ line with its elapsed seconds:
    pipeline on the CPU (the kernels' plain versions) at 32^3, without and
    with 5 refinement steps;
 7. times: each kernel, its plain version and one PyTorch library call of
-   the same function, with CUDA events; the steady-state register time,
-   with and without refinement, and peak memory;
+   the same function, with CUDA events (the lift also as the serving path
+   runs it, bf16 into the encoder's buffer, with the bound of the bytes it
+   writes); the steady-state register time, with and without refinement,
+   and peak memory;
 8. profile / profile_refine: one register call, without and with
    refinement, under torch.profiler: device time by layer (from kernel
    names) and the device's idle share.
 
-Then the nvidia-smi line, one JSON line of per-kernel numbers, and last
+Then the nvidia-smi line, one JSON line of per-kernel numbers
+(``launches`` from the refine phase, which runs all six kernels;
+``serving_launches`` from main_path's register), and last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero; so does a
 missing card, and a watchdog after 15 minutes.
 """
@@ -201,6 +210,20 @@ def _edge_pix(torch, g, shape, n, device):
     return torch.where(mask, special[pick], pix).contiguous()
 
 
+def serving_drr_inputs(torch, drr, g, device):
+    """The DRR kernels' inputs at the serving shape (SZ^3, B volumes, 4
+    views on the default detector): poses, detector resolution, the
+    projector's and the lift's geometry, seeded attenuation volumes and
+    projections. ``drr`` is the port's ``ops.drr`` module."""
+    poses = torch.from_numpy(drr.synthesize_poses(30.0, 4, SZ)).to(device)
+    res = drr.default_resolution((SZ,) * 3)
+    fwd_geom = drr.forward_geometry(poses, (SZ,) * 3, res, (2.2, 2.2, 2.2))
+    bwd_geom = drr.backward_geometry(poses, (SZ,) * 3, res)
+    att = torch.rand((B, SZ, SZ, SZ), generator=g, device=device) * 0.2
+    proj = torch.rand((B, 4) + res, generator=g, device=device) * 2.0 - 1.0
+    return poses, res, fwd_geom, bwd_geom, att, proj
+
+
 def _counts(kernels):
     return {name: fn.launches for name, fn in kernels.items()}
 
@@ -228,7 +251,7 @@ def main():
                                                   backproject_taps_plain,
                                                   project, project_taps,
                                                   project_taps_plain)
-    from liftreg_tpu_torch.ops.pca_kernel import (pca_expand,
+    from liftreg_tpu_torch.ops.pca_kernel import (MAX_CHUNK, pca_expand,
                                                   pca_expand_plain, pca_grad,
                                                   pca_grad_plain)
     from liftreg_tpu_torch.ops.warp_kernel import (warp_coord_grad,
@@ -281,8 +304,18 @@ def main():
         m2 = torch.randn((m,), generator=g, device=dev) * 0.01
         ragged[m] = _max_err(pca_expand(c2, v2, m2),
                              pca_expand_plain(c2, v2, m2))
-    errs["pca_expand"] = max(pca_err, *ragged.values())
-    _emit(max_abs_err=pca_err, ragged_max_abs_err=ragged, tol=PCA_TOL)
+    # more rows than one launch holds: one launch per chunk of MAX_CHUNK
+    coefs9 = torch.randn((9, LATENT), generator=g, device=dev)
+    before = pca_expand.launches
+    got9 = pca_expand(coefs9, V, mean)
+    chunks9 = pca_expand.launches - before
+    batch9_err = _max_err(got9, pca_expand_plain(coefs9, V, mean))
+    del got9
+    errs["pca_expand"] = max(pca_err, batch9_err, *ragged.values())
+    _emit(max_abs_err=pca_err, ragged_max_abs_err=ragged,
+          batch9_max_abs_err=batch9_err, batch9_launches=chunks9, tol=PCA_TOL)
+    _require(chunks9 == -(-9 // MAX_CHUNK),
+             f"B=9 took {chunks9} PCA launches")
     _require(errs["pca_expand"] <= PCA_TOL,
              f"PCA kernel error {errs['pca_expand']} > {PCA_TOL}")
 
@@ -298,19 +331,40 @@ def main():
             warp_errs[key] = _max_err(
                 warp_trilinear(taps[tdt], coords, border),
                 warp_trilinear_plain(taps[tdt], coords, border))
+    # volumes with a spatial dim of 1 (the quad and generic axis modes)
+    unit_grad_rel = {}
+    for ushape in ((1, SZ, SZ), (SZ, 1, SZ), (SZ, SZ, 1)):
+        uvol = torch.rand((2, 1) + ushape, generator=g, device=dev)
+        uscale = torch.tensor(ushape, dtype=torch.float32, device=dev)
+        ucoords = torch.rand((2, SZ * SZ, 3), generator=g, device=dev) \
+            * (uscale + 2.0) - 1.5
+        ucoords[:, ::4] = torch.floor(ucoords[:, ::4])
+        ucot = torch.randn((2, 1, SZ * SZ), generator=g, device=dev)
+        for tdt in (torch.bfloat16, torch.float32):
+            for border in (False, True):
+                key = (f"{'x'.join(map(str, ushape))}/"
+                       f"{str(tdt).split('.')[-1]}/"
+                       f"{'border' if border else 'zeros'}")
+                ut = uvol.to(tdt)
+                warp_errs[key] = _max_err(
+                    warp_trilinear(ut, ucoords, border),
+                    warp_trilinear_plain(ut, ucoords, border))
+                want = warp_coord_grad_plain(ut, ucoords, ucot, border)
+                unit_grad_rel[key] = _max_err(
+                    warp_coord_grad(ut, ucoords, ucot, border), want) \
+                    / float(want.abs().max())
     errs["warp_trilinear"] = max(warp_errs.values())
-    _emit(max_abs_err=warp_errs, tol=WARP_TOL)
+    _emit(max_abs_err=warp_errs, tol=WARP_TOL,
+          unit_dim_grad_rel_err=unit_grad_rel,
+          grad_rel_tol=WARP_GRAD_REL_TOL)
+    _require(max(unit_grad_rel.values()) <= WARP_GRAD_REL_TOL,
+             f"warp gradient kernel on unit dims: {unit_grad_rel}")
     _require(errs["warp_trilinear"] <= WARP_TOL,
              f"warp kernel error {errs['warp_trilinear']} > {WARP_TOL}")
 
     _begin("drr_check")
-    pipe_poses = torch.from_numpy(drr.synthesize_poses(30.0, 4, SZ)).to(dev)
-    res = drr.default_resolution((SZ,) * 3)
-    fwd_geom = drr.forward_geometry(pipe_poses, (SZ,) * 3, res,
-                                    (2.2, 2.2, 2.2))
-    bwd_geom = drr.backward_geometry(pipe_poses, (SZ,) * 3, res)
-    att = torch.rand((B, SZ, SZ, SZ), generator=g, device=dev) * 0.2
-    proj_in = torch.rand((B, 4) + res, generator=g, device=dev) * 2.0 - 1.0
+    pipe_poses, res, fwd_geom, bwd_geom, att, proj_in = serving_drr_inputs(
+        torch, drr, g, dev)
     drr_errs = {}
 
     def proj_err(vol, geom):
@@ -338,6 +392,15 @@ def main():
     geom2b = (_edge_pix(torch, g, (3, W2, D2), rd, dev),
               _edge_pix(torch, g, (3, W2, H2), rh, dev))
     drr_errs["lift_ragged"] = lift_err(p2, geom2b)
+    # the lift into the encoder's bf16 input buffer: its f32 values rounded
+    # once, bit for bit, channel 0 untouched
+    lift_buf = torch.full((B, 5, SZ, SZ, SZ), 3.0, dtype=torch.bfloat16,
+                          device=dev)
+    backproject_taps(proj_in, *bwd_geom, out=lift_buf[:, 1:])
+    lift_bf16_equal = bool(torch.equal(
+        lift_buf[:, 1:], backproject_taps(proj_in, *bwd_geom).bfloat16())
+        and (lift_buf[:, 0] == 3.0).all())
+    drr_errs["lift_bf16_buffer_bit_equal"] = lift_bf16_equal
     errs["drr_project"] = max(drr_errs["project_serving"],
                               drr_errs["project_ragged"])
     errs["drr_backproject"] = max(drr_errs["lift_serving"],
@@ -350,6 +413,8 @@ def main():
              f"projector kernel relative error {proj_rel}")
     _require(errs["drr_backproject"] <= LIFT_TOL,
              f"lift kernel error {errs['drr_backproject']}")
+    _require(lift_bf16_equal, "the lift's bf16 buffer is not its f32 output "
+             "rounded once")
 
     _begin("grad_check")
     cot = torch.randn((B, 1, SZ ** 3), generator=g, device=dev)
@@ -413,9 +478,14 @@ def main():
              f"shapes {tuple(warped.shape)}, {tuple(phi.shape)}")
     _require(bool(torch.isfinite(warped).all() and torch.isfinite(phi).all()),
              "non-finite output")
-    path = ("pca_expand", "warp_trilinear", "drr_project", "drr_backproject")
-    _require(all(launches[k] >= 1 for k in path),
-             f"a kernel was not launched on the main path: {launches}")
+    # each wrapper counts one launch per call (per chunk of 8 rows for the
+    # PCA kernels); the projector, whose plane loop the wrapper splits at
+    # this shape, runs as two passes (chunks, then their ordered sum) and
+    # counts them as one launch, as the PCA backward does
+    serving = {"pca_expand": 1, "pca_grad": 0, "warp_trilinear": 1,
+               "warp_coord_grad": 0, "drr_project": 1, "drr_backproject": 1}
+    _require(launches == serving,
+             f"main path launch counts {launches}, expected {serving}")
 
     proj = drr.normalize_drr(project(
         drr.calc_relative_atten_coef(tgt_hu[:, 0]), pipe.poses,
@@ -427,9 +497,8 @@ def main():
     _require(bool(torch.isfinite(warped_p).all()
                   and torch.isfinite(phi_p).all()),
              "non-finite output of register_projections")
-    _require(all(launches_p[k] >= 1 for k in path if k != "drr_project"),
-             f"a kernel was not launched by register_projections: "
-             f"{launches_p}")
+    _require(launches_p == dict(serving, drr_project=0),
+             f"register_projections launch counts {launches_p}")
     _emit(launches=launches, launches_projections=launches_p,
           warped=list(warped.shape), phi=list(phi.shape),
           phi_range=[float(phi.min()), float(phi.max())])
@@ -611,6 +680,9 @@ def main():
     del Rx, Rz
     ms["drr_backproject"] = _cuda_ms(
         lambda: backproject_taps(proj_in, *bwd_geom), 20)
+    # the serving path's variant: bf16 into the encoder's input buffer
+    lift_bf16_ms = _cuda_ms(lambda: backproject_taps(
+        proj_in, *bwd_geom, out=lift_buf[:, 1:]), 20)
     plain_ms["drr_backproject"] = _cuda_ms(
         lambda: backproject_taps_plain(proj_in, *bwd_geom), 5)
     Bu, Bv = drr.backward_matrices(pipe_poses, (SZ,) * 3, res)
@@ -643,7 +715,11 @@ def main():
                             * (res[1] + SZ), PEAK_F32_FLOPS),
     }
     del vol01, taps, t16, t32, coords, int_coords, grid, cot, cot5, cot_pca
-    del cot_bf16, att, proj_in
+    lift_bf16_bytes = nbytes["drr_backproject"] - B * 4 * SZ ** 3 * 2
+    lift_bf16 = {"ms": lift_bf16_ms,
+                 "bound_ms": lift_bf16_bytes / HBM_BYTES_PER_S * 1e3,
+                 "bound_by": "bytes"}
+    del cot_bf16, att, proj_in, lift_buf
     torch.cuda.empty_cache()
 
     def steady(p, pca_, args_, iters):
@@ -662,7 +738,7 @@ def main():
     r_args = (r_src, r_tgt, r_seg, r_seg)
     refine_ms, refine_peak = steady(pipe_r, r_pca, r_args, 3)
     _emit(kernel_ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-          register_ms=register_ms, register_per_s=B * 1e3 / register_ms,
+          lift_bf16_buffer=lift_bf16, register_ms=register_ms, register_per_s=B * 1e3 / register_ms,
           peak_memory_gib=peak_gib, register_refine_ms=refine_ms,
           register_refine_per_s=B * 1e3 / refine_ms,
           refine_ms_per_step=(refine_ms - register_ms) / (REFINE_STEPS + 1),
@@ -686,12 +762,15 @@ def main():
             by_layer[_layer(name)] = by_layer.get(_layer(name), 0.0) + t
         busy_ms = sum(kernel_ms.values())
         top = sorted(kernel_ms.items(), key=lambda kv: -kv[1])[:8]
+        # a concatenation's copy kernel (the encoder input is built in place)
+        cat_ms = sum(t for name, t in kernel_ms.items() if "CatArray" in name)
         _emit(wall_ms=wall_ms, device_busy_ms=busy_ms,
               device_idle_share=1.0 - busy_ms / wall_ms if busy_ms else None,
               device_ms_by_layer={k: round(v, 4) for k, v in
                                   sorted(by_layer.items(),
                                          key=lambda kv: -kv[1])},
-              top_kernels=[[name[:60], round(t, 4)] for name, t in top])
+              top_kernels=[[name[:60], round(t, 4)] for name, t in top],
+              cat_kernel_ms=cat_ms)
 
     _begin("profile")
     profile_call(lambda: pipe.register(pca, src_hu, tgt_hu, seg, seg))
@@ -726,6 +805,10 @@ def main():
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": lib_ms[name]})
+        kernels[-1]["serving_launches"] = launches[name]
+    next(k for k in kernels if k["name"] == "drr_backproject").update(
+        bf16_buffer_ms=lift_bf16["ms"],
+        bf16_buffer_bound_ms=lift_bf16["bound_ms"])
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -12,6 +12,21 @@
 // the reference sums them. Unlike the TPU kernel, which is exact only inside
 // its (dy_max, dx_max) window, this kernel is exact for any field.
 //
+// Each axis has a mode, chosen by the wrapper from the volume's shape as
+// liftreg_tpu/ops/resample.py:grid_sample routes it (:517-527), so that a
+// spatial dim of 1 samples and differentiates as the JAX package does:
+//   0 (oct): start clip(floor(c), 0, n-2), relu-hat weights, as above;
+//      needs n >= 2;
+//   1 (quad): k0 = floor(c), weights (1 - f, f) with f = c - k0, times the
+//      zeros padding mask of each tap, indices clipped to [0, n-1]; border
+//      padding clips the coordinate first (resample._trilinear_quad's z);
+//   2 (generic): as 1, but border padding does not clip the coordinate, only
+//      the indices (resample.py's generic gather path, taken when W or H
+//      is 1).
+// A volume with W, H >= 2 takes mode 0 on y and x; its z takes mode 1 when
+// D = 1 (and, in the gradient, for f32 taps), else 0. W or H = 1 takes mode 2
+// on every axis.
+//
 // Bound: bytes. At the serving shape (B=4, C=1, 160^3, bf16 taps) it reads the
 // coordinates (197 MB f32) and the taps (33 MB) and writes 66 MB: ~0.30 GB,
 // ~0.09 ms at 3.35 TB/s. One thread computes one output position for all C
@@ -34,10 +49,12 @@
 // own where(w > 0, -sign(t), 0):
 //   d|t|/dt = +1 at t = 0; d max(0, y)/dy = 1/2 at y = 0; d clip/dc = 1/2 at
 //   either bound of border padding;
-//   bf16 taps (resample._oct_plain): every axis as in axis_weights above;
-//   f32 taps (resample._trilinear_quad): y and x as above, but z from
-//   z0 = floor(c), weights (1 - f, f) with f = c - z0, times the zeros
-//   padding mask of each tap, so d/dz is (-mask0, +mask1) even at integers.
+//   mode 0 (resample._oct_plain, and y and x of _trilinear_quad): the
+//   relu-hat weights' derivatives under those rules;
+//   modes 1 and 2 (the z axis of _trilinear_quad for f32 taps, and the
+//   generic path): d/dc is (-mask0, +mask1) even at integers, times the
+//   clip's derivative in mode 1 with border padding; in mode 2 a border
+//   coordinate outside [0, n-1] gets two equal indices, so its terms cancel.
 // Bound: bytes, as the forward plus the cotangent and dcoords (~0.46 GB at
 // the serving shape, ~0.14 ms).
 #include <cstdint>
@@ -58,66 +75,6 @@ __device__ __forceinline__ float load_tap(const __nv_bfloat16* p, int64_t i) {
   return __bfloat162float(p[i]);
 }
 
-// start and the two relu-hat weights along one axis of n >= 2 voxels
-__device__ __forceinline__ void axis_weights(float c, int64_t n, int border,
-                                             int64_t* start, float* w0,
-                                             float* w1) {
-  if (border) c = fminf(fmaxf(c, 0.f), static_cast<float>(n - 1));
-  const float s = fminf(fmaxf(floorf(c), 0.f), static_cast<float>(n - 2));
-  const float t = c - s;
-  *start = static_cast<int64_t>(s);
-  *w0 = fmaxf(0.f, 1.f - fabsf(t));
-  *w1 = fmaxf(0.f, 1.f - fabsf(t - 1.f));
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-warp_trilinear_kernel(const T* __restrict__ taps,
-                      const float* __restrict__ coords,
-                      float* __restrict__ out, int64_t B, int64_t C,
-                      int64_t D, int64_t W, int64_t H, int64_t M,
-                      int border) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= B * M) return;
-  const int64_t b = i / M;
-  const int64_t m = i - b * M;
-
-  int64_t sz, sy, sx;
-  float wz[2], wy[2], wx[2];
-  axis_weights(__ldg(coords + 3 * i + 0), D, border, &sz, &wz[0], &wz[1]);
-  axis_weights(__ldg(coords + 3 * i + 1), W, border, &sy, &wy[0], &wy[1]);
-  axis_weights(__ldg(coords + 3 * i + 2), H, border, &sx, &wx[0], &wx[1]);
-
-  const int64_t S = D * W * H;
-  const int64_t base = (sz * W + sy) * H + sx;
-  for (int64_t ch = 0; ch < C; ++ch) {
-    const T* v = taps + (b * C + ch) * S + base;
-    float acc = 0.f;
-#pragma unroll
-    for (int dz = 0; dz < 2; ++dz)
-#pragma unroll
-      for (int dy = 0; dy < 2; ++dy)
-#pragma unroll
-        for (int dx = 0; dx < 2; ++dx) {
-          const float w = __fmul_rn(__fmul_rn(wz[dz], wy[dy]), wx[dx]);
-          const float tap = load_tap(v, (dz * W + dy) * H + dx);
-          acc = __fadd_rn(acc, __fmul_rn(tap, w));
-        }
-    out[(b * C + ch) * M + m] = acc;
-  }
-}
-
-template <typename T>
-cudaError_t launch(const void* taps, const float* coords, float* out,
-                   int64_t B, int64_t C, int64_t D, int64_t W, int64_t H,
-                   int64_t M, int border, cudaStream_t stream) {
-  const unsigned blocks =
-      static_cast<unsigned>((B * M + kThreads - 1) / kThreads);
-  warp_trilinear_kernel<T><<<blocks, kThreads, 0, stream>>>(
-      static_cast<const T*>(taps), coords, out, B, C, D, W, H, M, border);
-  return cudaGetLastError();
-}
-
 // d clip(c, 0, n-1) / dc under JAX's convention (1/2 at either bound)
 __device__ __forceinline__ float clip_grad(float c, float hi) {
   if (c > 0.f && c < hi) return 1.f;
@@ -135,48 +92,45 @@ __device__ __forceinline__ float abs_grad(float t) {
 
 // One axis of the warp: the two tap indices, their weights and the weights'
 // derivatives with respect to the (unclipped) coordinate.
-struct AxisGrad {
+struct Axis {
   int64_t i0, i1;
   float w0, w1, d0, d1;
 };
 
-__device__ __forceinline__ AxisGrad oct_axis(float c, int64_t n, int border) {
+__device__ __forceinline__ int64_t clamp_index(int64_t k, int64_t n) {
+  return k < 0 ? 0 : (k > n - 1 ? n - 1 : k);
+}
+
+// mode (see the note above): 0 oct, 1 quad, 2 generic
+__device__ __forceinline__ Axis axis_taps(float c, int64_t n, int border,
+                                          int mode) {
   float cg = 1.f;
-  if (border) {
+  if (border && mode != 2) {
     const float hi = static_cast<float>(n - 1);
     cg = clip_grad(c, hi);
     c = fminf(fmaxf(c, 0.f), hi);
   }
-  const float s = fminf(fmaxf(floorf(c), 0.f), static_cast<float>(n - 2));
-  const float t = c - s;
-  const float y0 = 1.f - fabsf(t);
-  const float y1 = 1.f - fabsf(t - 1.f);
-  AxisGrad a;
-  a.i0 = static_cast<int64_t>(s);
-  a.i1 = a.i0 + 1;
-  a.w0 = fmaxf(0.f, y0);
-  a.w1 = fmaxf(0.f, y1);
-  a.d0 = -abs_grad(t) * relu_grad(y0) * cg;
-  a.d1 = -abs_grad(t - 1.f) * relu_grad(y1) * cg;
-  return a;
-}
-
-__device__ __forceinline__ AxisGrad quad_z_axis(float c, int64_t n,
-                                                int border) {
-  float cg = 1.f;
-  if (border) {
-    const float hi = static_cast<float>(n - 1);
-    cg = clip_grad(c, hi);
-    c = fminf(fmaxf(c, 0.f), hi);
+  Axis a;
+  if (mode == 0) {
+    const float s = fminf(fmaxf(floorf(c), 0.f), static_cast<float>(n - 2));
+    const float t = c - s;
+    const float y0 = 1.f - fabsf(t);
+    const float y1 = 1.f - fabsf(t - 1.f);
+    a.i0 = static_cast<int64_t>(s);
+    a.i1 = a.i0 + 1;
+    a.w0 = fmaxf(0.f, y0);
+    a.w1 = fmaxf(0.f, y1);
+    a.d0 = -abs_grad(t) * relu_grad(y0) * cg;
+    a.d1 = -abs_grad(t - 1.f) * relu_grad(y1) * cg;
+    return a;
   }
   const float z0 = floorf(c);
   const float f = c - z0;
   const int64_t k0 = static_cast<int64_t>(z0);
   const float m0 = (border || (k0 >= 0 && k0 <= n - 1)) ? 1.f : 0.f;
   const float m1 = (border || (k0 + 1 >= 0 && k0 + 1 <= n - 1)) ? 1.f : 0.f;
-  AxisGrad a;
-  a.i0 = k0 < 0 ? 0 : (k0 > n - 1 ? n - 1 : k0);
-  a.i1 = k0 + 1 < 0 ? 0 : (k0 + 1 > n - 1 ? n - 1 : k0 + 1);
+  a.i0 = clamp_index(k0, n);
+  a.i1 = clamp_index(k0 + 1, n);
   a.w0 = (1.f - f) * m0;
   a.w1 = f * m1;
   a.d0 = -m0 * cg;
@@ -184,25 +138,100 @@ __device__ __forceinline__ AxisGrad quad_z_axis(float c, int64_t n,
   return a;
 }
 
+// MODES >= 0 fixes the packed modes at compile time (the common volumes:
+// every axis oct, or z quad for the gradient of f32 taps); -1 reads them at
+// run time
+template <int MODES>
+__device__ __forceinline__ int axis_mode(int modes, int d) {
+  return ((MODES >= 0 ? MODES : modes) >> (2 * d)) & 3;
+}
+
+constexpr int kAllOct = 0;
+constexpr int kQuadZ = 1;
+
+template <typename T, int MODES>
+__global__ void __launch_bounds__(kThreads)
+warp_trilinear_kernel(const T* __restrict__ taps,
+                      const float* __restrict__ coords,
+                      float* __restrict__ out, int64_t B, int64_t C,
+                      int64_t D, int64_t W, int64_t H, int64_t M,
+                      int border, int modes) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= B * M) return;
+  const int64_t b = i / M;
+  const int64_t m = i - b * M;
+
+  const Axis z = axis_taps(__ldg(coords + 3 * i + 0), D, border,
+                           axis_mode<MODES>(modes, 0));
+  const Axis y = axis_taps(__ldg(coords + 3 * i + 1), W, border,
+                           axis_mode<MODES>(modes, 1));
+  const Axis x = axis_taps(__ldg(coords + 3 * i + 2), H, border,
+                           axis_mode<MODES>(modes, 2));
+  const int64_t zo[2] = {z.i0 * W * H, z.i1 * W * H};
+  const int64_t yo[2] = {y.i0 * H, y.i1 * H};
+  const int64_t xo[2] = {x.i0, x.i1};
+  const float wz[2] = {z.w0, z.w1}, wy[2] = {y.w0, y.w1}, wx[2] = {x.w0, x.w1};
+
+  constexpr bool kOneBase = MODES == kAllOct && std::is_same<T, float>::value;
+  const int64_t S = D * W * H;
+  for (int64_t ch = 0; ch < C; ++ch) {
+    const T* v = taps + (b * C + ch) * S;
+    float acc = 0.f;
+#pragma unroll
+    for (int dz = 0; dz < 2; ++dz)
+#pragma unroll
+      for (int dy = 0; dy < 2; ++dy)
+#pragma unroll
+        for (int dx = 0; dx < 2; ++dx) {
+          const float w = __fmul_rn(__fmul_rn(wz[dz], wy[dy]), wx[dx]);
+          // oct taps are consecutive; f32 taps read faster from one base
+          // with constant offsets, bf16 taps from the per-axis offsets
+          // (both measured on the H100)
+          const int64_t at = kOneBase
+                                 ? zo[0] + yo[0] + xo[0] + (dz * W + dy) * H + dx
+                                 : zo[dz] + yo[dy] + xo[dx];
+          const float tap = load_tap(v, at);
+          acc = __fadd_rn(acc, __fmul_rn(tap, w));
+        }
+    out[(b * C + ch) * M + m] = acc;
+  }
+}
+
 template <typename T>
+cudaError_t launch(const void* taps, const float* coords, float* out,
+                   int64_t B, int64_t C, int64_t D, int64_t W, int64_t H,
+                   int64_t M, int border, int modes, cudaStream_t stream) {
+  const unsigned blocks =
+      static_cast<unsigned>((B * M + kThreads - 1) / kThreads);
+  const T* t = static_cast<const T*>(taps);
+  if (modes == kAllOct)
+    warp_trilinear_kernel<T, kAllOct><<<blocks, kThreads, 0, stream>>>(
+        t, coords, out, B, C, D, W, H, M, border, modes);
+  else
+    warp_trilinear_kernel<T, -1><<<blocks, kThreads, 0, stream>>>(
+        t, coords, out, B, C, D, W, H, M, border, modes);
+  return cudaGetLastError();
+}
+
+template <typename T, int MODES>
 __global__ void __launch_bounds__(kThreads)
 warp_coord_grad_kernel(const T* __restrict__ taps,
                        const float* __restrict__ coords,
                        const float* __restrict__ g,
                        float* __restrict__ dcoords, int64_t B, int64_t C,
                        int64_t D, int64_t W, int64_t H, int64_t M,
-                       int border) {
+                       int border, int modes) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= B * M) return;
   const int64_t b = i / M;
   const int64_t m = i - b * M;
 
-  const float cz = __ldg(coords + 3 * i + 0);
-  const AxisGrad z = std::is_same<T, float>::value
-                         ? quad_z_axis(cz, D, border)
-                         : oct_axis(cz, D, border);
-  const AxisGrad y = oct_axis(__ldg(coords + 3 * i + 1), W, border);
-  const AxisGrad x = oct_axis(__ldg(coords + 3 * i + 2), H, border);
+  const Axis z = axis_taps(__ldg(coords + 3 * i + 0), D, border,
+                           axis_mode<MODES>(modes, 0));
+  const Axis y = axis_taps(__ldg(coords + 3 * i + 1), W, border,
+                           axis_mode<MODES>(modes, 1));
+  const Axis x = axis_taps(__ldg(coords + 3 * i + 2), H, border,
+                           axis_mode<MODES>(modes, 2));
   const int64_t zi[2] = {z.i0, z.i1}, yi[2] = {y.i0, y.i1},
                 xi[2] = {x.i0, x.i1};
   const float wz[2] = {z.w0, z.w1}, wy[2] = {y.w0, y.w1}, wx[2] = {x.w0, x.w1};
@@ -238,12 +267,19 @@ template <typename T>
 cudaError_t launch_grad(const void* taps, const float* coords, const float* g,
                         float* dcoords, int64_t B, int64_t C, int64_t D,
                         int64_t W, int64_t H, int64_t M, int border,
-                        cudaStream_t stream) {
+                        int modes, cudaStream_t stream) {
   const unsigned blocks =
       static_cast<unsigned>((B * M + kThreads - 1) / kThreads);
-  warp_coord_grad_kernel<T><<<blocks, kThreads, 0, stream>>>(
-      static_cast<const T*>(taps), coords, g, dcoords, B, C, D, W, H, M,
-      border);
+  const T* t = static_cast<const T*>(taps);
+  if (modes == kAllOct)
+    warp_coord_grad_kernel<T, kAllOct><<<blocks, kThreads, 0, stream>>>(
+        t, coords, g, dcoords, B, C, D, W, H, M, border, modes);
+  else if (modes == kQuadZ)
+    warp_coord_grad_kernel<T, kQuadZ><<<blocks, kThreads, 0, stream>>>(
+        t, coords, g, dcoords, B, C, D, W, H, M, border, modes);
+  else
+    warp_coord_grad_kernel<T, -1><<<blocks, kThreads, 0, stream>>>(
+        t, coords, g, dcoords, B, C, D, W, H, M, border, modes);
   return cudaGetLastError();
 }
 
@@ -251,18 +287,20 @@ cudaError_t launch_grad(const void* taps, const float* coords, const float* g,
 
 // Launches on `stream` without synchronising; returns cudaGetLastError().
 // taps_bf16 selects bf16 taps (else f32); border selects border padding
-// (else zeros). D, W and H must be >= 2 (the wrapper checks).
+// (else zeros); modes packs the three axes' modes, 2 bits each, z lowest
+// (mode 0 needs that axis >= 2; the wrapper checks).
 extern "C" int liftreg_warp_trilinear(const void* taps, int taps_bf16,
                                       const float* coords, float* out,
                                       int64_t B, int64_t C, int64_t D,
                                       int64_t W, int64_t H, int64_t M,
-                                      int border, void* stream) {
+                                      int border, int modes, void* stream) {
   if (B * M == 0) return static_cast<int>(cudaSuccess);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (taps_bf16)
     return launch<__nv_bfloat16>(taps, coords, out, B, C, D, W, H, M, border,
-                                 s);
-  return launch<float>(taps, coords, out, B, C, D, W, H, M, border, s);
+                                 modes, s);
+  return launch<float>(taps, coords, out, B, C, D, W, H, M, border, modes,
+                       s);
 }
 
 // Launches on `stream` without synchronising; returns cudaGetLastError().
@@ -272,12 +310,13 @@ extern "C" int liftreg_warp_coord_grad(const void* taps, int taps_bf16,
                                        const float* coords, const float* g,
                                        float* dcoords, int64_t B, int64_t C,
                                        int64_t D, int64_t W, int64_t H,
-                                       int64_t M, int border, void* stream) {
+                                       int64_t M, int border, int modes,
+                                       void* stream) {
   if (B * M == 0) return static_cast<int>(cudaSuccess);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (taps_bf16)
     return launch_grad<__nv_bfloat16>(taps, coords, g, dcoords, B, C, D, W,
-                                      H, M, border, s);
+                                      H, M, border, modes, s);
   return launch_grad<float>(taps, coords, g, dcoords, B, C, D, W, H, M,
-                            border, s);
+                            border, modes, s);
 }

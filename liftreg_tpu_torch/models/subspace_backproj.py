@@ -101,17 +101,32 @@ class LiftRegSubspaceBackproj(nn.Module):
                                        self.img_sz, enc_filters,
                                        dtype=compute_dtype)
 
-    def lift(self, target_proj, poses, geometry=None):
+    def lift(self, target_proj, poses, geometry=None, out=None):
         """Backproject (B, P, pw, ph) projections into (B, P, D, W, H)
         feature volumes, without gradient (the reference detaches).
         ``geometry`` is ``drr.backward_geometry`` of the poses, built here
-        when not given."""
+        when not given; ``out`` receives the lift (see
+        :func:`..ops.drr_kernel.backproject_taps`)."""
         with torch.no_grad():
             if geometry is None:
                 geometry = drr.backward_geometry(poses, self.img_sz,
                                                  target_proj.shape[2:])
             return backproject_taps(target_proj.contiguous(), *geometry,
-                                    plane_chunk=self.backproject_chunk)
+                                    plane_chunk=self.backproject_chunk,
+                                    out=out)
+
+    def encoder_input(self, moving, target_proj, poses, geometry=None):
+        """The encoder's (B, 1+P, D, W, H) input in its compute type: the
+        moving CT in channel 0 and the lift, written by the lift kernel,
+        in channels 1..P; each value rounded once, as JAX's
+        ``concatenate(...).astype(compute_dtype)``."""
+        B, P = target_proj.shape[:2]
+        x = torch.empty((B, 1 + P) + self.img_sz,
+                        dtype=self.compute_dtype or torch.float32,
+                        device=moving.device)
+        x[:, :1].copy_(moving)
+        self.lift(target_proj, poses, geometry, out=x[:, 1:])
+        return x
 
     def forward(self, inputs, pca):
         moving = inputs["source"]            # (B, 1, D, W, H)
@@ -126,10 +141,8 @@ class LiftRegSubspaceBackproj(nn.Module):
         else:
             moving_cp, target_cp = moving, target
 
-        lifted = self.lift(target_proj, poses, inputs.get("lift_geometry"))
-        x = torch.cat([moving, lifted], dim=1)           # (B, 1+P, D, W, H)
-        if self.compute_dtype is not None:
-            x = x.to(self.compute_dtype)
+        x = self.encoder_input(moving, target_proj, poses,
+                               inputs.get("lift_geometry"))
         coefs = self.encoder(x)
 
         disp = expand_pca(coefs, pca["vectors"], pca["mean"], self.img_sz)

@@ -57,24 +57,25 @@ def library_path() -> Path:
     return BUILD_ROOT / digest.hexdigest()[:16] / _LIB_NAME
 
 
-def build() -> Path:
-    """Compile the kernels unless this version is built; return the
-    library's path. Raises with the end of the compiler log on failure."""
-    lib = library_path()
-    if lib.is_file():
-        return lib
+def compile_library(sources, lib: Path, defines=()) -> float:
+    """Compile ``sources`` (one ``nvcc -c`` each, all started together,
+    with ``-D`` for each of ``defines``) and link them into the shared
+    library ``lib``; return the seconds taken. Raises with the end of the
+    compiler log on failure; the whole log goes to ``build.log`` beside
+    ``lib``."""
     nvcc = find_nvcc()
     lib.parent.mkdir(parents=True, exist_ok=True)
+    flags = (*NVCC_FLAGS, *(f"-D{d}" for d in defines))
     tag = os.getpid()
-    tmp = lib.with_name(f"{_LIB_NAME}.{tag}.tmp")
-    objs = [lib.with_name(f"{src.stem}.{tag}.o") for src in SOURCES]
-    logs = [lib.with_name(f"{src.stem}.{tag}.log") for src in SOURCES]
+    tmp = lib.with_name(f"{lib.name}.{tag}.tmp")
+    objs = [lib.with_name(f"{src.stem}.{tag}.o") for src in sources]
+    logs = [lib.with_name(f"{src.stem}.{tag}.log") for src in sources]
     t0 = time.perf_counter()
     procs = []
-    for src, obj, log in zip(SOURCES, objs, logs):
+    for src, obj, log in zip(sources, objs, logs):
         with open(log, "w") as f:
             procs.append(subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                [nvcc, *flags, "-c", "-o", str(obj), str(src)],
                 stdout=f, stderr=subprocess.STDOUT))
     rcs = [p.wait() for p in procs]
     if not any(rcs):
@@ -86,7 +87,7 @@ def build() -> Path:
     seconds = time.perf_counter() - t0
     log = lib.parent / "build.log"
     log.write_text("".join(f"== {src.name}\n{lg.read_text(errors='replace')}"
-                           for src, lg in zip(SOURCES, logs)))
+                           for src, lg in zip(sources, logs)))
     for path in (*objs, *logs):
         path.unlink(missing_ok=True)
     if any(rcs):
@@ -95,37 +96,58 @@ def build() -> Path:
         raise RuntimeError(f"nvcc failed (exit codes {rcs}) after "
                            f"{seconds:.1f} s; full log: {log}")
     os.replace(tmp, lib)  # atomic: a concurrent loader sees all or nothing
+    return seconds
+
+
+def build() -> Path:
+    """Compile the kernels unless this version is built; return the
+    library's path."""
+    lib = library_path()
+    if lib.is_file():
+        return lib
+    seconds = compile_library(SOURCES, lib)
     print(f"liftreg_tpu_torch: nvcc built {len(SOURCES)} sources in "
           f"{seconds:.1f} s -> {lib}", file=sys.stderr)
+    return lib
+
+
+_PTR, _I64, _I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+#: argument types of each entry point; every one returns an int
+SIGNATURES = {
+    "liftreg_pca_expand": [_PTR, _PTR, _PTR, _PTR, _I64, _I64, _I64, _I32,
+                           _PTR],
+    "liftreg_warp_trilinear": [_PTR, _I32, _PTR, _PTR, _I64, _I64, _I64,
+                               _I64, _I64, _I64, _I32, _I32, _PTR],
+    "liftreg_pca_grad": [_PTR, _PTR, _PTR, _PTR, _I64, _I64, _I64, _I32,
+                         _I64, _PTR],
+    "liftreg_warp_coord_grad": [_PTR, _I32, _PTR, _PTR, _PTR, _I64, _I64,
+                                _I64, _I64, _I64, _I64, _I32, _I32, _PTR],
+    "liftreg_drr_project": [_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _I64, _I64,
+                            _I64, _I64, _I64, _I64, _I64, _I64, _PTR],
+    "liftreg_drr_backproject": [_PTR, _PTR, _PTR, _PTR, _I32, _I64, _I64,
+                                _I64, _I64, _I64, _I64, _I64, _I64, _PTR],
+}
+
+
+def load(path) -> ctypes.CDLL:
+    """Load a library built from some of the sources and declare the
+    entry points it has."""
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in SIGNATURES.items():
+        if hasattr(lib, name):
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = _I32
+    if hasattr(lib, "liftreg_error_string"):
+        lib.liftreg_error_string.argtypes = [_I32]
+        lib.liftreg_error_string.restype = ctypes.c_char_p
     return lib
 
 
 @functools.cache
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built at first use)."""
-    lib = ctypes.CDLL(str(build()))
-    ptr, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-    lib.liftreg_pca_expand.argtypes = [ptr, ptr, ptr, ptr, i64, i64, i64,
-                                       i32, ptr]
-    lib.liftreg_pca_expand.restype = i32
-    lib.liftreg_warp_trilinear.argtypes = [ptr, i32, ptr, ptr, i64, i64, i64,
-                                           i64, i64, i64, i32, ptr]
-    lib.liftreg_warp_trilinear.restype = i32
-    lib.liftreg_pca_grad.argtypes = [ptr, ptr, ptr, ptr, i64, i64, i64, i32,
-                                     i64, ptr]
-    lib.liftreg_pca_grad.restype = i32
-    lib.liftreg_warp_coord_grad.argtypes = [ptr, i32, ptr, ptr, ptr, i64, i64,
-                                            i64, i64, i64, i64, i32, ptr]
-    lib.liftreg_warp_coord_grad.restype = i32
-    lib.liftreg_drr_project.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, i64,
-                                        i64, i64, i64, i64, i64, ptr]
-    lib.liftreg_drr_project.restype = i32
-    lib.liftreg_drr_backproject.argtypes = [ptr, ptr, ptr, ptr, i64, i64, i64,
-                                            i64, i64, i64, i64, ptr]
-    lib.liftreg_drr_backproject.restype = i32
-    lib.liftreg_error_string.argtypes = [i32]
-    lib.liftreg_error_string.restype = ctypes.c_char_p
-    return lib
+    return load(build())
 
 
 def inputs_device(name: str, tensors: dict, cuda_dtypes: dict):

@@ -21,6 +21,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..coords import linspace
+
 
 def calc_relative_atten_coef(img):
     """HU -> linear attenuation, water = 0.2/cm."""
@@ -58,7 +60,9 @@ def _two_tap_matrix(pix, n):
 
 
 def _linspace(a, b, n, like):
-    return torch.linspace(a, b, n, dtype=like.dtype, device=like.device)
+    """``jnp.linspace`` rounding (:func:`..coords.linspace`), on the device
+    and in the dtype of ``like``."""
+    return linspace(a, b, n).to(device=like.device, dtype=like.dtype)
 
 
 def forward_geometry(poses, vol_shape, resolution, spacing):

@@ -13,7 +13,12 @@ coordinates.
 
 :func:`project_taps` and :func:`backproject_taps` launch the kernels for
 CUDA tensors and run the plain versions for CPU tensors; they never fall
-back from one to the other. ``.launches`` on each counts kernel launches.
+back from one to the other. ``.launches`` on each counts kernel launches,
+one per call; a projector call whose plane loop is split runs as two
+passes on the card (the chunks' partial sums, then their ordered sum),
+counted as one launch.
+:func:`backproject_taps` can write into a given ``out``, f32 or bf16, such
+as the channels 1..P of the encoder's input buffer.
 :func:`project` and :func:`backproject` take the poses instead of the
 geometry, as ``liftreg_tpu.ops.drr.project``/``backproject`` do.
 """
@@ -41,6 +46,35 @@ def backproject_taps_plain(proj, u_pix, v_pix, plane_chunk=16):
 
 
 _F32 = (torch.float32,)
+#: the lift writes f32, or bf16 into a bf16 encoder input
+OUT_DTYPES = (torch.float32, torch.bfloat16)
+#: csrc/drr_project.cu: output tile (rows, columns) and batch elements per
+#: block; the wrapper splits the plane loop (in chunks of >= 8 planes) until
+#: the grid holds about this many blocks per SM: more, shorter blocks ran
+#: faster on the H100 than one wave of long ones
+_PROJ_TILE = (16, 32)
+_PROJ_NB = 4
+_PROJ_BLOCKS_PER_SM = 32
+#: the most planes one block of csrc/drr_project.cu walks (its shared table)
+_PROJ_MAX_PLANES = 64
+_INT32_MAX = 2 ** 31 - 1
+
+
+def _check_int32(name, *counts):
+    """The kernels index with 32-bit ints."""
+    if max(counts) > _INT32_MAX:
+        raise ValueError(f"{name}: {max(counts)} elements exceed the "
+                         "kernel's 32-bit indices")
+
+
+def _plane_chunks(sms, B, P, W, res_d, res_h):
+    """Chunks of the projector's plane loop on a card of ``sms`` SMs:
+    enough blocks to fill it (a tile alone gives one block per (tile, view,
+    batch group)), and at most ``_PROJ_MAX_PLANES`` planes per chunk."""
+    tiles = -(-res_d // _PROJ_TILE[0]) * -(-res_h // _PROJ_TILE[1])
+    blocks = tiles * P * -(-B // _PROJ_NB)
+    return max(1, -(-W // _PROJ_MAX_PLANES),
+               min(-(-_PROJ_BLOCKS_PER_SM * sms // blocks), W // 8))
 
 
 def project_taps(vol, x_pix, z_pix, dx, plane_chunk=32):
@@ -66,13 +100,21 @@ def project_taps(vol, x_pix, z_pix, dx, plane_chunk=32):
         return project_taps_plain(vol, x_pix, z_pix, dx, plane_chunk)
     out = torch.empty((B, P, res_d, res_h), dtype=torch.float32,
                       device=device)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    chunks = _plane_chunks(sms, B, P, W, res_d, res_h)
+    _check_int32("project_taps", vol.numel(), x_pix.numel(), z_pix.numel(),
+                 chunks * out.numel())
+    # the chunks' partial sums, added in order by the kernel's second pass
+    part = out if chunks == 1 else torch.empty((chunks,) + out.shape,
+                                               dtype=torch.float32,
+                                               device=device)
     lib = _build.library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.liftreg_drr_project(vol.data_ptr(), x_pix.data_ptr(),
                                      z_pix.data_ptr(), dx.data_ptr(),
-                                     out.data_ptr(), B, P, D, W, H, res_d,
-                                     res_h, stream)
+                                     out.data_ptr(), part.data_ptr(), B, P, D,
+                                     W, H, res_d, res_h, chunks, stream)
     _build.check(rc, "project_taps")
     project_taps.launches += 1
     return out
@@ -81,9 +123,15 @@ def project_taps(vol, x_pix, z_pix, dx, plane_chunk=32):
 project_taps.launches = 0
 
 
-def backproject_taps(proj, u_pix, v_pix, plane_chunk=16):
+def backproject_taps(proj, u_pix, v_pix, plane_chunk=16, out=None):
     """The lift kernel on CUDA tensors, the plain version on CPU tensors
-    (``plane_chunk`` only shapes the plain version's products)."""
+    (``plane_chunk`` only shapes the plain version's products).
+
+    ``out``, if given, receives the lift: a (B, P, D, W, H) f32 or bf16
+    tensor whose rows are contiguous apart from the batch stride, such as
+    ``buf[:, 1:]`` of the encoder's (B, 1+P, D, W, H) input. Each value is
+    rounded once to its dtype (on the CPU: the plain result, converted).
+    Returns ``out``, or a new f32 tensor."""
     tensors = {"proj": proj, "u_pix": u_pix, "v_pix": v_pix}
     device = _build.inputs_device("backproject_taps", tensors,
                                   dict.fromkeys(tensors, _F32))
@@ -97,15 +145,36 @@ def backproject_taps(proj, u_pix, v_pix, plane_chunk=16):
         raise ValueError(f"backproject_taps: shapes {tuple(proj.shape)}, "
                          f"{tuple(u_pix.shape)}, {tuple(v_pix.shape)} do "
                          "not agree")
+    shape = (B, P, D, W, H)
+    if out is not None:
+        inner = (D * W * H, W * H, H, 1)
+        rows_ok = all(n == 1 or st == want for n, st, want in
+                      zip(shape[1:], out.stride()[1:], inner))
+        if tuple(out.shape) != shape or out.dtype not in OUT_DTYPES \
+                or out.device != device or not rows_ok \
+                or (B > 1 and out.stride(0) < P * D * W * H):
+            raise ValueError(
+                f"backproject_taps: out must be an f32/bf16 {shape} tensor "
+                f"on {device} with rows contiguous apart from the batch "
+                f"stride; got {tuple(out.shape)} {out.dtype} strides "
+                f"{out.stride()} on {out.device}")
     if device.type == "cpu":
-        return backproject_taps_plain(proj, u_pix, v_pix, plane_chunk)
-    out = torch.empty((B, P, D, W, H), dtype=torch.float32, device=device)
+        lifted = backproject_taps_plain(proj, u_pix, v_pix, plane_chunk)
+        if out is None:
+            return lifted
+        return out.copy_(lifted)
+    if out is None:
+        out = torch.empty(shape, dtype=torch.float32, device=device)
+    bstride = out.stride(0) if B > 1 else P * D * W * H
+    _check_int32("backproject_taps", proj.numel(), u_pix.numel(),
+                 v_pix.numel(), B * bstride)
     lib = _build.library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.liftreg_drr_backproject(proj.data_ptr(), u_pix.data_ptr(),
-                                         v_pix.data_ptr(), out.data_ptr(),
-                                         B, P, D, W, H, pw, ph, stream)
+        rc = lib.liftreg_drr_backproject(
+            proj.data_ptr(), u_pix.data_ptr(), v_pix.data_ptr(),
+            out.data_ptr(), int(out.dtype == torch.bfloat16), bstride, B, P,
+            D, W, H, pw, ph, stream)
     _build.check(rc, "backproject_taps")
     backproject_taps.launches += 1
     return out

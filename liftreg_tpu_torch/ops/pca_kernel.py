@@ -10,7 +10,8 @@ of any length is masked (the TPU wrapper instead fell back to XLA there).
 
 :func:`pca_expand` launches the kernel for CUDA tensors and runs
 :func:`pca_expand_plain` for CPU tensors; it never falls back from one to
-the other. ``pca_expand.launches`` counts kernel launches.
+the other. ``pca_expand.launches`` counts kernel launches: one per chunk
+of at most ``MAX_CHUNK`` batch rows.
 
 The backward, ``dcoefs = bf16(g @ V^T)``, is the kernel's second entry
 (:func:`pca_grad`, plain version :func:`pca_grad_plain`); it rounds the f32
@@ -26,8 +27,10 @@ import torch
 
 from . import _build
 
-#: the kernel keeps one accumulator row per batch row in registers
-MAX_BATCH = 8
+#: the kernel keeps one accumulator row per batch row in registers, so the
+#: wrappers launch it once per chunk of at most this many batch rows (each
+#: launch reads the basis once; rows are independent)
+MAX_CHUNK = 8
 _MAX_SMEM = 48 * 1024
 _F32 = (torch.float32,)
 #: the backward's threads per block (csrc/pca_expand.cu kThreads) and the
@@ -56,9 +59,12 @@ def _check(coefs, vectors, name, rows, **more):
     if coefs.shape[1] != rows(L, n):
         raise ValueError(f"{name}: shapes {tuple(coefs.shape)}, "
                          f"{tuple(vectors.shape)} do not agree")
-    if device.type == "cuda" and not 1 <= B <= MAX_BATCH:
-        raise ValueError(f"{name}: batch {B} outside [1, {MAX_BATCH}]")
     return device, B, L, n
+
+
+def _chunks(B):
+    """Row ranges of the kernel launches for a batch of B rows."""
+    return [(b0, min(b0 + MAX_CHUNK, B)) for b0 in range(0, B, MAX_CHUNK)]
 
 
 def pca_expand(coefs, vectors, mean):
@@ -70,20 +76,22 @@ def pca_expand(coefs, vectors, mean):
                          f"{tuple(mean.shape)}")
     if device.type == "cpu":
         return pca_expand_plain(coefs, vectors, mean)
-    if B * L * 4 > _MAX_SMEM:
-        raise ValueError(f"pca_expand: B*L = {B * L} coefficients exceed "
-                         "the kernel's shared memory")
+    if min(B, MAX_CHUNK) * L * 4 > _MAX_SMEM:
+        raise ValueError(f"pca_expand: {L} coefficients per row exceed the "
+                         "kernel's shared memory")
     out = torch.empty((B, n), dtype=torch.float32, device=device)
-    vec = int(n % 8 == 0 and all(t.data_ptr() % 16 == 0
-                                 for t in (vectors, mean, out)))
     lib = _build.library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.liftreg_pca_expand(coefs.data_ptr(), vectors.data_ptr(),
-                                    mean.data_ptr(), out.data_ptr(), B, L, n,
-                                    vec, stream)
-    _build.check(rc, "pca_expand")
-    pca_expand.launches += 1
+        for b0, b1 in _chunks(B):
+            c, o = coefs[b0:b1], out[b0:b1]
+            vec = int(n % 8 == 0 and all(t.data_ptr() % 16 == 0
+                                         for t in (vectors, mean, o)))
+            rc = lib.liftreg_pca_expand(c.data_ptr(), vectors.data_ptr(),
+                                        mean.data_ptr(), o.data_ptr(),
+                                        b1 - b0, L, n, vec, stream)
+            _build.check(rc, "pca_expand")
+            pca_expand.launches += 1
     return out
 
 
@@ -98,28 +106,36 @@ def pca_grad_plain(g, vectors):
 
 def pca_grad(g, vectors):
     """The backward kernel on CUDA tensors, the plain version on CPU
-    tensors. ``pca_grad.launches`` counts kernel launches."""
+    tensors. ``pca_grad.launches`` counts kernel launches: one per chunk of
+    at most ``MAX_CHUNK`` batch rows, each of which runs as two passes on
+    the card (per-block partial sums, then their ordered sum), counted as
+    one launch."""
     device, B, L, n = _check(g, vectors, "pca_grad", lambda L, n: n)
     if device.type == "cpu":
         return pca_grad_plain(g, vectors)
-    if _GRAD_WARPS * L * B * 4 > _MAX_SMEM:
-        raise ValueError(f"pca_grad: B*L = {B * L} exceeds the kernel's "
-                         "shared memory")
+    rows = min(B, MAX_CHUNK)
+    if _GRAD_WARPS * L * rows * 4 > _MAX_SMEM:
+        raise ValueError(f"pca_grad: {rows} rows of {L} coefficients exceed "
+                         "the kernel's shared memory")
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     tiles = -(-n // (_GRAD_WARPS * 32 * 8))
     blocks = max(1, min(tiles, _GRAD_BLOCKS_PER_SM * sms))
-    partial = torch.empty((blocks, L, B), dtype=torch.float32, device=device)
+    # one scratch for every chunk: the launches run in order on the stream
+    partial = torch.empty((blocks, L, rows), dtype=torch.float32,
+                          device=device)
     dcoefs = torch.empty((B, L), dtype=torch.float32, device=device)
-    vec = int(n % 8 == 0 and g.data_ptr() % 16 == 0
-              and vectors.data_ptr() % 16 == 0)
     lib = _build.library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.liftreg_pca_grad(g.data_ptr(), vectors.data_ptr(),
-                                  partial.data_ptr(), dcoefs.data_ptr(), B, L,
-                                  n, vec, blocks, stream)
-    _build.check(rc, "pca_grad")
-    pca_grad.launches += 1
+        for b0, b1 in _chunks(B):
+            gc, dc = g[b0:b1], dcoefs[b0:b1]
+            vec = int(n % 8 == 0 and gc.data_ptr() % 16 == 0
+                      and vectors.data_ptr() % 16 == 0)
+            rc = lib.liftreg_pca_grad(gc.data_ptr(), vectors.data_ptr(),
+                                      partial.data_ptr(), dc.data_ptr(),
+                                      b1 - b0, L, n, vec, blocks, stream)
+            _build.check(rc, "pca_grad")
+            pca_grad.launches += 1
     return dcoefs
 
 

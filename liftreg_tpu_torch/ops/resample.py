@@ -15,18 +15,33 @@ import torch
 from .warp_kernel import warp_trilinear_ad
 
 
+def _taps_dtype(taps_dtype, spatial):
+    """The tap storage type, as ``liftreg_tpu.ops.resample.grid_sample``
+    routes it: bf16 (given as a dtype or its name, e.g. ``"bfloat16"``
+    from a JSON config) when every spatial dim is >= 2, else f32, the type
+    of JAX's quad and generic paths."""
+    if isinstance(taps_dtype, str):
+        name = taps_dtype
+        taps_dtype = getattr(torch, name, None)
+        if not isinstance(taps_dtype, torch.dtype):
+            raise ValueError(f"taps_dtype {name!r} is not a dtype name")
+    if taps_dtype == torch.bfloat16 and min(spatial) >= 2:
+        return torch.bfloat16
+    return torch.float32
+
+
 def grid_sample(vol, coords, padding="zeros", taps_dtype=None):
     """Sample ``vol`` (B, C, D, W, H) at pixel ``coords`` (B, *out_shape, 3),
     ``coords[..., d]`` indexing spatial axis ``d`` (NOT torch's reversed
-    order). ``taps_dtype`` bf16 stores the taps in bf16 (the serving warp);
-    None or f32 keeps them f32. Weights and sums are f32. Returns
-    ``(B, C, *out_shape)`` f32."""
+    order). ``taps_dtype`` bf16 (or ``"bfloat16"``) stores the taps in bf16
+    (the serving warp) when no spatial dim is 1; otherwise the taps are
+    f32. Weights and sums are f32. Returns ``(B, C, *out_shape)`` f32."""
     if padding not in ("zeros", "border"):
         raise ValueError(f"padding {padding!r} not in ('zeros', 'border')")
-    taps_dtype = torch.float32 if taps_dtype is None else taps_dtype
     if vol.dim() != 5 or coords.shape[-1] != 3:
         raise ValueError(f"grid_sample handles 3D volumes only; got vol "
                          f"{tuple(vol.shape)}, coords {tuple(coords.shape)}")
+    taps_dtype = _taps_dtype(taps_dtype, vol.shape[2:])
     B, C = vol.shape[:2]
     out_shape = coords.shape[1:-1]
     out = warp_trilinear_ad(vol.to(taps_dtype).contiguous(),

@@ -24,6 +24,12 @@ refinement differentiates: there ``d|t|/dt = 1`` at 0, ``max(0, y)`` and
 taps (``_trilinear_quad``) differentiates ``floor``-based weights. Plain
 autograd of :func:`warp_trilinear_plain` uses other conventions and is not
 the reference.
+
+Each axis samples in one of three modes (:func:`axis_modes`), chosen from
+the volume's shape as ``liftreg_tpu/ops/resample.py:grid_sample`` routes
+it, so that a spatial dim of 1 is sampled and differentiated as in JAX:
+``OCT`` (``_oct_plain``), ``QUAD`` (the z axis of ``_trilinear_quad``) and
+``GENERIC`` (the generic gather path, taken when W or H is 1).
 """
 from __future__ import annotations
 
@@ -35,35 +41,95 @@ TAPS_DTYPES = (torch.bfloat16, torch.float32)
 _F32 = (torch.float32,)
 
 
+#: the axis modes of csrc/warp_trilinear.cu
+OCT, QUAD, GENERIC = 0, 1, 2
+
+
+def axis_modes(spatial, quad_z):
+    """Modes of the (z, y, x) axes for a volume of ``spatial`` (D, W, H):
+    JAX's generic path (every axis ``GENERIC``) when W or H is 1, else
+    ``OCT`` on y and x and on z ``QUAD`` when D is 1 or ``quad_z`` (the
+    coordinate gradient of f32 taps), ``OCT`` otherwise."""
+    D, W, H = (int(n) for n in spatial)
+    if W < 2 or H < 2:
+        return (GENERIC,) * 3
+    return (QUAD if quad_z or D < 2 else OCT, OCT, OCT)
+
+
+def _packed(modes):
+    return modes[0] | modes[1] << 2 | modes[2] << 4
+
+
+def _clip_grad(c, hi):
+    """d clip(c, 0, hi)/dc under JAX's convention: 1/2 at either bound."""
+    inside = ((c > 0) & (c < hi)).float()
+    return inside + 0.5 * ((c == 0) | (c == hi)).float()
+
+
+def _relu_grad(y):
+    return (y > 0).float() + 0.5 * (y == 0).float()
+
+
+def _abs_grad(t):
+    return torch.where(t >= 0, 1.0, -1.0)
+
+
+def _axis(c, n, border, mode, grad):
+    """Tap indices, weights and (with ``grad``, else None) the weights'
+    derivatives along one axis in ``mode`` (see the module docstring), as
+    the kernel computes them."""
+    cg = torch.ones_like(c)
+    if border and mode != GENERIC:
+        if grad:
+            cg = _clip_grad(c, n - 1.0)
+        c = c.clamp(0.0, n - 1.0)
+    if mode == OCT:
+        s = torch.floor(c).clamp(0, n - 2)
+        t = c - s
+        y0, y1 = 1.0 - t.abs(), 1.0 - (t - 1.0).abs()
+        idx = (s.long(), s.long() + 1)
+        weights = (y0.clamp(min=0.0), y1.clamp(min=0.0))
+        if not grad:
+            return idx, weights, None
+        grads = (-_abs_grad(t) * _relu_grad(y0) * cg,
+                 -_abs_grad(t - 1.0) * _relu_grad(y1) * cg)
+        return idx, weights, grads
+    z0 = torch.floor(c)
+    f = c - z0
+    k0 = z0.long()
+    if border:
+        m0 = m1 = torch.ones_like(c)
+    else:
+        m0 = ((k0 >= 0) & (k0 <= n - 1)).float()
+        m1 = ((k0 + 1 >= 0) & (k0 + 1 <= n - 1)).float()
+    idx = (k0.clamp(0, n - 1), (k0 + 1).clamp(0, n - 1))
+    grads = (-m0 * cg, m1 * cg) if grad else None
+    return idx, ((1.0 - f) * m0, f * m1), grads
+
+
+def _axes(taps, coords, border, quad_z, grad):
+    c = coords.float()
+    modes = axis_modes(taps.shape[2:], quad_z)
+    return [_axis(c[..., d], n, border, mode, grad)
+            for d, (n, mode) in enumerate(zip(taps.shape[2:], modes))]
+
+
 def warp_trilinear_plain(taps, coords, border):
     """taps (B, C, D, W, H) bf16/f32, coords (B, M, 3) f32 pixel (z, y, x)
-    -> (B, C, M) f32. Border padding clips the coordinates first; starts
-    are clip(floor(c), 0, n-2) and the weights relu(1-|t|), relu(1-|t-1|),
-    so zeros padding falls out of vanishing weights; corners are summed in
-    (dz, dy, dx) order in f32."""
+    -> (B, C, M) f32. Border padding clips the coordinates first; in the
+    ``OCT`` mode starts are clip(floor(c), 0, n-2) and the weights
+    relu(1-|t|), relu(1-|t-1|), so zeros padding falls out of vanishing
+    weights; corners are summed in (dz, dy, dx) order in f32."""
     B, C, D, W, H = taps.shape
     M = coords.shape[1]
-    c = coords.float()
-    if border:
-        hi = torch.tensor([D - 1, W - 1, H - 1], dtype=torch.float32,
-                          device=c.device)
-        c = torch.minimum(c.clamp(min=0.0), hi)
-    starts, weights = [], []
-    for d, n in enumerate((D, W, H)):
-        cd = c[..., d]
-        s = torch.floor(cd).clamp(0, n - 2)
-        t = cd - s
-        starts.append(s.long())
-        weights.append(((1.0 - t.abs()).clamp(min=0.0),
-                        (1.0 - (t - 1.0).abs()).clamp(min=0.0)))
-    base = (starts[0] * W + starts[1]) * H + starts[2]          # (B, M)
+    (iz, wz, _), (iy, wy, _), (ix, wx, _) = _axes(taps, coords, border,
+                                                  quad_z=False, grad=False)
     v = taps.reshape(B, C, D * W * H)
-    wz, wy, wx = weights
     out = torch.zeros((B, C, M), dtype=torch.float32, device=taps.device)
     for dz in (0, 1):
         for dy in (0, 1):
             for dx in (0, 1):
-                idx = (base + (dz * W + dy) * H + dx)[:, None, :]
+                idx = ((iz[dz] * W + iy[dy]) * H + ix[dx])[:, None, :]
                 rows = torch.gather(v, 2, idx.expand(B, C, M)).float()
                 out = out + rows * (wz[dz] * wy[dy] * wx[dx])[:, None, :]
     return out
@@ -79,9 +145,8 @@ def _check(taps, coords, name, **more):
         raise ValueError(f"{name}: want taps (B, C, D, W, H) and "
                          f"coords (B, M, 3); got {tuple(taps.shape)}, "
                          f"{tuple(coords.shape)}")
-    if min(taps.shape[2:]) < 2:
-        raise ValueError(f"{name}: spatial dims {tuple(taps.shape[2:])} "
-                         "must be >= 2")
+    if min(taps.shape[2:]) < 1:
+        raise ValueError(f"{name}: empty volume {tuple(taps.shape[2:])}")
     if taps.dtype not in TAPS_DTYPES or coords.dtype != torch.float32:
         raise TypeError(f"{name}: want bf16/f32 taps and f32 coords; got "
                         f"{taps.dtype}, {coords.dtype}")
@@ -101,55 +166,13 @@ def warp_trilinear(taps, coords, border):
         rc = lib.liftreg_warp_trilinear(
             taps.data_ptr(), int(taps.dtype == torch.bfloat16),
             coords.data_ptr(), out.data_ptr(), B, C, D, W, H, M, int(border),
-            stream)
+            _packed(axis_modes((D, W, H), quad_z=False)), stream)
     _build.check(rc, "warp_trilinear")
     warp_trilinear.launches += 1
     return out
 
 
 warp_trilinear.launches = 0
-
-
-def _clip_grad(c, hi):
-    """d clip(c, 0, hi)/dc under JAX's convention: 1/2 at either bound."""
-    inside = ((c > 0) & (c < hi)).float()
-    return inside + 0.5 * ((c == 0) | (c == hi)).float()
-
-
-def _relu_grad(y):
-    return (y > 0).float() + 0.5 * (y == 0).float()
-
-
-def _abs_grad(t):
-    return torch.where(t >= 0, 1.0, -1.0)
-
-
-def _axis_grad(c, n, border, quad):
-    """Tap indices, weights and the weights' derivatives along one axis
-    (see the module docstring), as the kernel computes them."""
-    cg = torch.ones_like(c)
-    if border:
-        cg = _clip_grad(c, n - 1.0)
-        c = c.clamp(0.0, n - 1.0)
-    if quad:
-        z0 = torch.floor(c)
-        f = c - z0
-        k0 = z0.long()
-        if border:
-            m0 = m1 = torch.ones_like(c)
-        else:
-            m0 = ((k0 >= 0) & (k0 <= n - 1)).float()
-            m1 = ((k0 + 1 >= 0) & (k0 + 1 <= n - 1)).float()
-        idx = (k0.clamp(0, n - 1), (k0 + 1).clamp(0, n - 1))
-        return idx, ((1.0 - f) * m0, f * m1), (-m0 * cg, m1 * cg)
-    s = torch.floor(c).clamp(0, n - 2)
-    t = c - s
-    y0, y1 = 1.0 - t.abs(), 1.0 - (t - 1.0).abs()
-    idx = (s.long(), s.long() + 1)
-    weights = (y0.clamp(min=0.0), y1.clamp(min=0.0))
-    grads = (-_abs_grad(t) * _relu_grad(y0) * cg,
-             -_abs_grad(t - 1.0) * _relu_grad(y1) * cg)
-    return idx, weights, grads
 
 
 def warp_coord_grad_plain(taps, coords, g, border):
@@ -159,10 +182,8 @@ def warp_coord_grad_plain(taps, coords, g, border):
     coordinates, at kinks as XLA's autodiff of the JAX warp gives it."""
     B, C, D, W, H = taps.shape
     M = coords.shape[1]
-    c = coords.float()
-    quad_z = taps.dtype == torch.float32
-    axes = [_axis_grad(c[..., d], n, border, quad_z and d == 0)
-            for d, n in enumerate((D, W, H))]
+    axes = _axes(taps, coords, border, quad_z=taps.dtype == torch.float32,
+                 grad=True)
     v = taps.reshape(B, C, D * W * H)
     g = g.float()
     grad = [torch.zeros((B, M), dtype=torch.float32, device=taps.device)
@@ -200,7 +221,9 @@ def warp_coord_grad(taps, coords, g, border):
         rc = lib.liftreg_warp_coord_grad(
             taps.data_ptr(), int(taps.dtype == torch.bfloat16),
             coords.data_ptr(), g.data_ptr(), dcoords.data_ptr(), B, C, D, W,
-            H, M, int(border), stream)
+            H, M, int(border),
+            _packed(axis_modes((D, W, H), taps.dtype == torch.float32)),
+            stream)
     _build.check(rc, "warp_coord_grad")
     warp_coord_grad.launches += 1
     return dcoords

@@ -27,6 +27,38 @@ def test_identity_map():
                                np.asarray(jcoords.identity_map(VOL)), **TOL)
 
 
+@pytest.mark.parametrize("sz", [(2, 2, 2), (3, 3, 3), (16, 16, 16),
+                                (160, 2, 160), (240, 3, 240),
+                                (256, 256, 2), (7, 160, 33)])
+def test_identity_map_bit_equal(sz):
+    """The identity map rounds as jnp.linspace does: bit-equal, not close
+    (its pixel coordinates sit on integers, where the warp's gradient
+    jumps)."""
+    got = tcoords.identity_map(sz)
+    np.testing.assert_array_equal(_np(got), np.asarray(jcoords.identity_map(sz)))
+    assert tcoords.identity_map(sz, device="cpu") is got
+
+
+def test_linspace_bit_equal_every_n():
+    for n in range(1, 257):
+        np.testing.assert_array_equal(
+            _np(tcoords.linspace(-1.0, 1.0, n)),
+            np.asarray(jnp.linspace(-1.0, 1.0, n, dtype=jnp.float32)),
+            err_msg=f"n={n}")
+
+
+@pytest.mark.parametrize("n", [16, 20, 24, 30, 32, 48, 96, 160, 240])
+def test_drr_linspace_bit_equal_at_geometry_ranges(n):
+    """The ranges of drr.forward_geometry / backward_geometry: detector
+    and volume grids centred on 0, and the (reversed) coronal planes."""
+    like = torch.zeros(1)
+    for lo, hi in ((-n / 2.0, n / 2.0 - 1.0), (n - 1.0, 0.0), (0.0, n - 1.0)):
+        np.testing.assert_array_equal(
+            _np(tdrr._linspace(lo, hi, n, like)),
+            np.asarray(jnp.linspace(lo, hi, n, dtype=jnp.float32)),
+            err_msg=f"linspace({lo}, {hi}, {n})")
+
+
 @pytest.mark.parametrize("fn", ["norm_to_pixel", "pixel_to_norm"])
 def test_pixel_norm(fn):
     x = np.random.default_rng(0).uniform(-3, 20, (50,)).astype(np.float32)

@@ -9,7 +9,8 @@ order than cuBLAS, atol/rtol 1e-5; the warp kernel repeats the plain
 version's f32 operations in the same order, atol 1e-6. The DRR projector
 sums the planes in another order than the plain dense products: atol
 1e-5 * max|plain|, rtol 1e-5; the lift adds at most 4 taps: atol 1e-6,
-rtol 1e-5. The warp's coordinate gradient uses fused multiply-adds where
+rtol 1e-5, and its bf16 output into a buffer equals its f32 output
+rounded to bf16, bit for bit. The warp's coordinate gradient uses fused multiply-adds where
 the plain version rounds twice: atol 1e-5 * max|plain|. The PCA backward
 rounds an f32 sum taken in another order to bf16: one bf16 step, rtol
 2^-8, plus atol 1e-4 * max|plain| for sums that cancel to near zero."""
@@ -21,8 +22,9 @@ from liftreg_tpu_torch.ops.drr_kernel import (backproject_taps,
                                               backproject_taps_plain,
                                               project_taps,
                                               project_taps_plain)
-from liftreg_tpu_torch.ops.pca_kernel import (pca_expand, pca_expand_plain,
-                                              pca_grad, pca_grad_plain)
+from liftreg_tpu_torch.ops.pca_kernel import (MAX_CHUNK, pca_expand,
+                                              pca_expand_plain, pca_grad,
+                                              pca_grad_plain)
 from liftreg_tpu_torch.ops.warp_kernel import (warp_coord_grad,
                                                warp_coord_grad_plain,
                                                warp_trilinear,
@@ -40,7 +42,9 @@ def device():
 
 
 @pytest.mark.parametrize("B,L,n", [(4, 56, 3 * 40 ** 3), (3, 7, 3 * 49 ** 3),
-                                   (8, 5, 1001), (1, 3, 7)])
+                                   (8, 5, 1001), (1, 3, 7),
+                                   (9, 56, 3 * 24 ** 3), (30, 56, 3 * 24 ** 3),
+                                   (30, 7, 1001)])
 def test_pca_kernel_matches_plain(device, B, L, n):
     g = torch.Generator(device=device).manual_seed(0)
     coefs = torch.randn((B, L), generator=g, device=device)
@@ -49,7 +53,8 @@ def test_pca_kernel_matches_plain(device, B, L, n):
     before = pca_expand.launches
     got = pca_expand(coefs, V, mean)
     torch.cuda.synchronize()
-    assert pca_expand.launches == before + 1
+    # one launch per chunk of at most MAX_CHUNK batch rows
+    assert pca_expand.launches == before + -(-B // MAX_CHUNK)
     torch.testing.assert_close(got, pca_expand_plain(coefs, V, mean),
                                atol=1e-5, rtol=1e-5)
 
@@ -71,10 +76,38 @@ def test_warp_kernel_matches_plain(device, taps, border):
                                atol=1e-6, rtol=0)
 
 
+@pytest.mark.parametrize("shape", [(1, 6, 7), (5, 1, 7), (5, 6, 1),
+                                   (1, 1, 4)])
+@pytest.mark.parametrize("taps", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("border", [False, True])
+def test_warp_kernels_unit_dim_match_plain(device, shape, taps, border):
+    """A spatial dim of 1 takes the quad or generic axis modes in both
+    kernels (forward atol 1e-6, gradient atol 1e-5 * max|plain|)."""
+    g = torch.Generator(device=device).manual_seed(6)
+    B, C, M = 2, 2, 4000
+    vol = torch.rand((B, C) + shape, generator=g, device=device).to(taps)
+    scale = torch.tensor(shape, dtype=torch.float32, device=device)
+    coords = torch.rand((B, M, 3), generator=g, device=device) \
+        * (scale + 2.0) - 1.5
+    coords[:, ::4] = torch.floor(coords[:, ::4])
+    cot = torch.randn((B, C, M), generator=g, device=device)
+    before = (warp_trilinear.launches, warp_coord_grad.launches)
+    got = warp_trilinear(vol, coords, border)
+    got_grad = warp_coord_grad(vol, coords, cot, border)
+    torch.cuda.synchronize()
+    assert (warp_trilinear.launches, warp_coord_grad.launches) == \
+        (before[0] + 1, before[1] + 1)
+    torch.testing.assert_close(got, warp_trilinear_plain(vol, coords, border),
+                               atol=1e-6, rtol=0)
+    want = warp_coord_grad_plain(vol, coords, cot, border)
+    torch.testing.assert_close(got_grad, want, rtol=0,
+                               atol=1e-5 * float(want.abs().max()))
+
+
 def test_wrappers_reject_bad_cuda_inputs(device):
     V = torch.zeros((3, 16), dtype=torch.bfloat16, device=device)
     with pytest.raises(ValueError):
-        pca_expand(torch.zeros((9, 3), device=device), V,
+        pca_expand(torch.zeros((9, 4), device=device), V,
                    torch.zeros(16, device=device))
     with pytest.raises(TypeError):
         pca_expand(torch.zeros((2, 3), device=device), V.float(),
@@ -96,12 +129,23 @@ def _edge_pix(g, shape, n, device):
     return torch.where(mask, special[pick], pix).contiguous()
 
 
+# (B, (D, W, H), detector): the projector's and the lift's first cases
+# (ragged); few planes (one plane chunk); five volumes (two batch groups);
+# the serving shape. Each runs with 3 and 4 views.
+DRR_SHAPES = [(2, (20, 17, 22), (30, 27)), (2, (16, 13, 19), (24, 25)),
+              (3, (13, 9, 11), (21, 19)), (5, (24, 33, 20), (37, 29)),
+              (4, (160, 160, 160), (240, 240))]
+
+
+@pytest.mark.parametrize("B,vol_shape,res", DRR_SHAPES)
+@pytest.mark.parametrize("views", [3, 4])
 @pytest.mark.parametrize("geometry", ["poses", "edges"])
-def test_drr_project_kernel_matches_plain(device, geometry):
+def test_drr_project_kernel_matches_plain(device, geometry, views, B,
+                                          vol_shape, res):
     g = torch.Generator(device=device).manual_seed(2)
-    B, D, W, H, res = 2, 20, 17, 22, (30, 27)
+    D, W, H = vol_shape
     vol = torch.rand((B, D, W, H), generator=g, device=device)
-    poses = torch.from_numpy(drr.synthesize_poses(30.0, 3, W)).to(device)
+    poses = torch.from_numpy(drr.synthesize_poses(30.0, views, W)).to(device)
     x_pix, z_pix, dx = drr.forward_geometry(poses, (D, W, H), res,
                                             (2.2, 2.0, 2.4))
     if geometry == "edges":
@@ -116,12 +160,16 @@ def test_drr_project_kernel_matches_plain(device, geometry):
                                atol=1e-5 * float(want.abs().max()))
 
 
+@pytest.mark.parametrize("B,vol_shape,det", DRR_SHAPES)
+@pytest.mark.parametrize("views", [3, 4])
 @pytest.mark.parametrize("geometry", ["poses", "edges"])
-def test_drr_backproject_kernel_matches_plain(device, geometry):
+def test_drr_backproject_kernel_matches_plain(device, geometry, views, B,
+                                              vol_shape, det):
     g = torch.Generator(device=device).manual_seed(3)
-    vol_shape, det = (16, 13, 19), (24, 25)
-    proj = torch.rand((2, 3) + det, generator=g, device=device) * 2.0 - 1.0
-    poses = torch.from_numpy(drr.synthesize_poses(30.0, 3, 13)).to(device)
+    proj = torch.rand((B, views) + det, generator=g, device=device) * 2.0 \
+        - 1.0
+    poses = torch.from_numpy(drr.synthesize_poses(30.0, views, vol_shape[1])
+                             ).to(device)
     u_pix, v_pix = drr.backward_geometry(poses, vol_shape, det)
     if geometry == "edges":
         u_pix = _edge_pix(g, tuple(u_pix.shape), det[0], device)
@@ -132,6 +180,14 @@ def test_drr_backproject_kernel_matches_plain(device, geometry):
     assert backproject_taps.launches == before + 1
     torch.testing.assert_close(got, backproject_taps_plain(proj, u_pix, v_pix),
                                rtol=1e-5, atol=1e-6)
+    # into a bf16 encoder buffer: the f32 values rounded once, bit for bit
+    buf = torch.full((B, 1 + views) + tuple(vol_shape), 3.0,
+                     dtype=torch.bfloat16, device=device)
+    backproject_taps(proj, u_pix, v_pix, out=buf[:, 1:])
+    torch.cuda.synchronize()
+    assert backproject_taps.launches == before + 2
+    assert torch.equal(buf[:, 1:], got.bfloat16())
+    assert bool((buf[:, 0] == 3.0).all())
 
 
 @pytest.mark.parametrize("taps", [torch.bfloat16, torch.float32])
@@ -157,7 +213,9 @@ def test_warp_coord_grad_kernel_matches_plain(device, taps, border, kind):
 
 
 @pytest.mark.parametrize("B,L,n", [(4, 56, 3 * 40 ** 3), (3, 7, 3 * 49 ** 3),
-                                   (8, 5, 1001), (1, 3, 7)])
+                                   (8, 5, 1001), (1, 3, 7),
+                                   (9, 56, 3 * 24 ** 3), (30, 56, 3 * 24 ** 3),
+                                   (30, 7, 1001)])
 def test_pca_grad_kernel_matches_plain(device, B, L, n):
     g = torch.Generator(device=device).manual_seed(5)
     cot = torch.randn((B, n), generator=g, device=device)
@@ -165,7 +223,7 @@ def test_pca_grad_kernel_matches_plain(device, B, L, n):
     before = pca_grad.launches
     got = pca_grad(cot, V)
     torch.cuda.synchronize()
-    assert pca_grad.launches == before + 1
+    assert pca_grad.launches == before + -(-B // MAX_CHUNK)
     want = pca_grad_plain(cot, V)
     assert torch.equal(got, got.bfloat16().float())
     torch.testing.assert_close(got, want, rtol=2.0 ** -8,

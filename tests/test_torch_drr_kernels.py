@@ -124,3 +124,69 @@ def test_wrappers_check_shapes():
     with pytest.raises(ValueError):
         backproject_taps(torch.zeros((1, 2, 4, 4)), torch.zeros((3, 5, 6)),
                          torch.zeros((3, 5, 7)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lift_into_buffer_is_plain_rounded_once(dtype):
+    """backproject_taps(out=buf[:, 1:]) writes the plain lift, rounded once
+    to the buffer's dtype, and leaves channel 0 alone (exact equality)."""
+    rng = np.random.default_rng(11)
+    vol_shape, det, P = (12, 10, 14), (18, 16), 3
+    proj = torch.from_numpy(rng.uniform(-1, 1, (2, P) + det)
+                            .astype(np.float32))
+    poses = torch.from_numpy(drr.synthesize_poses(30.0, P, vol_shape[1]))
+    geometry = drr.backward_geometry(poses, vol_shape, det)
+    buf = torch.full((2, 1 + P) + vol_shape, 7.0, dtype=dtype)
+    got = backproject_taps(proj, *geometry, out=buf[:, 1:])
+    assert got.data_ptr() == buf[:, 1:].data_ptr()
+    want = backproject_taps_plain(proj, *geometry).to(dtype)
+    assert torch.equal(buf[:, 1:], want)
+    assert bool((buf[:, 0] == 7.0).all())
+
+
+def test_lift_rejects_bad_buffers():
+    proj = torch.zeros((2, 3, 8, 8))
+    poses = torch.from_numpy(drr.synthesize_poses(30.0, 3, 6))
+    geometry = drr.backward_geometry(poses, (5, 6, 7), (8, 8))
+    for out in (torch.zeros((2, 3, 5, 6, 7), dtype=torch.float16),
+                torch.zeros((2, 3, 5, 6, 8))[..., :7],
+                torch.zeros((2, 4, 5, 6, 7))):
+        with pytest.raises(ValueError):
+            backproject_taps(proj, *geometry, out=out)
+
+
+@pytest.mark.parametrize("compute_dtype", [None, torch.bfloat16])
+def test_encoder_input_is_cat_then_cast(compute_dtype):
+    """The model's encoder input, built in one buffer by the lift, equals
+    the concatenation of the moving CT and the f32 lift cast once, as JAX's
+    concatenate(...).astype(compute_dtype)."""
+    from liftreg_tpu_torch.models.subspace_backproj import (
+        LiftRegSubspaceBackproj)
+    rng = np.random.default_rng(12)
+    img, det, P = (12, 10, 14), (18, 16), 4
+    model = LiftRegSubspaceBackproj(img, latent_dim=3, drr_feature_num=P,
+                                    compute_dtype=compute_dtype)
+    moving = torch.from_numpy(rng.uniform(-1, 1, (2, 1) + img)
+                              .astype(np.float32))
+    proj = torch.from_numpy(rng.uniform(-1, 1, (2, P) + det)
+                            .astype(np.float32))
+    poses = torch.from_numpy(drr.synthesize_poses(30.0, P, img[1]))
+    got = model.encoder_input(moving, proj, poses)
+    want = torch.cat([moving, model.lift(proj, poses)], dim=1)
+    if compute_dtype is not None:
+        want = want.to(compute_dtype)
+    assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("B,P,res", [(4, 4, (240, 240)), (1, 3, (17, 19)),
+                                     (30, 4, (240, 240))])
+def test_projector_plane_chunks_fit_the_kernel(B, P, res):
+    """The projector's wrapper splits the plane loop so that, as the kernel
+    splits it (ceil(W / chunks) planes per chunk), no chunk holds more than
+    the kernel's table of planes, for any plane count."""
+    from liftreg_tpu_torch.ops import drr_kernel
+    for W in range(1, 700):
+        chunks = drr_kernel._plane_chunks(132, B, P, W, *res)
+        assert 1 <= chunks <= W
+        assert -(-W // -(-W // chunks)) <= chunks
+        assert -(-W // chunks) <= drr_kernel._PROJ_MAX_PLANES

@@ -3,13 +3,15 @@
 ``RegistrationPipeline(refine_steps=...)`` at 16^3 with the flax weights
 carried by ``params_from_jax``.
 
-The refinement starts from small random coefficients rather than zeros:
-with zero coefficients and a zero mean, phi is the identity map, whose
-pixel coordinates sit on integers, and ``jnp.linspace`` and
-``torch.linspace`` round some of them to opposite sides of the integer
-(one ulp), where the warp's subgradient jumps. The two gradients then
-differ at step 0 for a reason outside the port's code; the kink
-conventions themselves are held in tests/test_torch_grads.py.
+The port's identity map rounds as ``jnp.linspace`` does
+(``liftreg_tpu_torch/coords.py:linspace``, held bit-equal in
+tests/test_torch_coords_drr.py), so a refinement from zero coefficients,
+where phi is the identity map and its pixel coordinates sit on integers
+(the warp's kinks), takes the same subgradients in both packages:
+``test_refiner_from_zero_matches_jax``. The kink conventions themselves
+are held in tests/test_torch_grads.py. The batched tests start from small
+random coefficients: element 1 of the batched problem is already aligned,
+so from zero Adam's first step would normalise a near-zero gradient.
 
 Tolerances: f32 basis and taps, 10 Adam steps: coefs atol 1e-4, phi and
 histories atol 1e-5, warped atol 1e-4 (measured 7e-6, 2e-6 and 1.3e-5: f32
@@ -67,6 +69,21 @@ def test_refiner_matches_jax(fast_vjp):
                                    rtol=0, atol=TOL[key], err_msg=key)
     hist = got["total_history"].numpy()
     assert hist[-1] <= hist[0]
+
+
+def test_refiner_from_zero_matches_jax():
+    """test_refine's single-case problem (sample 0) from zero coefficients:
+    phi starts at the identity map, on the warp's kinks."""
+    pca, moving, target, _ = _problem(0)
+    z0 = np.zeros((1, LATENT), np.float32)
+    got, want = _run_both({k: np.array(v) for k, v in pca.items()},
+                          np.asarray(moving), np.asarray(target), z0,
+                          n_steps=10, lr=0.1)
+    for key in KEYS:
+        np.testing.assert_allclose(got[key].numpy(), np.asarray(want[key]),
+                                   rtol=0, atol=TOL[key], err_msg=key)
+    hist = got["total_history"].numpy()
+    assert hist[-1] < hist[0]
 
 
 def test_refiner_early_stop_matches_jax():

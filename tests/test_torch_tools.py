@@ -1,0 +1,85 @@
+"""The port's timing tools (``tools/torch_kernel_ab.py``,
+``tools/torch_drr_sweep.py``) on the CPU: what they can check without a
+card. They share the serving inputs with ``chip_smoke.py``."""
+import re
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT / "tools"))
+
+import torch_drr_sweep  # noqa: E402
+import torch_kernel_ab  # noqa: E402
+
+from liftreg_tpu_torch.ops import drr, drr_kernel  # noqa: E402
+
+
+def test_serving_drr_inputs_shapes():
+    cs = torch_kernel_ab.chip_smoke_module()
+    g = torch.Generator().manual_seed(0)
+    poses, res, fwd, bwd, att, proj = cs.serving_drr_inputs(
+        torch, drr, g, torch.device("cpu"))
+    sz, b = cs.SZ, cs.B
+    assert poses.shape == (4, 3) and res == drr.default_resolution((sz,) * 3)
+    assert [tuple(t.shape) for t in fwd] == [(4, sz, res[0]), (4, sz, res[1]),
+                                            (4, res[0], res[1])]
+    assert [tuple(t.shape) for t in bwd] == [(4, sz, sz), (4, sz, sz)]
+    assert att.shape == (b, sz, sz, sz) and proj.shape == (b, 4) + res
+    assert float(att.min()) >= 0.0 and float(proj.abs().max()) <= 1.0
+
+
+@pytest.mark.parametrize("table", ["PROJECTORS", "LIFTS"])
+def test_sweep_variants_exist_and_start_from_the_port(table):
+    rows = getattr(torch_drr_sweep, table)
+    assert rows[0][0] == "csrc"
+    kernel = "drr_project" if table == "PROJECTORS" else "drr_backproject"
+    assert rows[0][1] == ROOT / f"liftreg_tpu_torch/csrc/{kernel}.cu"
+    assert rows[0][2] == ()
+    for _, src, _ in rows:
+        assert src.is_file(), src
+    names = [r[0] for r in rows]
+    assert len(names) == len(set(names))
+
+
+@pytest.mark.parametrize("name", sorted(torch_drr_sweep.ABLATIONS))
+def test_sweep_ablations_patch_the_sources(name):
+    """Each ablation's patterns still match the source they patch."""
+    src, subs = torch_drr_sweep.ABLATIONS[name]
+    text = src.read_text()
+    for pattern, repl in subs:
+        text, count = re.subn(pattern, repl, text)
+        assert count > 0, pattern
+
+
+def test_projector_knob_defaults_match_the_wrapper():
+    """The wrapper sizes its plane chunks from the kernel's tile."""
+    src = (ROOT / "liftreg_tpu_torch/csrc/drr_project.cu").read_text()
+    ti = int(re.search(r"#define LIFTREG_PROJ_TI (\d+)", src).group(1))
+    tj = int(re.search(r"constexpr int kTJ = (\d+);", src).group(1))
+    planes = int(re.search(r"constexpr int kMaxPlanes = (\d+);",
+                           src).group(1))
+    assert drr_kernel._PROJ_TILE == (ti, tj)
+    assert drr_kernel._PROJ_MAX_PLANES == planes
+
+
+def test_sweep_reads_ptxas_registers():
+    log = "\n".join([
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_120"
+        "drr_backproject_rowsI13__nv_bfloat16EEvPKfS4_S4_PT_iiii' for "
+        "'sm_90a'",
+        "ptxas info    : Used 80 registers, used 0 barriers",
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_120"
+        "drr_backproject_rowsIfEEvPKfS2_S2_PT_iiii' for 'sm_90a'",
+        "ptxas info    : Used 40 registers, used 0 barriers",
+        "ptxas info    : Compiling entry function '_ZN61_GLOBAL__N__e0f1b2c3"
+        "_22_drr_project_cu_7c1f0d2a17drr_project_tilesEPKfS1_S1_S1_S1_"
+        "Pfiiii' for 'sm_90a'",
+        "ptxas info    : Function properties for _ZN12_GLOBAL__N_117",
+        "ptxas info    : Used 56 registers, used 1 barriers, 29440 bytes smem",
+    ])
+    assert torch_drr_sweep._registers(log) == {
+        "drr_backproject_rows_bf16": 80, "drr_backproject_rows": 40,
+        "drr_project_tiles": 56}

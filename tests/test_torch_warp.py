@@ -116,8 +116,69 @@ def test_wrapper_rejects_bad_inputs():
     with pytest.raises(TypeError):
         warp_trilinear(taps.double(), pts, False)
     with pytest.raises(ValueError):
-        warp_trilinear(torch.zeros(1, 1, 1, 4, 4), pts, False)
+        warp_trilinear(torch.zeros(1, 1, 0, 4, 4), pts, False)
     with pytest.raises(ValueError):
         warp_trilinear(taps, torch.zeros((2, 4, 3)), False)
     with pytest.raises(ValueError):
         tresample.grid_sample(taps, pts.reshape(1, 4, 1, 3), padding="wrap")
+
+
+def _coords_with_kinks(rng, shape, B, M):
+    """(B, M, 3) pixel coords spread over each axis and a voxel beyond it,
+    a quarter of them on integers (the kinks); an axis of one voxel gets
+    coordinates in [-1.5, 1.5] with some exactly 0."""
+    cols = []
+    for n in shape:
+        c = rng.uniform(-1.5, n + 0.5, (B, M)).astype(np.float32)
+        cols.append(np.where(rng.uniform(size=(B, M)) < 0.25, np.floor(c), c))
+    return np.stack(cols, -1).astype(np.float32)
+
+
+def _grid_sample_both(vol, coords, cot, padding, taps_dtype):
+    """Value and the coordinate gradient of sum(cot * grid_sample) from
+    both packages."""
+    import jax
+
+    def jfn(c):
+        return jnp.sum(jnp.asarray(cot) * jresample.grid_sample(
+            jnp.asarray(vol), c, padding=padding, taps_dtype=taps_dtype))
+
+    jc = jnp.asarray(coords)
+    want = jresample.grid_sample(jnp.asarray(vol), jc, padding=padding,
+                                 taps_dtype=taps_dtype)
+    want_grad = jax.grad(jfn)(jc)
+    tc = torch.from_numpy(coords).requires_grad_(True)
+    got = tresample.grid_sample(torch.from_numpy(vol), tc, padding=padding,
+                                taps_dtype=taps_dtype)
+    (got_grad,) = torch.autograd.grad((got * torch.from_numpy(cot)).sum(), tc)
+    return (got.detach().numpy(), np.asarray(want), got_grad.numpy(),
+            np.asarray(want_grad))
+
+
+@pytest.mark.parametrize("shape", [(6, 5, 7), (1, 6, 7), (5, 1, 7),
+                                   (5, 6, 1), (1, 1, 4)])
+@pytest.mark.parametrize("taps_dtype", ["bfloat16", "float32", None])
+@pytest.mark.parametrize("padding", ["zeros", "border"])
+def test_grid_sample_taps_names_and_unit_dims_match_jax(shape, taps_dtype,
+                                                        padding):
+    """The taps type given by name, as configs carry it, and volumes with a
+    spatial dim of 1 (JAX's quad path for D = 1, its generic path for W or
+    H = 1, f32 taps there whatever was asked): value and the gradient with
+    respect to the coordinates, integer coordinates included. Tolerances:
+    value atol 1e-6 (<= 8 f32 products summed in another order), gradient
+    atol 1e-5 of its largest component."""
+    rng = np.random.default_rng(7)
+    vol = rng.uniform(0, 1, (2, 2) + shape).astype(np.float32)
+    coords = _coords_with_kinks(rng, shape, 2, 300)
+    cot = rng.normal(size=(2, 2, 300)).astype(np.float32)
+    got, want, got_grad, want_grad = _grid_sample_both(vol, coords, cot,
+                                                       padding, taps_dtype)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+    np.testing.assert_allclose(got_grad, want_grad, rtol=0,
+                               atol=1e-5 * np.abs(want_grad).max())
+
+
+def test_grid_sample_rejects_unknown_taps_name():
+    with pytest.raises(ValueError):
+        tresample.grid_sample(torch.zeros((1, 1, 2, 2, 2)),
+                              torch.zeros((1, 4, 3)), taps_dtype="bfloat17")
