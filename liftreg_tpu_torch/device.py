@@ -1,4 +1,4 @@
-"""Device selection for the port's entry points."""
+"""Device and dtype selection for the port's entry points."""
 from __future__ import annotations
 
 import torch
@@ -15,3 +15,17 @@ def resolve_device(device=None) -> torch.device:
                                "device='cpu' to run on the CPU")
         return torch.device("cuda")
     return torch.device(device)
+
+
+def resolve_dtype(dtype, what="dtype"):
+    """``None``, a ``torch.dtype`` or a dtype's name as the JAX package and
+    its JSON configs give it (``"bfloat16"``, ``"float32"``) -> ``None`` or
+    the ``torch.dtype``. Anything else raises ``ValueError`` naming
+    ``what``."""
+    if dtype is None or isinstance(dtype, torch.dtype):
+        return dtype
+    found = getattr(torch, dtype, None) if isinstance(dtype, str) else None
+    if not isinstance(found, torch.dtype):
+        raise ValueError(f"{what} {dtype!r} is not a torch dtype or the name "
+                         "of one")
+    return found

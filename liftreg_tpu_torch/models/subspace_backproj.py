@@ -13,6 +13,7 @@ import torch
 from torch import nn
 
 from ..coords import identity_map
+from ..device import resolve_dtype
 from ..ops import drr, resample
 from ..ops.drr_kernel import backproject_taps
 from ..ops.pca_kernel import pca_expand_ad
@@ -83,8 +84,10 @@ def expand_pca(coefs, pca_vectors, pca_mean, img_sz):
 
 class LiftRegSubspaceBackproj(nn.Module):
     """``forward(inputs, pca)`` with ``pca = {'vectors': (L, 3*D*W*H),
-    'mean': (3*D*W*H,)}``; returns the JAX model's output dict. An optional
-    ``inputs["lift_geometry"]`` carries the lift's prebuilt
+    'mean': (3*D*W*H,)}``; returns the JAX model's output dict.
+    ``compute_dtype`` and ``warp_taps_dtype`` are a ``torch.dtype``, its
+    name or None, resolved here (an unknown name raises ``ValueError``).
+    An optional ``inputs["lift_geometry"]`` carries the lift's prebuilt
     ``drr.backward_geometry``, which must be built for the detector size of
     ``inputs["target_proj"]``."""
 
@@ -93,13 +96,14 @@ class LiftRegSubspaceBackproj(nn.Module):
                  backproject_chunk=16, warp_taps_dtype=None, mask_ct=True):
         super().__init__()
         self.img_sz = tuple(int(s) for s in img_sz)
-        self.compute_dtype = compute_dtype
+        self.compute_dtype = resolve_dtype(compute_dtype, "compute_dtype")
         self.backproject_chunk = backproject_chunk
-        self.warp_taps_dtype = warp_taps_dtype
+        self.warp_taps_dtype = resolve_dtype(warp_taps_dtype,
+                                             "warp_taps_dtype")
         self.mask_ct = mask_ct
         self.encoder = SubspaceEncoder(1 + drr_feature_num, latent_dim,
                                        self.img_sz, enc_filters,
-                                       dtype=compute_dtype)
+                                       dtype=self.compute_dtype)
 
     def lift(self, target_proj, poses, geometry=None, out=None):
         """Backproject (B, P, pw, ph) projections into (B, P, D, W, H)

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from ..device import resolve_dtype
 from .warp_kernel import warp_trilinear_ad
 
 
@@ -20,12 +21,8 @@ def _taps_dtype(taps_dtype, spatial):
     routes it: bf16 (given as a dtype or its name, e.g. ``"bfloat16"``
     from a JSON config) when every spatial dim is >= 2, else f32, the type
     of JAX's quad and generic paths."""
-    if isinstance(taps_dtype, str):
-        name = taps_dtype
-        taps_dtype = getattr(torch, name, None)
-        if not isinstance(taps_dtype, torch.dtype):
-            raise ValueError(f"taps_dtype {name!r} is not a dtype name")
-    if taps_dtype == torch.bfloat16 and min(spatial) >= 2:
+    if resolve_dtype(taps_dtype, "taps_dtype") == torch.bfloat16 \
+            and min(spatial) >= 2:
         return torch.bfloat16
     return torch.float32
 

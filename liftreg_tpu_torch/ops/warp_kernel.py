@@ -203,6 +203,18 @@ def warp_coord_grad_plain(taps, coords, g, border):
     return torch.stack(grad, dim=-1)
 
 
+def check_grad_offsets(taps_shape, M):
+    """Raise ``ValueError`` unless the coordinate-gradient kernel's 32-bit
+    offsets hold for taps of ``taps_shape`` (B, C, D, W, H) and M points:
+    it indexes one (b, c) volume and one batch element's points in 32 bits
+    (D*W*H < 2^31, M < 2^31 - 2^16) and takes b from the grid's second
+    dimension (B < 2^16)."""
+    B, C, D, W, H = (int(n) for n in taps_shape)
+    if D * W * H >= 2 ** 31 or M >= 2 ** 31 - 2 ** 16 or B >= 2 ** 16:
+        raise ValueError(f"warp_coord_grad: taps {tuple(taps_shape)} and "
+                         f"{M} points exceed the kernel's 32-bit offsets")
+
+
 def warp_coord_grad(taps, coords, g, border):
     """The coordinate-gradient kernel on CUDA tensors, the plain version on
     CPU tensors. ``warp_coord_grad.launches`` counts kernel launches."""
@@ -214,6 +226,7 @@ def warp_coord_grad(taps, coords, g, border):
                          f"{(B, C, M)}; got {tuple(g.shape)} {g.dtype}")
     if taps.device.type == "cpu":
         return warp_coord_grad_plain(taps, coords, g, border)
+    check_grad_offsets(taps.shape, M)
     dcoords = torch.empty((B, M, 3), dtype=torch.float32, device=taps.device)
     lib = _build.library()
     with torch.cuda.device(taps.device):

@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import torch
 
-from .device import resolve_device
+from .device import resolve_device, resolve_dtype
 from .models.subspace_backproj import LiftRegSubspaceBackproj, mask_lung
 from .ops import drr
 from .ops.drr_kernel import project_taps
@@ -36,9 +36,11 @@ class RegistrationPipeline:
     """Build once, then call :meth:`register` or
     :meth:`register_projections`.
 
-    ``compute_dtype`` is the encoder's compute type (None = f32). A bf16
-    compute type also selects bf16 warp taps unless ``warp_taps_dtype``
-    overrides it. ``device`` None means the CUDA card and raises without
+    ``compute_dtype`` is the encoder's compute type (None = f32), a
+    ``torch.dtype`` or its name (``"bfloat16"``), as the JAX pipeline takes
+    it; an unknown name raises ``ValueError`` here. A bf16 compute type
+    also selects bf16 warp taps unless ``warp_taps_dtype`` overrides it.
+    ``device`` None means the CUDA card and raises without
     one; pass ``"cpu"`` to run the kernels' plain versions. The pipeline
     turns TF32 off process-wide so that f32 products and convolutions
     keep f32 precision, as the JAX package asks XLA for HIGHEST. The DRR
@@ -75,8 +77,10 @@ class RegistrationPipeline:
             self.poses, self.img_sz, self.resolution, self.spacing)
         self.lift_geometry = drr.backward_geometry(
             self.poses, self.img_sz, self.resolution)
+        compute_dtype = resolve_dtype(compute_dtype, "compute_dtype")
         if warp_taps_dtype == "auto":
             warp_taps_dtype = compute_dtype
+        warp_taps_dtype = resolve_dtype(warp_taps_dtype, "warp_taps_dtype")
         self.mask_ct = mask_ct
         self.model = LiftRegSubspaceBackproj(
             self.img_sz, latent_dim=latent_dim, drr_feature_num=n_proj,

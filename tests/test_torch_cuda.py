@@ -190,18 +190,40 @@ def test_drr_backproject_kernel_matches_plain(device, geometry, views, B,
     assert bool((buf[:, 0] == 3.0).all())
 
 
+def _unaligned(t):
+    """A contiguous copy of ``t`` whose data starts one element past a
+    16-byte boundary (the kernels' scalar paths)."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = flat[1:].view(t.shape)
+    out.copy_(t)
+    assert out.is_contiguous() and out.data_ptr() % 16 != 0
+    return out
+
+
 @pytest.mark.parametrize("taps", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("border", [False, True])
 @pytest.mark.parametrize("kind", ["uniform", "integer"])
-def test_warp_coord_grad_kernel_matches_plain(device, taps, border, kind):
+@pytest.mark.parametrize("layout", ["aligned", "ragged_m", "unaligned",
+                                    "unit_w"])
+def test_warp_coord_grad_kernel_matches_plain(device, taps, border, kind,
+                                              layout):
+    """ragged_m: M not a multiple of the kernel's points per thread;
+    unaligned: the coordinates start off a 16-byte boundary; unit_w: a
+    spatial dim of 1 (the generic axis modes)."""
     g = torch.Generator(device=device).manual_seed(4)
     B, C, D, W, H, M = 2, 2, 9, 12, 10, 6000
+    if layout == "ragged_m":
+        M = 6001
+    if layout == "unit_w":
+        W = 1
     vol = torch.rand((B, C, D, W, H), generator=g, device=device).to(taps)
     scale = torch.tensor([D, W, H], dtype=torch.float32, device=device)
     coords = torch.rand((B, M, 3), generator=g, device=device) \
         * (scale + 6.0) - 3.0
     if kind == "integer":
         coords = torch.floor(coords)
+    if layout == "unaligned":
+        coords = _unaligned(coords)
     cot = torch.randn((B, C, M), generator=g, device=device)
     before = warp_coord_grad.launches
     got = warp_coord_grad(vol, coords, cot, border)
@@ -215,11 +237,22 @@ def test_warp_coord_grad_kernel_matches_plain(device, taps, border, kind):
 @pytest.mark.parametrize("B,L,n", [(4, 56, 3 * 40 ** 3), (3, 7, 3 * 49 ** 3),
                                    (8, 5, 1001), (1, 3, 7),
                                    (9, 56, 3 * 24 ** 3), (30, 56, 3 * 24 ** 3),
-                                   (30, 7, 1001)])
-def test_pca_grad_kernel_matches_plain(device, B, L, n):
+                                   (30, 7, 1001), (1, 57, 3 * 24 ** 3),
+                                   (8, 57, 3 * 20 ** 3), (4, 3, 3 * 20 ** 3),
+                                   (2, 5, 3 * 20 ** 3), (9, 130, 4000)])
+@pytest.mark.parametrize("layout", ["aligned", "unaligned_basis",
+                                    "unaligned_cotangent"])
+def test_pca_grad_kernel_matches_plain(device, B, L, n, layout):
+    """L that the warps' row slices do not divide (3, 5, 7, 57, and 130,
+    more rows than one grid row holds), B from 1 to 30, and a basis or a
+    cotangent off a 16-byte boundary (the scalar path)."""
     g = torch.Generator(device=device).manual_seed(5)
     cot = torch.randn((B, n), generator=g, device=device)
     V = (torch.randn((L, n), generator=g, device=device) * 0.01).bfloat16()
+    if layout == "unaligned_basis":
+        V = _unaligned(V)
+    if layout == "unaligned_cotangent":
+        cot = _unaligned(cot)
     before = pca_grad.launches
     got = pca_grad(cot, V)
     torch.cuda.synchronize()
@@ -228,3 +261,15 @@ def test_pca_grad_kernel_matches_plain(device, B, L, n):
     assert torch.equal(got, got.bfloat16().float())
     torch.testing.assert_close(got, want, rtol=2.0 ** -8,
                                atol=1e-4 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("B,L,n", [(4, 56, 3 * 40 ** 3), (9, 57, 1001)])
+def test_pca_grad_kernel_is_deterministic(device, B, L, n):
+    """No float atomics: two calls on the same inputs give the same bits."""
+    g = torch.Generator(device=device).manual_seed(7)
+    cot = torch.randn((B, n), generator=g, device=device)
+    V = (torch.randn((L, n), generator=g, device=device) * 0.01).bfloat16()
+    first = pca_grad(cot, V)
+    second = pca_grad(cot, V)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)

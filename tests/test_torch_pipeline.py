@@ -31,6 +31,10 @@ CONFIGS = {
     "f32": dict(jdt=None, tdt=None, basis="float32", phi=1e-5, warped=1e-4),
     "bf16": dict(jdt=jnp.bfloat16, tdt=torch.bfloat16, basis="bfloat16",
                  phi=5e-5, warped=5e-3),
+    # the bf16 config with the compute type given by name, as JSON
+    # configs carry it, to both pipelines
+    "bf16_name": dict(jdt="bfloat16", tdt="bfloat16", basis="bfloat16",
+                      phi=5e-5, warped=5e-3),
 }
 
 
@@ -77,30 +81,30 @@ def test_params_from_jax_layouts():
     model.load_state_dict(sd)
 
 
-def _case(dtype):
+def _case(dtype, sz=SZ, latent=L):
     cfg = CONFIGS[dtype]
     rng = np.random.default_rng(0)
-    n = 3 * int(np.prod(SZ))
-    V = (rng.standard_normal((L, n)) * 0.01).astype(np.float32)
+    n = 3 * int(np.prod(sz))
+    V = (rng.standard_normal((latent, n)) * 0.01).astype(np.float32)
     mean = (rng.standard_normal(n) * 0.01).astype(np.float32)
-    vols = [rng.uniform(-1000, 0, (B, 1) + SZ).astype(np.float32)
+    vols = [rng.uniform(-1000, 0, (B, 1) + sz).astype(np.float32)
             for _ in range(2)]
-    seg = (rng.uniform(size=(B, 1) + SZ) > 0.4).astype(np.float32)
-    jp = JPipeline(SZ, latent_dim=L, compute_dtype=cfg["jdt"])
+    seg = (rng.uniform(size=(B, 1) + sz) > 0.4).astype(np.float32)
+    jp = JPipeline(sz, latent_dim=latent, compute_dtype=cfg["jdt"])
     jpca = {"vectors": jnp.asarray(V, getattr(jnp, cfg["basis"])),
             "mean": jnp.asarray(mean)}
     params = jp.init_params(jax.random.PRNGKey(1), jpca)
-    tp = RegistrationPipeline(SZ, latent_dim=L, compute_dtype=cfg["tdt"],
-                              device="cpu")
+    tp = RegistrationPipeline(sz, latent_dim=latent,
+                              compute_dtype=cfg["tdt"], device="cpu")
     tp.model.load_state_dict(params_from_jax(_np_tree(params)))
     tpca = {"vectors": torch.from_numpy(V).to(getattr(torch, cfg["basis"])),
             "mean": torch.from_numpy(mean)}
     return cfg, jp, params, jpca, tp, tpca, vols, seg
 
 
-def _check(cfg, got, want):
+def _check(cfg, got, want, sz=SZ):
     (tw, tphi), (jw, jphi) = got, want
-    assert tw.shape == (B, 1) + SZ and tphi.shape == (B, 3) + SZ
+    assert tw.shape == (B, 1) + sz and tphi.shape == (B, 3) + sz
     np.testing.assert_allclose(tphi.numpy(), np.asarray(jphi),
                                atol=cfg["phi"], rtol=0)
     np.testing.assert_allclose(tw.numpy(), np.asarray(jw),
@@ -148,3 +152,21 @@ def test_register_without_segmentation_matches_jax():
     want = jp.register(params, jpca, src, tgt)
     got = tp.register(tpca, torch.from_numpy(src), torch.from_numpy(tgt))
     _check(cfg, got, want)
+
+
+def test_register_compute_dtype_by_name_matches_jax():
+    sz = (16, 16, 16)
+    cfg, jp, params, jpca, tp, tpca, (src, tgt), seg = _case(
+        "bf16_name", sz=sz, latent=4)
+    assert tp.model.compute_dtype == torch.bfloat16
+    want = jp.register(params, jpca, src, tgt, seg, seg)
+    got = tp.register(tpca, torch.from_numpy(src), torch.from_numpy(tgt),
+                      torch.from_numpy(seg), torch.from_numpy(seg))
+    _check(cfg, got, want, sz=sz)
+
+
+@pytest.mark.parametrize("field", ["compute_dtype", "warp_taps_dtype"])
+def test_unknown_dtype_name_raises_at_construction(field):
+    with pytest.raises(ValueError, match=field):
+        RegistrationPipeline((16, 16, 16), latent_dim=4, device="cpu",
+                             **{field: "bfloat17"})

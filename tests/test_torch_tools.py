@@ -1,6 +1,7 @@
 """The port's timing tools (``tools/torch_kernel_ab.py``,
-``tools/torch_drr_sweep.py``) on the CPU: what they can check without a
-card. They share the serving inputs with ``chip_smoke.py``."""
+``tools/torch_drr_sweep.py``, ``tools/torch_grad_sweep.py``) on the CPU:
+what they can check without a card. They share the serving inputs with
+``chip_smoke.py``."""
 import re
 import sys
 from pathlib import Path
@@ -83,3 +84,73 @@ def test_sweep_reads_ptxas_registers():
     assert torch_drr_sweep._registers(log) == {
         "drr_backproject_rows_bf16": 80, "drr_backproject_rows": 40,
         "drr_project_tiles": 56}
+
+
+import torch_grad_sweep  # noqa: E402
+
+from liftreg_tpu_torch.ops import pca_kernel  # noqa: E402
+
+
+@pytest.mark.parametrize("table,src", [("PCAS", "pca_expand.cu"),
+                                       ("WARPS", "warp_trilinear.cu")])
+def test_grad_sweep_variants_exist_and_start_from_the_port(table, src):
+    rows = getattr(torch_grad_sweep, table)
+    assert rows[0] == ("csrc", ROOT / "liftreg_tpu_torch/csrc" / src, ())
+    for _, path, _ in rows:
+        assert path.is_file(), path
+    names = [r[0] for r in rows]
+    assert len(names) == len(set(names))
+
+
+@pytest.mark.parametrize("name", sorted(torch_grad_sweep.ABLATIONS))
+def test_grad_sweep_ablations_patch_the_sources(name):
+    """Each ablation's patterns still match the source they patch."""
+    src, subs = torch_grad_sweep.ABLATIONS[name]
+    text = src.read_text()
+    for pattern, repl in subs:
+        text, count = re.subn(pattern, repl, text)
+        assert count > 0, pattern
+
+
+def test_pca_grad_tile_matches_the_wrapper():
+    """The wrapper counts the backward's tiles to size its grid."""
+    src = (ROOT / "liftreg_tpu_torch/csrc/pca_expand.cu").read_text()
+    cols = int(re.search(r"constexpr int kCols = (\d+);", src).group(1))
+    assert re.search(r"constexpr int kGradTile = 32 \* kCols;", src)
+    assert pca_kernel._GRAD_TILE == 32 * cols
+
+
+def test_grad_sweep_reads_ptxas_registers():
+    log = "\n".join([
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_123"
+        "pca_grad_partial_kernelILi4EEEvPKfPK13__nv_bfloat16Pflli' for "
+        "'sm_90a'",
+        "ptxas info    : Used 128 registers, used 1 barriers",
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_122"
+        "pca_grad_finish_kernelEPKfPflll' for 'sm_90a'",
+        "ptxas info    : Used 16 registers",
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_122"
+        "warp_coord_grad_kernelI13__nv_bfloat16Li0EEEvPKT_PKfS5_Pfiiiiiiii' "
+        "for 'sm_90a'",
+        "ptxas info    : Used 64 registers",
+    ])
+    assert torch_grad_sweep._registers(log) == {
+        "pca_grad_partial_kernel<Li4E>": 128,
+        "warp_coord_grad_kernel<13__nv_bfloat16Li0E>": 64}
+
+
+def test_refine_inputs_shapes():
+    """The refine phase's inputs (shared by chip_smoke.py and the A/B
+    tool's refined register), at a small size."""
+    import torch.nn.functional as F
+    cs = torch_kernel_ab.chip_smoke_module()
+    cs.SZ, cs.B, cs.LATENT = 12, 2, 3
+    g = torch.Generator().manual_seed(0)
+    src, tgt, seg, pca = cs.refine_inputs(torch, F, g, torch.device("cpu"))
+    shape = (2, 1, 12, 12, 12)
+    assert src.shape == tgt.shape == seg.shape == shape
+    assert pca["vectors"].shape == (3, 3 * 12 ** 3)
+    assert pca["vectors"].dtype == torch.bfloat16
+    assert pca["mean"].shape == (3 * 12 ** 3,)
+    assert set(seg.unique().tolist()) <= {0.0, 1.0}
+    assert float(src.min()) >= -900.0 and float(src.max()) <= -100.0

@@ -16,7 +16,8 @@ from liftreg_tpu import coords as jcoords
 from liftreg_tpu.ops import pallas_warp
 from liftreg_tpu.ops import resample as jresample
 from liftreg_tpu_torch.ops import resample as tresample
-from liftreg_tpu_torch.ops.warp_kernel import (warp_trilinear,
+from liftreg_tpu_torch.ops.warp_kernel import (check_grad_offsets,
+                                               warp_trilinear,
                                                warp_trilinear_plain)
 
 
@@ -182,3 +183,20 @@ def test_grid_sample_rejects_unknown_taps_name():
     with pytest.raises(ValueError):
         tresample.grid_sample(torch.zeros((1, 1, 2, 2, 2)),
                               torch.zeros((1, 4, 3)), taps_dtype="bfloat17")
+
+
+@pytest.mark.parametrize("taps_shape,M,fits", [
+    ((4, 1, 160, 160, 160), 160 ** 3, True),
+    ((2, 3, 1024, 1024, 2047), 10 ** 6, True),
+    ((1, 1, 1024, 1024, 2048), 10 ** 6, False),
+    ((1, 1, 8, 8, 8), 2 ** 31, False),
+    ((2 ** 16, 1, 8, 8, 8), 512, False),
+])
+def test_grad_offset_check_is_a_function_of_the_shape(taps_shape, M, fits):
+    """The coordinate-gradient kernel's 32-bit offsets, checked from the
+    shape alone (no such volume is allocated)."""
+    if fits:
+        check_grad_offsets(taps_shape, M)
+    else:
+        with pytest.raises(ValueError):
+            check_grad_offsets(taps_shape, M)

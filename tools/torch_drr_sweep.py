@@ -138,10 +138,11 @@ def _registers(log_text):
     return regs
 
 
-def _build_all(_build, jobs):
-    """Compile every (kind, name, source, defines) job; return
-    {(kind, name): (library path or None, registers, error)}."""
-    out_root = ROOT / "build" / "drr_sweep"
+def _build_all(_build, jobs, out_root=ROOT / "build" / "drr_sweep",
+               registers=_registers):
+    """Compile every (kind, name, source, defines) job into its own
+    library under ``out_root``; return {(kind, name): (library path or
+    None, ``registers`` of its ptxas log, error)}."""
 
     def one(job):
         kind, name, src, defines = job
@@ -151,7 +152,7 @@ def _build_all(_build, jobs):
         except RuntimeError as exc:
             return job[:2], (None, {}, str(exc))
         log = (lib.parent / "build.log").read_text(errors="replace")
-        return job[:2], (lib, _registers(log), None)
+        return job[:2], (lib, registers(log), None)
 
     with ThreadPoolExecutor(max_workers=8) as pool:
         return dict(pool.map(one, jobs))

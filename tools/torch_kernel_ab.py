@@ -13,8 +13,10 @@ it uses: 160^3, B=4, 4 views on a 240^2 detector, latent 56 (the DRR
 kernels also with one volume, ``_b1``), and the steady-state
 time of ``RegistrationPipeline.register`` there (bf16 encoder, basis and
 taps, random seeded weights; host clock over 10 calls after 2 warm-ups,
-ending in a synchronize). Needs a CUDA card and nvcc; imports nothing of
-JAX.
+ending in a synchronize). ``register_refine`` is the same pipeline with
+``refine_steps=30`` on ``chip_smoke.py``'s refine inputs: each of 3 calls
+after 1 warm-up on the host clock, their median, and the peak memory.
+Needs a CUDA card and nvcc; imports nothing of JAX.
 """
 import importlib.util
 import json
@@ -99,6 +101,25 @@ def _time_tree(root):
         pipe.register(pca, src, tgt, seg, seg)
     torch.cuda.synchronize()
     out["register"] = (time.perf_counter() - t0) * 1e3 / 10
+
+    pipe_r = RegistrationPipeline((sz,) * 3, latent_dim=cs.LATENT,
+                                  compute_dtype=torch.bfloat16,
+                                  refine_steps=cs.REFINE_STEPS)
+    pipe_r.model.load_state_dict(pipe.model.state_dict())
+    r_src, r_tgt, r_seg, r_pca = cs.refine_inputs(torch, F, g, dev)
+    pipe_r.register(r_pca, r_src, r_tgt, r_seg, r_seg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    calls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        pipe_r.register(r_pca, r_src, r_tgt, r_seg, r_seg)
+        torch.cuda.synchronize()
+        calls.append((time.perf_counter() - t0) * 1e3)
+    out["register_refine_calls"] = calls
+    out["register_refine"] = sorted(calls)[1]
+    out["register_refine_peak_gib"] = \
+        torch.cuda.max_memory_allocated() / 2 ** 30
     print(json.dumps(out), flush=True)
 
 
