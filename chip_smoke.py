@@ -18,7 +18,11 @@ line with its elapsed seconds:
    the warp and its gradient, a point count that the gradient's points per
    thread do not divide, the PCA backward twice, which must give the same
    bits, and the lift written as bf16 into the encoder's input buffer,
-   which must be its f32 output rounded once);
+   which must be its f32 output rounded once); the warp and its gradient
+   also with phi in its (B, 3, D, W, H) layout, as warp_image passes it
+   (B = 1, 4 and 9 at the serving shape, M = 6001 points, phi and the
+   cotangent off a 16-byte boundary, unit dims; both tap types, both
+   paddings, scale_intensity on and off);
 4. main_path: RegistrationPipeline.register at 160^3, B=4, 4 views on a
    240^2 detector, latent 56, bf16 encoder, basis and taps, with random
    seeded weights; the kernels' launch counts are zeroed just before and
@@ -29,15 +33,21 @@ line with its elapsed seconds:
    config on smooth seeded volumes and a smooth basis, counts zeroed just
    before and read just after; the refined objective of each case must not
    exceed its unrefined objective;
-6. reference / refine_reference: the pipeline on the card against the same
+6. glue_check: one register call without and one with refinement under
+   a dispatch mode that sees every aten op: no op may make a (B, D, W, H,
+   3) coordinate buffer or the warp's `out * 2 - 1`, and the moving
+   image's tap tensor is cast once per warp_image call outside the
+   refinement's steps;
+7. reference / refine_reference: the pipeline on the card against the same
    pipeline on the CPU (the kernels' plain versions) at 32^3, without and
    with 5 refinement steps;
-7. times: each kernel, its plain version and one PyTorch library call of
-   the same function, with CUDA events (the lift also as the serving path
+8. times: each kernel, its plain version and one PyTorch library call of
+   the same function, with CUDA events (the warp and its gradient in both
+   layouts and with both tap types; the lift also as the serving path
    runs it, bf16 into the encoder's buffer, with the bound of the bytes it
    writes); the steady-state register time, with and without refinement,
    and peak memory;
-8. profile / profile_refine: one register call, without and with
+9. profile / profile_refine: one register call, without and with
    refinement, under torch.profiler: device time by layer (from kernel
    names) and the device's idle share.
 
@@ -53,6 +63,7 @@ import subprocess
 import sys
 import threading
 import time
+import weakref
 
 WATCHDOG_S = 900
 # H100 SXM data sheet: HBM3 rate, dense bf16 tensor-core and f32 peaks
@@ -66,6 +77,11 @@ WARP_OPS_PER_OUTPUT = 50
 # their derivatives (3 axes x ~8), and 8 corners x 3 axes x (2 weight
 # products, 1 multiply-add) per channel
 WARP_GRAD_OPS_PER_OUTPUT = 24 + 8 * 3 * 4
+# with phi: the pixel coordinates (an add and a multiply per axis) and the
+# rescale's multiply and subtract; in the gradient the doubled cotangent and
+# dphi's multiply per axis
+WARP_PHI_OPS = 3 * 2 + 2
+WARP_GRAD_PHI_OPS = 3 * 2 + 1 + 3
 # f32 operations of one 2-tap interpolation: 2 x (1 multiply, 1 add). The
 # DRR sums are separable, so their least work interpolates one axis per
 # pass: per (b, p, plane) the projector needs res_d*H such values along x
@@ -180,6 +196,53 @@ def _smooth_coords(torch, F, g, batch, sz, amp, device):
     return coords.reshape(batch, -1, 3)
 
 
+def _phi_of(coords, sz):
+    """The normalized map (batch, 3, sz, sz, sz) whose pixel coordinates
+    are ``coords`` (batch, sz^3, 3)."""
+    half = (sz - 1) * 0.5
+    return (coords / half - 1.0).reshape(
+        coords.shape[0], sz, sz, sz, 3).movedim(-1, 1).contiguous()
+
+
+def _unaligned(torch, t):
+    """A contiguous copy of ``t`` whose data starts one element past a
+    16-byte boundary (the warp kernels' scalar paths)."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = flat[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def warp_phi_cases(torch, F, g, device):
+    """The phi-layout cases of warp_check and grad_check: {name: (volume in
+    [0, 1] (B, C, D, W, H) f32, phi (B, 3, *out_shape), cotangent
+    (B, C, *out_shape))} at the serving shape with B = 1, 4 and 9 (smooth
+    fields with slabs far outside, a quarter of batch element 0's points
+    converted from integer pixel coordinates), M = 6001 points, phi and the
+    cotangent one float off a 16-byte boundary, and volumes with a spatial
+    dim of 1."""
+    cases = {}
+    for batch in (1, B, 9):
+        coords = _smooth_coords(torch, F, g, batch, SZ, 4.0, device)
+        coords[0, ::4] = torch.floor(coords[0, ::4])
+        cases[f"serving_b{batch}"] = (
+            torch.rand((batch, 1) + (SZ,) * 3, generator=g, device=device),
+            _phi_of(coords, SZ),
+            torch.randn((batch, 1) + (SZ,) * 3, generator=g, device=device))
+    vol, phi, cot = cases[f"serving_b{B}"]
+    cases["unaligned"] = (vol, _unaligned(torch, phi), _unaligned(torch, cot))
+    shapes = {"ragged_m": ((37, 29, 41), (6001,)),
+              "unit_d": ((1, SZ, SZ),) * 2, "unit_w": ((SZ, 1, SZ),) * 2,
+              "unit_h": ((SZ, SZ, 1),) * 2}
+    for name, (spatial, out_shape) in shapes.items():
+        phi = torch.rand((2, 3) + out_shape, generator=g,
+                         device=device) * 2.6 - 1.3
+        cases[name] = (
+            torch.rand((2, 2) + spatial, generator=g, device=device), phi,
+            torch.randn((2, 2) + out_shape, generator=g, device=device))
+    return cases
+
+
 def _smooth_field(torch, F, g, shape, low, device):
     """(shape[0], shape[1], *shape[2:]) smooth random field in [-1, 1]:
     normal noise on a low^3 grid, trilinear up to the full size."""
@@ -240,6 +303,64 @@ def refine_inputs(torch, F, g, device):
     pca = {"vectors": _smooth_basis(torch, F, g, LATENT, SZ, 0.05, device),
            "mean": torch.zeros((3 * SZ ** 3,), device=device)}
     return src, tgt, seg, pca
+
+
+def glue_ops(torch, fn, batch, sz):
+    """Run ``fn`` under a dispatch mode that sees every aten op, backward
+    included, and count: all ops; ops whose result is a coordinate buffer
+    (last dim 3 and batch * 3 * sz^3 elements); the warp's rescale, 1
+    subtracted from a volume of batch * sz^3 elements that was multiplied
+    by 2; and casts of a (batch, 1, sz, sz, sz) volume to bf16, the moving
+    image's taps."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+    aten = torch.ops.aten
+    counts = {"ops": 0, "coordinate_buffers": 0, "rescales": 0,
+              "tap_casts": 0}
+    doubled = set()
+    n_coords = batch * 3 * sz ** 3
+
+    def scalar_of(args, value):
+        """``args`` are a tensor and the Python number ``value``."""
+        return len(args) > 1 and isinstance(args[0], torch.Tensor) \
+            and isinstance(args[1], (int, float)) and args[1] == value
+
+    class Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            counts["ops"] += 1
+            for o in tree_leaves(out):
+                if isinstance(o, torch.Tensor) and o.dim() >= 2 \
+                        and o.shape[-1] == 3 and o.numel() == n_coords:
+                    counts["coordinate_buffers"] += 1
+            op = func.overloadpacket
+            if op is aten.mul and scalar_of(args, 2.0) \
+                    and args[0].numel() == batch * sz ** 3:
+                doubled.add(id(out))
+                weakref.finalize(out, doubled.discard, id(out))
+            if op is aten.sub and scalar_of(args, 1.0) \
+                    and id(args[0]) in doubled:
+                counts["rescales"] += 1
+            if op is aten._to_copy and out.dtype == torch.bfloat16 \
+                    and tuple(out.shape) == (batch, 1) + (sz,) * 3:
+                counts["tap_casts"] += 1
+            return out
+
+    with Count():
+        fn()
+    return counts
+
+
+def _warp_flags(torch):
+    """(taps type, border, scale_intensity) of each phi-layout case."""
+    return [(tdt, border, rescale)
+            for tdt in (torch.bfloat16, torch.float32)
+            for border in (False, True) for rescale in (False, True)]
+
+
+def _flag_key(tdt, border, rescale):
+    return (f"{str(tdt).split('.')[-1]}/{'border' if border else 'zeros'}"
+            f"{'/scaled' if rescale else ''}")
 
 
 def _counts(kernels):
@@ -371,6 +492,19 @@ def main():
                 unit_grad_rel[key] = _max_err(
                     warp_coord_grad(ut, ucoords, ucot, border), want) \
                     / float(want.abs().max())
+    # phi in its (B, 3, D, W, H) layout, as warp_image passes it
+    phi_cases = warp_phi_cases(torch, F, g, dev)
+    phi_errs = {}
+    for name, (pvol, phi, _) in phi_cases.items():
+        for tdt, border, rescale in _warp_flags(torch):
+            pt = pvol.to(tdt)
+            key = f"phi/{name}/{_flag_key(tdt, border, rescale)}"
+            phi_errs[key] = _max_err(
+                warp_trilinear(pt, phi, border, normalized=True,
+                               scale_intensity=rescale),
+                warp_trilinear_plain(pt, phi, border, normalized=True,
+                                     scale_intensity=rescale))
+    warp_errs.update(phi_errs)
     errs["warp_trilinear"] = max(warp_errs.values())
     _emit(max_abs_err=warp_errs, tol=WARP_TOL,
           unit_dim_grad_rel_err=unit_grad_rel,
@@ -458,6 +592,19 @@ def main():
     grad_errs["bfloat16/zeros/ragged_m"] = [err,
                                             err / float(want.abs().max())]
     del c_r, cot_r, want
+    for name, (pvol, phi, pcot) in phi_cases.items():
+        for tdt, border, rescale in _warp_flags(torch):
+            pt = pvol.to(tdt)
+            want = warp_coord_grad_plain(pt, phi, pcot, border,
+                                         normalized=True,
+                                         scale_intensity=rescale)
+            err = _max_err(warp_coord_grad(pt, phi, pcot, border,
+                                           normalized=True,
+                                           scale_intensity=rescale), want)
+            grad_errs[f"phi/{name}/{_flag_key(tdt, border, rescale)}"] = [
+                err, err / float(want.abs().max())]
+            del want
+    del phi_cases
     errs["warp_coord_grad"] = max(e[0] for e in grad_errs.values())
     grad_rel = max(e[1] for e in grad_errs.values())
     cot_pca = torch.randn((B, n), generator=g, device=dev)
@@ -592,6 +739,23 @@ def main():
           first_call_ms=first_ms, peak_memory_gib=refine_peak_gib)
     del out0, res0, inputs
 
+    # -- no glue around the warp on the card --------------------------------
+    _begin("glue_check")
+    glue = {"register": glue_ops(
+                torch, lambda: pipe.register(pca, src_hu, tgt_hu, seg, seg),
+                B, SZ),
+            "register_refine": glue_ops(
+                torch, lambda: pipe_r.register(r_pca, r_src, r_tgt, r_seg,
+                                               r_seg), B, SZ)}
+    _emit(**glue)
+    _require(all(c["coordinate_buffers"] == 0 and c["rescales"] == 0
+                 for c in glue.values()),
+             f"glue around the warp on the card: {glue}")
+    # one cast for the encoder's prediction, one for the refinement's steps
+    _require(glue["register"]["tap_casts"] == 1
+             and glue["register_refine"]["tap_casts"] == 2,
+             f"the tap tensor is built more than once per call: {glue}")
+
     # -- the card against the CPU at a small size --------------------------
     _begin("reference")
     small, L_small = (32, 32, 32), 8
@@ -674,21 +838,41 @@ def main():
 
     t16 = taps[torch.bfloat16]
     t32 = taps[torch.float32]
-    ms["warp_trilinear"] = _cuda_ms(
-        lambda: warp_trilinear(t16, coords, False), 20)
+    # the same points in phi's layout, and the cotangent of warp_image's
+    # (B, 1, D, W, H) output
+    phi = _phi_of(coords, SZ)
+    cot5 = cot.reshape(B, 1, SZ, SZ, SZ)
+    # both warp kernels in both layouts with both tap types; the main path
+    # runs phi with bf16 taps and scale_intensity
+    layout_ms = {"warp_trilinear": {}, "warp_coord_grad": {}}
+    for tname, tt in (("bf16", t16), ("f32", t32)):
+        layout_ms["warp_trilinear"][f"phi_{tname}"] = _cuda_ms(
+            lambda: warp_trilinear(tt, phi, False, normalized=True,
+                                   scale_intensity=True), 20)
+        layout_ms["warp_trilinear"][f"pixel_{tname}"] = _cuda_ms(
+            lambda: warp_trilinear(tt, coords, False), 20)
+        layout_ms["warp_coord_grad"][f"phi_{tname}"] = _cuda_ms(
+            lambda: warp_coord_grad(tt, phi, cot5, False, normalized=True,
+                                    scale_intensity=True), 20)
+        layout_ms["warp_coord_grad"][f"pixel_{tname}"] = _cuda_ms(
+            lambda: warp_coord_grad(tt, coords, cot, False), 20)
+    ms["warp_trilinear"] = layout_ms["warp_trilinear"]["phi_bf16"]
     plain_ms["warp_trilinear"] = _cuda_ms(
-        lambda: warp_trilinear_plain(t16, coords, False), 3)
+        lambda: warp_trilinear_plain(t16, phi, False, normalized=True,
+                                     scale_intensity=True), 3)
+    # torch's grid_sample on f32 taps, its (B, D, W, H, 3) grid in its own
+    # (x, y, z) order and [-1, 1] units built outside the timed calls: the
+    # yardstick of the f32-tap times
     scale = torch.tensor([2.0 / (SZ - 1)] * 3, device=dev)
     grid = (coords * scale - 1.0).flip(-1).reshape(B, SZ, SZ, SZ, 3)
     lib_ms["warp_trilinear"] = _cuda_ms(lambda: F.grid_sample(
         t32, grid, mode="bilinear", padding_mode="zeros",
         align_corners=True), 10)
 
-    ms["warp_coord_grad"] = _cuda_ms(
-        lambda: warp_coord_grad(t16, coords, cot, False), 20)
+    ms["warp_coord_grad"] = layout_ms["warp_coord_grad"]["phi_bf16"]
     plain_ms["warp_coord_grad"] = _cuda_ms(
-        lambda: warp_coord_grad_plain(t16, coords, cot, False), 3)
-    cot5 = cot.reshape(B, 1, SZ, SZ, SZ)
+        lambda: warp_coord_grad_plain(t16, phi, cot5, False, normalized=True,
+                                      scale_intensity=True), 3)
     lib_ms["warp_coord_grad"] = _cuda_ms(
         lambda: torch.ops.aten.grid_sampler_3d_backward(
             cot5, t32, grid, 0, 0, True, [False, True]), 10)
@@ -718,9 +902,9 @@ def main():
         "pca_expand": coefs.numel() * 4 + V.numel() * 2 + mean.numel() * 4
         + B * n * 4,
         "pca_grad": cot_pca.numel() * 4 + V.numel() * 2 + B * LATENT * 4,
-        "warp_trilinear": t16.numel() * 2 + coords.numel() * 4 + B * M * 4,
-        "warp_coord_grad": t16.numel() * 2 + coords.numel() * 4
-        + cot.numel() * 4 + coords.numel() * 4,
+        "warp_trilinear": t16.numel() * 2 + phi.numel() * 4 + B * M * 4,
+        "warp_coord_grad": t16.numel() * 2 + phi.numel() * 4
+        + cot.numel() * 4 + phi.numel() * 4,
         "drr_project": att.numel() * 4 + sum(t.numel() * 4 for t in fwd_geom)
         + B * 4 * res[0] * res[1] * 4,
         "drr_backproject": proj_in.numel() * 4
@@ -729,15 +913,23 @@ def main():
     ops = {
         "pca_expand": (2 * B * LATENT * n, PEAK_BF16_FLOPS),
         "pca_grad": (2 * B * LATENT * n, PEAK_F32_FLOPS),
-        "warp_trilinear": (WARP_OPS_PER_OUTPUT * B * M, PEAK_F32_FLOPS),
-        "warp_coord_grad": (WARP_GRAD_OPS_PER_OUTPUT * B * M,
-                            PEAK_F32_FLOPS),
+        "warp_trilinear": ((WARP_OPS_PER_OUTPUT + WARP_PHI_OPS) * B * M,
+                           PEAK_F32_FLOPS),
+        "warp_coord_grad": ((WARP_GRAD_OPS_PER_OUTPUT + WARP_GRAD_PHI_OPS)
+                            * B * M, PEAK_F32_FLOPS),
         "drr_project": (DRR_OPS_PER_TWO_TAPS * B * 4 * SZ * res[0]
                         * (SZ + res[1]), PEAK_F32_FLOPS),
         "drr_backproject": (DRR_OPS_PER_TWO_TAPS * B * 4 * SZ * SZ
                             * (res[1] + SZ), PEAK_F32_FLOPS),
     }
+    # the bound of each layout and tap type: the f32 taps move 33 MB more
+    layout_times = {
+        name: {key: {"ms": t_ms, "bound_ms": (
+            nbytes[name] + (t16.numel() * 2 if key.endswith("f32") else 0))
+            / HBM_BYTES_PER_S * 1e3} for key, t_ms in times.items()}
+        for name, times in layout_ms.items()}
     del vol01, taps, t16, t32, coords, int_coords, grid, cot, cot5, cot_pca
+    del phi
     lift_bf16_bytes = nbytes["drr_backproject"] - B * 4 * SZ ** 3 * 2
     lift_bf16 = {"ms": lift_bf16_ms,
                  "bound_ms": lift_bf16_bytes / HBM_BYTES_PER_S * 1e3,
@@ -761,7 +953,8 @@ def main():
     r_args = (r_src, r_tgt, r_seg, r_seg)
     refine_ms, refine_peak = steady(pipe_r, r_pca, r_args, 3)
     _emit(kernel_ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-          lift_bf16_buffer=lift_bf16, register_ms=register_ms, register_per_s=B * 1e3 / register_ms,
+          warp_layouts=layout_times, lift_bf16_buffer=lift_bf16,
+          register_ms=register_ms, register_per_s=B * 1e3 / register_ms,
           peak_memory_gib=peak_gib, register_refine_ms=refine_ms,
           register_refine_per_s=B * 1e3 / refine_ms,
           refine_ms_per_step=(refine_ms - register_ms) / (REFINE_STEPS + 1),
@@ -832,6 +1025,8 @@ def main():
     next(k for k in kernels if k["name"] == "drr_backproject").update(
         bf16_buffer_ms=lift_bf16["ms"],
         bf16_buffer_bound_ms=lift_bf16["bound_ms"])
+    for name, times in layout_times.items():
+        next(k for k in kernels if k["name"] == name)["layouts"] = times
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,16 @@
 // Trilinear warp on Hopper: out (B, C, M) = taps (B, C, D, W, H) sampled at
-// pixel coordinates coords (B, M, 3), (z, y, x) order, align_corners=True.
+// M points per batch element, align_corners=True. The points come in one of
+// two layouts:
+//   pixel (liftreg_warp_trilinear): coords (B, M, 3), pixel coordinates in
+//     (z, y, x) order, grid_sample's points of any output shape;
+//   phi (liftreg_warp_trilinear_phi): phi (B, 3, M), normalized [-1, 1]
+//     coordinates with channel c indexing spatial axis c, warp_image's map
+//     read where it lies. The kernel makes each pixel coordinate in
+//     registers as (p + 1) * f32((n - 1) / 2), rounded after the add and
+//     after the multiply as the torch and JAX glue round it, and with
+//     rescale returns out * 2 - 1 (scale_intensity's way back to [-1, 1]),
+//     rounded as torch rounds it. No coordinate buffer is built.
+// One templated kernel body serves both layouts.
 //
 // Replaces liftreg_tpu/ops/pallas_warp.py:_warp_plane_kernel (its
 // pallas_call in _plane_impl, reached through warp_plane_gather /
@@ -27,20 +38,31 @@
 // D = 1 (and, in the gradient, for f32 taps), else 0. W or H = 1 takes mode 2
 // on every axis.
 //
-// Bound: bytes. At the serving shape (B=4, C=1, 160^3, bf16 taps) it reads the
-// coordinates (197 MB f32) and the taps (33 MB) and writes 66 MB: ~0.30 GB,
-// ~0.09 ms at 3.35 TB/s. One thread computes one output position for all C
-// channels: its coordinate triple is read once (neighbouring threads read
-// neighbouring triples) and the 8 taps come from two neighbouring rows of two
-// neighbouring planes, which a smooth field keeps within a few cache lines of
-// the neighbouring threads' taps. The wrapper prepares the inputs in torch:
-// the (image+1)/2 intensity shift cast to the tap type, and phi converted to
-// pixel coordinates; reading phi here instead would save the coordinate
-// buffer and is left to a later change.
+// Bound: bytes. At the serving shape (B=4, C=1, 160^3, bf16 taps) it reads phi
+// (197 MB f32) and the taps (33 MB) and writes 66 MB: ~0.30 GB, ~0.088 ms at
+// 3.35 TB/s. A thread takes kPts points of one batch element (blockIdx.y: no
+// division), 32 apart: a warp covers 32 * kPts consecutive points, one a lane
+// in each load, so that every gather of a tap reads 32 neighbouring taps
+// (one or two cache lines) and every load of phi and store of the output
+// is 128 contiguous bytes, while the thread keeps 8 * kPts tap loads in
+// flight. Offsets inside one (b, c) volume are 32-bit (the wrapper checks the
+// shape). Measured on the H100 (tools/torch_warp_sweep.py): 4 points with
+// bf16 taps, 2 with f32 (64 and 32 registers), 256 threads. Consecutive
+// points with 16-byte vectors (LIFTREG_WARP_STRIDED=0) were slower: a
+// gather then spans 4 times the cache lines. So were L2 cache hints (phi and
+// the output evict-first, the taps evict-last; the 33 MB of taps stay in the
+// 50 MB L2 without them) and the x pair of bf16 taps as one 32-bit load
+// (the parity of x0 alternates between neighbouring lanes, so a warp takes
+// both paths). Those three are knobs of
+// tools/warp_variants/warp_trilinear_knobs.cu.
 //
-// The second entry, liftreg_warp_coord_grad, is the coordinate gradient:
+// The second entry, liftreg_warp_coord_grad (pixel layout) and
+// liftreg_warp_coord_grad_phi (phi layout), is the coordinate gradient:
 // dcoords (B, M, 3) = sum_c g[b,c,m] * d out[b,c,m] / d coords[b,m,:], for
-// the cotangent g (B, C, M). It replaces the with_grad variant of the TPU
+// the cotangent g (B, C, M); in the phi layout g is doubled under rescale
+// (exact) and the kernel writes dphi (B, 3, M) = dcoords * f32((n - 1) / 2)
+// per axis, rounded once, as autograd of the glue gives it. It replaces the
+// with_grad variant of the TPU
 // kernel (pallas_warp.py:_warp_plane_kernel with with_grad=True, reached
 // through warp_plane_sample's custom VJP) by gathering the 8 taps again
 // rather than storing the per-channel residual (197 MB at the serving
@@ -63,9 +85,143 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+// the forward's compile-time knobs (tools/torch_warp_sweep.py): points a
+// thread with bf16 and with f32 taps, threads a block
+#ifndef LIFTREG_WARP_POINTS
+#define LIFTREG_WARP_POINTS 4
+#endif
+#ifndef LIFTREG_WARP_POINTS_F32
+#define LIFTREG_WARP_POINTS_F32 2
+#endif
+#ifndef LIFTREG_WARP_THREADS
+#define LIFTREG_WARP_THREADS 256
+#endif
+
 namespace {
 
-constexpr int kThreads = 256;
+// layouts of the sample points (see the note above)
+constexpr int kPixel = 0;
+constexpr int kPhi = 1;
+
+// V consecutive floats at p (16-byte aligned for V = 4)
+template <int V>
+__device__ __forceinline__ void load_vec(const float* p, float* out) {
+  if constexpr (V == 4) {
+    const float4 f = __ldg(reinterpret_cast<const float4*>(p));
+    out[0] = f.x; out[1] = f.y; out[2] = f.z; out[3] = f.w;
+  } else if constexpr (V == 2) {
+    const float2 f = __ldg(reinterpret_cast<const float2*>(p));
+    out[0] = f.x; out[1] = f.y;
+  } else {
+    out[0] = __ldg(p);
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void store_vec(float* p, const float* v) {
+  if constexpr (V == 4)
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  else if constexpr (V == 2)
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  else
+    p[0] = v[0];
+}
+
+// N floats at p: as 16-byte (or 8-byte) vectors when vec, else one at a
+// time, the first `valid` of them (the rest read 0)
+template <int N>
+__device__ __forceinline__ void load_floats(const float* p, float* out,
+                                            int vec, int valid) {
+  constexpr int V = N % 4 == 0 ? 4 : (N % 2 == 0 ? 2 : 1);
+  if (vec) {
+#pragma unroll
+    for (int k = 0; k < N; k += V) load_vec<V>(p + k, out + k);
+  } else {
+#pragma unroll
+    for (int k = 0; k < N; ++k) out[k] = k < valid ? __ldg(p + k) : 0.f;
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void store_floats(float* p, const float* v,
+                                             int vec, int valid) {
+  constexpr int V = N % 4 == 0 ? 4 : (N % 2 == 0 ? 2 : 1);
+  if (vec) {
+#pragma unroll
+    for (int k = 0; k < N; k += V) store_vec<V>(p + k, v + k);
+  } else {
+#pragma unroll
+    for (int k = 0; k < N; ++k)
+      if (k < valid) p[k] = v[k];
+  }
+}
+
+// The points m0 .. m0 + PTS - 1 of batch element b (of M) as pixel
+// coordinates, c[3 * p + axis]; scale[axis] is f32((n - 1) / 2) of the
+// volume. A masked point reads 0, which lies in the volume in either layout.
+template <int LAYOUT, int PTS>
+__device__ __forceinline__ void load_points(const float* src, int b, int m0,
+                                            int M, int valid, int vec,
+                                            const float* scale, float* c) {
+  if constexpr (LAYOUT == kPixel) {
+    load_floats<3 * PTS>(src + 3 * (static_cast<int64_t>(b) * M + m0), c, vec,
+                         3 * valid);
+  } else {
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      float p[PTS];
+      load_floats<PTS>(src + (static_cast<int64_t>(b) * 3 + a) * M + m0, p,
+                       vec, valid);
+#pragma unroll
+      for (int k = 0; k < PTS; ++k)
+        c[3 * k + a] = __fmul_rn(__fadd_rn(p[k], 1.f), scale[a]);
+    }
+  }
+}
+
+// The same for the points m + 32 * p (p < PTS) of batch element b: one point
+// a lane, so that a warp's loads of one plane read 32 consecutive floats
+template <int LAYOUT, int PTS>
+__device__ __forceinline__ void load_points_strided(const float* src, int b,
+                                                    int m, int M,
+                                                    const float* scale,
+                                                    float* c) {
+#pragma unroll
+  for (int p = 0; p < PTS; ++p) {
+    const int mp = m + 32 * p;
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      const float* at =
+          LAYOUT == kPixel ? src + 3 * (static_cast<int64_t>(b) * M + mp) + a
+                           : src + (static_cast<int64_t>(b) * 3 + a) * M + mp;
+      const float v = mp < M ? __ldg(at) : 0.f;
+      c[3 * p + a] =
+          LAYOUT == kPixel ? v : __fmul_rn(__fadd_rn(v, 1.f), scale[a]);
+    }
+  }
+}
+
+// The gradient of the points' coordinates, v[3 * p + axis], in the layout of
+// the points: dcoords (B, M, 3), or dphi (B, 3, M) = dcoords * scale
+template <int LAYOUT, int PTS>
+__device__ __forceinline__ void store_points(float* dst, int b, int m0,
+                                             int M, int valid, int vec,
+                                             const float* scale,
+                                             const float* v) {
+  if constexpr (LAYOUT == kPixel) {
+    store_floats<3 * PTS>(dst + 3 * (static_cast<int64_t>(b) * M + m0), v,
+                          vec, 3 * valid);
+  } else {
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      float d[PTS];
+#pragma unroll
+      for (int k = 0; k < PTS; ++k) d[k] = __fmul_rn(v[3 * k + a], scale[a]);
+      store_floats<PTS>(dst + (static_cast<int64_t>(b) * 3 + a) * M + m0, d,
+                        vec, valid);
+    }
+  }
+}
 
 template <typename I>
 __device__ __forceinline__ float load_tap(const float* p, I i) {
@@ -93,36 +249,32 @@ __device__ __forceinline__ float abs_grad(float t) {
 }
 
 // One axis of the warp: the two tap indices, their weights and the weights'
-// derivatives with respect to the (unclipped) coordinate. I is the index
-// type: int64_t in the forward, int in the gradient.
-template <typename I>
+// derivatives with respect to the (unclipped) coordinate.
 struct Axis {
-  I i0, i1;
+  int i0, i1;
   float w0, w1, d0, d1;
 };
 
-template <typename I>
-__device__ __forceinline__ I clamp_index(I k, I n) {
+__device__ __forceinline__ int clamp_index(int k, int n) {
   return k < 0 ? 0 : (k > n - 1 ? n - 1 : k);
 }
 
 // mode (see the note above): 0 oct, 1 quad, 2 generic
-template <typename I>
-__device__ __forceinline__ Axis<I> axis_taps(float c, I n, int border,
-                                             int mode) {
+__device__ __forceinline__ Axis axis_taps(float c, int n, int border,
+                                          int mode) {
   float cg = 1.f;
   if (border && mode != 2) {
     const float hi = static_cast<float>(n - 1);
     cg = clip_grad(c, hi);
     c = fminf(fmaxf(c, 0.f), hi);
   }
-  Axis<I> a;
+  Axis a;
   if (mode == 0) {
     const float s = fminf(fmaxf(floorf(c), 0.f), static_cast<float>(n - 2));
     const float t = c - s;
     const float y0 = 1.f - fabsf(t);
     const float y1 = 1.f - fabsf(t - 1.f);
-    a.i0 = static_cast<I>(s);
+    a.i0 = static_cast<int>(s);
     a.i1 = a.i0 + 1;
     a.w0 = fmaxf(0.f, y0);
     a.w1 = fmaxf(0.f, y1);
@@ -133,9 +285,9 @@ __device__ __forceinline__ Axis<I> axis_taps(float c, I n, int border,
   const float z0 = floorf(c);
   const float f = c - z0;
   // k0 only matters inside [-1, n], so the clamp is exact and keeps k0 + 1
-  // from overflowing a 32-bit I for coordinates far outside
-  const I k0 =
-      static_cast<I>(fminf(fmaxf(z0, -2.f), static_cast<float>(n) + 1.f));
+  // from overflowing for coordinates far outside
+  const int k0 =
+      static_cast<int>(fminf(fmaxf(z0, -2.f), static_cast<float>(n) + 1.f));
   const float m0 = (border || (k0 >= 0 && k0 <= n - 1)) ? 1.f : 0.f;
   const float m1 = (border || (k0 + 1 >= 0 && k0 + 1 <= n - 1)) ? 1.f : 0.f;
   a.i0 = clamp_index(k0, n);
@@ -158,156 +310,163 @@ __device__ __forceinline__ int axis_mode(int modes, int d) {
 constexpr int kAllOct = 0;
 constexpr int kQuadZ = 1;
 
-template <typename T, int MODES>
-__global__ void __launch_bounds__(kThreads)
-warp_trilinear_kernel(const T* __restrict__ taps,
-                      const float* __restrict__ coords,
-                      float* __restrict__ out, int64_t B, int64_t C,
-                      int64_t D, int64_t W, int64_t H, int64_t M,
-                      int border, int modes) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= B * M) return;
-  const int64_t b = i / M;
-  const int64_t m = i - b * M;
-
-  const Axis<int64_t> z = axis_taps(__ldg(coords + 3 * i + 0), D, border,
-                                    axis_mode<MODES>(modes, 0));
-  const Axis<int64_t> y = axis_taps(__ldg(coords + 3 * i + 1), W, border,
-                                    axis_mode<MODES>(modes, 1));
-  const Axis<int64_t> x = axis_taps(__ldg(coords + 3 * i + 2), H, border,
-                                    axis_mode<MODES>(modes, 2));
-  const int64_t zo[2] = {z.i0 * W * H, z.i1 * W * H};
-  const int64_t yo[2] = {y.i0 * H, y.i1 * H};
-  const int64_t xo[2] = {x.i0, x.i1};
-  const float wz[2] = {z.w0, z.w1}, wy[2] = {y.w0, y.w1}, wx[2] = {x.w0, x.w1};
-
-  constexpr bool kOneBase = MODES == kAllOct && std::is_same<T, float>::value;
-  const int64_t S = D * W * H;
-  for (int64_t ch = 0; ch < C; ++ch) {
-    const T* v = taps + (b * C + ch) * S;
-    float acc = 0.f;
+// The 8 taps of a point in (dz, dy, dx) order: oct taps are neighbours, read
+// as 4 x pairs from row pointers off one base (8 index sums and their
+// 64-bit addresses instead measured 10-40% slower on the H100); the other
+// modes from per-axis offsets
+template <int MODES, typename T>
+__device__ __forceinline__ void gather_taps(const T* v, const Axis& z,
+                                            const Axis& y, const Axis& x,
+                                            int W, int H, float* t) {
+  const int WH = W * H;
+  if constexpr (MODES == kAllOct) {
+    const T* r = v + (z.i0 * W + y.i0) * H + x.i0;
 #pragma unroll
-    for (int dz = 0; dz < 2; ++dz)
+    for (int k = 0; k < 4; ++k) {
+      const T* row = r + (k >> 1) * WH + (k & 1) * H;
+      t[2 * k] = load_tap(row, 0);
+      t[2 * k + 1] = load_tap(row, 1);
+    }
+  } else {
+    const int zo[2] = {z.i0 * WH, z.i1 * WH};
+    const int yo[2] = {y.i0 * H, y.i1 * H};
+    const int xo[2] = {x.i0, x.i1};
 #pragma unroll
-      for (int dy = 0; dy < 2; ++dy)
-#pragma unroll
-        for (int dx = 0; dx < 2; ++dx) {
-          const float w = __fmul_rn(__fmul_rn(wz[dz], wy[dy]), wx[dx]);
-          // oct taps are consecutive; f32 taps read faster from one base
-          // with constant offsets, bf16 taps from the per-axis offsets
-          // (both measured on the H100)
-          const int64_t at = kOneBase
-                                 ? zo[0] + yo[0] + xo[0] + (dz * W + dy) * H + dx
-                                 : zo[dz] + yo[dy] + xo[dx];
-          const float tap = load_tap(v, at);
-          acc = __fadd_rn(acc, __fmul_rn(tap, w));
-        }
-    out[(b * C + ch) * M + m] = acc;
+    for (int k = 0; k < 8; ++k)
+      t[k] = load_tap(v, zo[k >> 2] + yo[(k >> 1) & 1] + xo[k & 1]);
   }
 }
 
+// points a thread for taps of type T
 template <typename T>
-cudaError_t launch(const void* taps, const float* coords, float* out,
-                   int64_t B, int64_t C, int64_t D, int64_t W, int64_t H,
-                   int64_t M, int border, int modes, cudaStream_t stream) {
-  const unsigned blocks =
-      static_cast<unsigned>((B * M + kThreads - 1) / kThreads);
+constexpr int kWarpPtsOf = std::is_same<T, float>::value
+                               ? LIFTREG_WARP_POINTS_F32
+                               : LIFTREG_WARP_POINTS;
+constexpr int kWarpThreads = LIFTREG_WARP_THREADS;
+
+template <typename T, int MODES, int LAYOUT>
+__global__ void __launch_bounds__(kWarpThreads)
+warp_trilinear_kernel(const T* __restrict__ taps,
+                      const float* __restrict__ pts,
+                      float* __restrict__ out, int C, int D, int W, int H,
+                      int M, int border, int modes, int rescale) {
+  constexpr int kPts = kWarpPtsOf<T>;
+  const int b = blockIdx.y;
+  // a thread's points: m0, m0 + 32, ..., with m0 its lane in its warp's
+  // 32 * kPts consecutive points
+  const int lane = threadIdx.x & 31;
+  const int m0 = (blockIdx.x * kWarpThreads + threadIdx.x - lane) * kPts + lane;
+  if (m0 >= M) return;
+  const int S = D * W * H;
+  const float scale[3] = {0.5f * static_cast<float>(D - 1),
+                          0.5f * static_cast<float>(W - 1),
+                          0.5f * static_cast<float>(H - 1)};
+
+  float c[3 * kPts];
+  load_points_strided<LAYOUT, kPts>(pts, b, m0, M, scale, c);
+  Axis z[kPts], y[kPts], x[kPts];
+#pragma unroll
+  for (int p = 0; p < kPts; ++p) {
+    z[p] = axis_taps(c[3 * p + 0], D, border, axis_mode<MODES>(modes, 0));
+    y[p] = axis_taps(c[3 * p + 1], W, border, axis_mode<MODES>(modes, 1));
+    x[p] = axis_taps(c[3 * p + 2], H, border, axis_mode<MODES>(modes, 2));
+  }
+
+  for (int ch = 0; ch < C; ++ch) {
+    const int64_t vc = static_cast<int64_t>(b) * C + ch;
+    const T* v = taps + vc * S;
+    float acc[kPts];
+#pragma unroll
+    for (int p = 0; p < kPts; ++p) {
+      float t[8];
+      gather_taps<MODES>(v, z[p], y[p], x[p], W, H, t);
+      const float wz[2] = {z[p].w0, z[p].w1}, wy[2] = {y[p].w0, y[p].w1},
+                  wx[2] = {x[p].w0, x[p].w1};
+      float a = 0.f;
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const float w =
+            __fmul_rn(__fmul_rn(wz[k >> 2], wy[(k >> 1) & 1]), wx[k & 1]);
+        a = __fadd_rn(a, __fmul_rn(t[k], w));
+      }
+      acc[p] = rescale ? __fsub_rn(__fmul_rn(a, 2.f), 1.f) : a;
+    }
+#pragma unroll
+    for (int p = 0; p < kPts; ++p)
+      if (m0 + 32 * p < M) out[vc * M + m0 + 32 * p] = acc[p];
+  }
+}
+
+template <typename T, int LAYOUT>
+cudaError_t launch(const void* taps, const float* pts, float* out, int64_t B,
+                   int64_t C, int64_t D, int64_t W, int64_t H, int64_t M,
+                   int border, int modes, int rescale, cudaStream_t stream) {
+  const int64_t per_block =
+      static_cast<int64_t>(kWarpThreads) * kWarpPtsOf<T>;
+  const dim3 grid(static_cast<unsigned>((M + per_block - 1) / per_block),
+                  static_cast<unsigned>(B));
   const T* t = static_cast<const T*>(taps);
+  const int c = static_cast<int>(C), d = static_cast<int>(D),
+            w = static_cast<int>(W), h = static_cast<int>(H),
+            m = static_cast<int>(M);
   if (modes == kAllOct)
-    warp_trilinear_kernel<T, kAllOct><<<blocks, kThreads, 0, stream>>>(
-        t, coords, out, B, C, D, W, H, M, border, modes);
+    warp_trilinear_kernel<T, kAllOct, LAYOUT>
+        <<<grid, kWarpThreads, 0, stream>>>(t, pts, out, c, d, w, h, m,
+                                            border, modes, rescale);
   else
-    warp_trilinear_kernel<T, -1><<<blocks, kThreads, 0, stream>>>(
-        t, coords, out, B, C, D, W, H, M, border, modes);
+    warp_trilinear_kernel<T, -1, LAYOUT><<<grid, kWarpThreads, 0, stream>>>(
+        t, pts, out, c, d, w, h, m, border, modes, rescale);
   return cudaGetLastError();
 }
 
 // The coordinate gradient's design (bound: bytes, ~0.46 GB at the serving
 // shape, ~0.14 ms): a thread takes kGradPts consecutive points of one batch
-// element (blockIdx.y), so that its coordinates, its cotangent and its
-// dcoords move as 16-byte vectors (3 x float4 and 1 float4 per channel for 4
-// points) and every load of the thread is in flight before the first tap is
-// needed. Offsets inside one (b, c) volume are 32-bit (the wrapper checks
-// D*W*H < 2^31), and the batch index costs no division. The 8 taps of a
-// point are interpolated along x, then y, then z, carrying the weights and
-// their derivatives together (34 operations instead of 72). When M is not a
-// multiple of kGradPts or a pointer is not 16-byte aligned, the loads and
-// stores go one float at a time, masked at the end of the row. 4 points and
-// 512 threads measured fastest on the H100; 1, 2 or 8 points, other block
-// sizes and tap rows shared by a thread's points were slower
-// (tools/torch_grad_sweep.py, tools/warp_variants/).
+// element (blockIdx.y), so that its coordinates (or phi planes), its
+// cotangent and its gradient move as 16-byte vectors (3 x float4 and 1
+// float4 per channel for 4 points) and every load of the thread is in
+// flight before the first tap is needed. Offsets inside one (b, c) volume
+// are 32-bit (the wrapper checks D*W*H < 2^31), and the batch index costs no
+// division. The 8 taps of a point are interpolated along x, then y, then z,
+// carrying the weights and their derivatives together (34 operations
+// instead of 72). When M is not a multiple of kGradPts or a pointer is not
+// 16-byte aligned, the loads and stores go one float at a time, masked at
+// the end of the row. 4 points and 512 threads measured fastest on the H100;
+// 1, 2 or 8 points, other block sizes and tap rows shared by a thread's
+// points were slower (tools/torch_grad_sweep.py, tools/warp_variants/).
+// Two blocks an SM cap the registers at 64: left alone, the compiler gives
+// the phi layout 95-128 and the kernel then takes ~0.26 ms instead of ~0.19.
 #ifndef LIFTREG_GRAD_POINTS
 #define LIFTREG_GRAD_POINTS 4
 #endif
 #ifndef LIFTREG_GRAD_THREADS
 #define LIFTREG_GRAD_THREADS 512
 #endif
+// blocks an SM must hold (caps the registers)
+#ifndef LIFTREG_GRAD_MIN_BLOCKS
+#define LIFTREG_GRAD_MIN_BLOCKS 2
+#endif
 constexpr int kGradPts = LIFTREG_GRAD_POINTS;
 constexpr int kGradThreads = LIFTREG_GRAD_THREADS;
-// floats per vector access: 3*kGradPts coordinates and kGradPts cotangent
-// values split into pieces of this width
-constexpr int kGradVec = kGradPts % 4 == 0 ? 4 : (kGradPts % 2 == 0 ? 2 : 1);
 
-template <int N>
-__device__ __forceinline__ void load_floats(const float* p, float* out,
-                                            int vec, int valid) {
-  if (vec) {
-#pragma unroll
-    for (int k = 0; k < N; k += kGradVec) {
-      if constexpr (kGradVec == 4) {
-        const float4 f = __ldg(reinterpret_cast<const float4*>(p + k));
-        out[k] = f.x; out[k + 1] = f.y; out[k + 2] = f.z; out[k + 3] = f.w;
-      } else if constexpr (kGradVec == 2) {
-        const float2 f = __ldg(reinterpret_cast<const float2*>(p + k));
-        out[k] = f.x; out[k + 1] = f.y;
-      } else {
-        out[k] = __ldg(p + k);
-      }
-    }
-  } else {
-#pragma unroll
-    for (int k = 0; k < N; ++k) out[k] = k < valid ? __ldg(p + k) : 0.f;
-  }
-}
-
-template <int N>
-__device__ __forceinline__ void store_floats(float* p, const float* v,
-                                             int vec, int valid) {
-  if (vec) {
-#pragma unroll
-    for (int k = 0; k < N; k += kGradVec) {
-      if constexpr (kGradVec == 4)
-        *reinterpret_cast<float4*>(p + k) =
-            make_float4(v[k], v[k + 1], v[k + 2], v[k + 3]);
-      else if constexpr (kGradVec == 2)
-        *reinterpret_cast<float2*>(p + k) = make_float2(v[k], v[k + 1]);
-      else
-        p[k] = v[k];
-    }
-  } else {
-#pragma unroll
-    for (int k = 0; k < N; ++k)
-      if (k < valid) p[k] = v[k];
-  }
-}
-
-template <typename T, int MODES>
-__global__ void __launch_bounds__(kGradThreads)
+template <typename T, int MODES, int LAYOUT>
+__global__ void __launch_bounds__(kGradThreads, LIFTREG_GRAD_MIN_BLOCKS)
 warp_coord_grad_kernel(const T* __restrict__ taps,
-                       const float* __restrict__ coords,
+                       const float* __restrict__ pts,
                        const float* __restrict__ g,
-                       float* __restrict__ dcoords, int C, int D, int W,
-                       int H, int M, int border, int modes, int vec) {
+                       float* __restrict__ dpts, int C, int D, int W, int H,
+                       int M, int border, int modes, int rescale, int vec) {
   const int b = blockIdx.y;
   const int m0 = (blockIdx.x * kGradThreads + threadIdx.x) * kGradPts;
   if (m0 >= M) return;
   const int valid = M - m0 < kGradPts ? M - m0 : kGradPts;
-  const int64_t row = static_cast<int64_t>(b) * M;  // (b, 0) in (B, M)
   const int S = D * W * H;
   const int WH = W * H;
+  const float scale[3] = {0.5f * static_cast<float>(D - 1),
+                          0.5f * static_cast<float>(W - 1),
+                          0.5f * static_cast<float>(H - 1)};
 
   float c[3 * kGradPts];
-  load_floats<3 * kGradPts>(coords + 3 * (row + m0), c, vec, 3 * valid);
+  load_points<LAYOUT, kGradPts>(pts, b, m0, M, valid, vec, scale, c);
   float grad[3 * kGradPts];
 #pragma unroll
   for (int k = 0; k < 3 * kGradPts; ++k) grad[k] = 0.f;
@@ -317,14 +476,19 @@ warp_coord_grad_kernel(const T* __restrict__ taps,
     const T* v = taps + vc * S;
     float gc[kGradPts];
     load_floats<kGradPts>(g + vc * M + m0, gc, vec, valid);
+    if (rescale) {
+      // d(out * 2 - 1)/d out, exact
+#pragma unroll
+      for (int p = 0; p < kGradPts; ++p) gc[p] *= 2.f;
+    }
 #pragma unroll
     for (int p = 0; p < kGradPts; ++p) {
       // a masked point reads coordinate 0, whose taps lie in the volume
-      const Axis<int> z =
+      const Axis z =
           axis_taps(c[3 * p + 0], D, border, axis_mode<MODES>(modes, 0));
-      const Axis<int> y =
+      const Axis y =
           axis_taps(c[3 * p + 1], W, border, axis_mode<MODES>(modes, 1));
-      const Axis<int> x =
+      const Axis x =
           axis_taps(c[3 * p + 2], H, border, axis_mode<MODES>(modes, 2));
       int at[8];
       if constexpr (MODES == kAllOct) {
@@ -367,72 +531,113 @@ warp_coord_grad_kernel(const T* __restrict__ taps,
       grad[3 * p + 2] = fmaf(gc[p], sx, grad[3 * p + 2]);
     }
   }
-  store_floats<3 * kGradPts>(dcoords + 3 * (row + m0), grad, vec, 3 * valid);
+  store_points<LAYOUT, kGradPts>(dpts, b, m0, M, valid, vec, scale, grad);
 }
 
-template <typename T>
-cudaError_t launch_grad(const void* taps, const float* coords, const float* g,
-                        float* dcoords, int64_t B, int64_t C, int64_t D,
+template <typename T, int LAYOUT>
+cudaError_t launch_grad(const void* taps, const float* pts, const float* g,
+                        float* dpts, int64_t B, int64_t C, int64_t D,
                         int64_t W, int64_t H, int64_t M, int border,
-                        int modes, cudaStream_t stream) {
+                        int modes, int rescale, cudaStream_t stream) {
   const int64_t per_block = static_cast<int64_t>(kGradThreads) * kGradPts;
   const dim3 grid(static_cast<unsigned>((M + per_block - 1) / per_block),
                   static_cast<unsigned>(B));
-  const uintptr_t ptrs = reinterpret_cast<uintptr_t>(coords) |
+  const uintptr_t ptrs = reinterpret_cast<uintptr_t>(pts) |
                          reinterpret_cast<uintptr_t>(g) |
-                         reinterpret_cast<uintptr_t>(dcoords);
+                         reinterpret_cast<uintptr_t>(dpts);
   const int vec = M % kGradPts == 0 && ptrs % 16 == 0;
   const T* t = static_cast<const T*>(taps);
   const int c = static_cast<int>(C), d = static_cast<int>(D),
             w = static_cast<int>(W), h = static_cast<int>(H),
             m = static_cast<int>(M);
   if (modes == kAllOct)
-    warp_coord_grad_kernel<T, kAllOct><<<grid, kGradThreads, 0, stream>>>(
-        t, coords, g, dcoords, c, d, w, h, m, border, modes, vec);
+    warp_coord_grad_kernel<T, kAllOct, LAYOUT>
+        <<<grid, kGradThreads, 0, stream>>>(t, pts, g, dpts, c, d, w, h, m,
+                                            border, modes, rescale, vec);
   else if (modes == kQuadZ)
-    warp_coord_grad_kernel<T, kQuadZ><<<grid, kGradThreads, 0, stream>>>(
-        t, coords, g, dcoords, c, d, w, h, m, border, modes, vec);
+    warp_coord_grad_kernel<T, kQuadZ, LAYOUT>
+        <<<grid, kGradThreads, 0, stream>>>(t, pts, g, dpts, c, d, w, h, m,
+                                            border, modes, rescale, vec);
   else
-    warp_coord_grad_kernel<T, -1><<<grid, kGradThreads, 0, stream>>>(
-        t, coords, g, dcoords, c, d, w, h, m, border, modes, vec);
+    warp_coord_grad_kernel<T, -1, LAYOUT><<<grid, kGradThreads, 0, stream>>>(
+        t, pts, g, dpts, c, d, w, h, m, border, modes, rescale, vec);
   return cudaGetLastError();
+}
+
+template <int LAYOUT>
+int warp(const void* taps, int taps_bf16, const float* pts, float* out,
+         int64_t B, int64_t C, int64_t D, int64_t W, int64_t H, int64_t M,
+         int border, int modes, int rescale, void* stream) {
+  if (B * M == 0) return static_cast<int>(cudaSuccess);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (taps_bf16)
+    return launch<__nv_bfloat16, LAYOUT>(taps, pts, out, B, C, D, W, H, M,
+                                         border, modes, rescale, s);
+  return launch<float, LAYOUT>(taps, pts, out, B, C, D, W, H, M, border,
+                               modes, rescale, s);
+}
+
+template <int LAYOUT>
+int coord_grad(const void* taps, int taps_bf16, const float* pts,
+               const float* g, float* dpts, int64_t B, int64_t C, int64_t D,
+               int64_t W, int64_t H, int64_t M, int border, int modes,
+               int rescale, void* stream) {
+  if (B * M == 0) return static_cast<int>(cudaSuccess);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (taps_bf16)
+    return launch_grad<__nv_bfloat16, LAYOUT>(taps, pts, g, dpts, B, C, D, W,
+                                              H, M, border, modes, rescale,
+                                              s);
+  return launch_grad<float, LAYOUT>(taps, pts, g, dpts, B, C, D, W, H, M,
+                                    border, modes, rescale, s);
 }
 
 }  // namespace
 
-// Launches on `stream` without synchronising; returns cudaGetLastError().
-// taps_bf16 selects bf16 taps (else f32); border selects border padding
-// (else zeros); modes packs the three axes' modes, 2 bits each, z lowest
-// (mode 0 needs that axis >= 2; the wrapper checks).
+// Each entry launches on `stream` without synchronising and returns
+// cudaGetLastError(). taps_bf16 selects bf16 taps (else f32); border selects
+// border padding (else zeros); modes packs the three axes' modes, 2 bits
+// each, z lowest (mode 0 needs that axis >= 2). D*W*H and M + 2^16 must lie
+// below 2^31 and B below 65536 (the wrapper checks all of it).
 extern "C" int liftreg_warp_trilinear(const void* taps, int taps_bf16,
                                       const float* coords, float* out,
                                       int64_t B, int64_t C, int64_t D,
                                       int64_t W, int64_t H, int64_t M,
                                       int border, int modes, void* stream) {
-  if (B * M == 0) return static_cast<int>(cudaSuccess);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (taps_bf16)
-    return launch<__nv_bfloat16>(taps, coords, out, B, C, D, W, H, M, border,
-                                 modes, s);
-  return launch<float>(taps, coords, out, B, C, D, W, H, M, border, modes,
-                       s);
+  return warp<kPixel>(taps, taps_bf16, coords, out, B, C, D, W, H, M, border,
+                      modes, 0, stream);
 }
 
-// Launches on `stream` without synchronising; returns cudaGetLastError().
+// phi (B, 3, M) normalized; rescale returns out * 2 - 1
+extern "C" int liftreg_warp_trilinear_phi(const void* taps, int taps_bf16,
+                                          const float* phi, float* out,
+                                          int64_t B, int64_t C, int64_t D,
+                                          int64_t W, int64_t H, int64_t M,
+                                          int border, int modes, int rescale,
+                                          void* stream) {
+  return warp<kPhi>(taps, taps_bf16, phi, out, B, C, D, W, H, M, border,
+                    modes, rescale, stream);
+}
+
 // g (B, C, M) is the cotangent of the forward's output, dcoords (B, M, 3)
-// receives the coordinate gradient; other arguments as above. D*W*H, 3*M
-// and C*M must lie below 2^31 and B below 65536 (the wrapper checks).
+// receives the coordinate gradient
 extern "C" int liftreg_warp_coord_grad(const void* taps, int taps_bf16,
                                        const float* coords, const float* g,
                                        float* dcoords, int64_t B, int64_t C,
                                        int64_t D, int64_t W, int64_t H,
                                        int64_t M, int border, int modes,
                                        void* stream) {
-  if (B * M == 0) return static_cast<int>(cudaSuccess);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (taps_bf16)
-    return launch_grad<__nv_bfloat16>(taps, coords, g, dcoords, B, C, D, W,
-                                      H, M, border, modes, s);
-  return launch_grad<float>(taps, coords, g, dcoords, B, C, D, W, H, M,
-                            border, modes, s);
+  return coord_grad<kPixel>(taps, taps_bf16, coords, g, dcoords, B, C, D, W,
+                            H, M, border, modes, 0, stream);
+}
+
+// the same for phi (B, 3, M): dphi (B, 3, M), g doubled under rescale
+extern "C" int liftreg_warp_coord_grad_phi(const void* taps, int taps_bf16,
+                                           const float* phi, const float* g,
+                                           float* dphi, int64_t B, int64_t C,
+                                           int64_t D, int64_t W, int64_t H,
+                                           int64_t M, int border, int modes,
+                                           int rescale, void* stream) {
+  return coord_grad<kPhi>(taps, taps_bf16, phi, g, dphi, B, C, D, W, H, M,
+                          border, modes, rescale, stream);
 }

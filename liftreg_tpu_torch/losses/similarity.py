@@ -1,6 +1,6 @@
 """Similarity measures, PyTorch port of ``liftreg_tpu/losses/similarity.py``
-for ``ncc_loss`` and ``ncc_sqr_loss``; ``lncc``, ``ngf`` and ``gradient``
-are still to be ported (``ROADMAP.md`` A7)."""
+for ``ncc_loss`` and ``ncc_sqr_loss``; ``ngf`` is still to be ported
+(``ROADMAP.md`` A1), ``lncc`` and ``gradient`` too (A2)."""
 from __future__ import annotations
 
 
@@ -56,8 +56,10 @@ SIMILARITY_REGISTRY = {
     "liftreg.layers.layers.NCCLoss": ncc_sqr_loss,
 }
 
-#: similarities of the JAX package that the port does not have yet
-NOT_PORTED = ("lncc", "ngf", "gradient", "liftreg.layers.losses.NGFLoss")
+#: similarities of the JAX package that the port does not have yet, with
+#: the ROADMAP.md item that ports each
+NOT_PORTED = {"lncc": "A2", "ngf": "A1", "gradient": "A2",
+              "liftreg.layers.losses.NGFLoss": "A1"}
 
 
 def get_similarity(name):
@@ -65,6 +67,6 @@ def get_similarity(name):
         return SIMILARITY_REGISTRY[name]
     if name in NOT_PORTED:
         raise ValueError(f"similarity {name!r} is not ported yet "
-                         "(ROADMAP.md A7)")
+                         f"(ROADMAP.md {NOT_PORTED[name]})")
     raise KeyError(f"unknown similarity '{name}'; known: "
                    f"{sorted(SIMILARITY_REGISTRY)}")

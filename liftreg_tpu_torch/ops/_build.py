@@ -118,10 +118,15 @@ SIGNATURES = {
                            _PTR],
     "liftreg_warp_trilinear": [_PTR, _I32, _PTR, _PTR, _I64, _I64, _I64,
                                _I64, _I64, _I64, _I32, _I32, _PTR],
+    "liftreg_warp_trilinear_phi": [_PTR, _I32, _PTR, _PTR, _I64, _I64, _I64,
+                                   _I64, _I64, _I64, _I32, _I32, _I32, _PTR],
     "liftreg_pca_grad": [_PTR, _PTR, _PTR, _PTR, _I64, _I64, _I64, _I32,
                          _I64, _PTR],
     "liftreg_warp_coord_grad": [_PTR, _I32, _PTR, _PTR, _PTR, _I64, _I64,
                                 _I64, _I64, _I64, _I64, _I32, _I32, _PTR],
+    "liftreg_warp_coord_grad_phi": [_PTR, _I32, _PTR, _PTR, _PTR, _I64,
+                                    _I64, _I64, _I64, _I64, _I64, _I32, _I32,
+                                    _I32, _PTR],
     "liftreg_drr_project": [_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _I64, _I64,
                             _I64, _I64, _I64, _I64, _I64, _I64, _PTR],
     "liftreg_drr_backproject": [_PTR, _PTR, _PTR, _PTR, _I32, _I64, _I64,

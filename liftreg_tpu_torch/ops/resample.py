@@ -4,9 +4,15 @@
 Semantics are ``align_corners=True`` with ``zeros`` / ``border`` padding;
 ``phi`` follows :mod:`liftreg_tpu_torch.coords` (channel ``c`` indexes
 spatial axis ``c``). On CUDA tensors the sampling is the Hopper kernel of
-:mod:`.warp_kernel`; on CPU tensors its plain version. The sampling is
-differentiable with respect to the coordinates (and so to ``phi``), through
-the kernel's coordinate-gradient entry; not with respect to the image.
+:mod:`.warp_kernel`; on CPU tensors its plain version. :func:`warp_image`
+hands the kernel phi in its (B, 3, D, W, H) layout, so on the card no
+coordinate buffer, no ``(phi + 1) * scale`` and no ``out * 2 - 1`` pass
+is made; its tap tensor comes from :func:`warp_taps`, which a caller that
+warps one image many times (the refinement) builds once and passes to
+:func:`warp_with_taps`. :func:`grid_sample` takes pixel coordinates
+(B, *out_shape, 3). The sampling is differentiable with respect to the
+coordinates (and so to ``phi``), through the kernel's coordinate-gradient
+entry; not with respect to the image.
 """
 from __future__ import annotations
 
@@ -56,6 +62,25 @@ def grid_sample_normalized(vol, grid, padding="zeros", taps_dtype=None):
                        taps_dtype=taps_dtype)
 
 
+def warp_taps(image, scale_intensity=True, taps_dtype=None):
+    """The tap tensor that :func:`warp_with_taps` samples: ``image``
+    (B, C, D, W, H) shifted from [-1, 1] to [0, 1] with
+    ``scale_intensity``, in the tap type of :func:`grid_sample`'s
+    ``taps_dtype`` rule, contiguous."""
+    taps_dtype = _taps_dtype(taps_dtype, image.shape[2:])
+    if scale_intensity:
+        image = (image + 1.0) * 0.5
+    return image.to(taps_dtype).contiguous()
+
+
+def warp_with_taps(taps, phi, zero_boundary=True, scale_intensity=True):
+    """:func:`warp_image` of the image whose :func:`warp_taps` are ``taps``
+    (built with the same ``scale_intensity``)."""
+    return warp_trilinear_ad(taps, phi.contiguous(),
+                             border=not zero_boundary, normalized=True,
+                             scale_intensity=scale_intensity)
+
+
 def warp_image(image, phi, zero_boundary=True, scale_intensity=True,
                taps_dtype=None):
     """Warp ``image`` (B, C, D, W, H) by the normalized map ``phi``
@@ -64,11 +89,5 @@ def warp_image(image, phi, zero_boundary=True, scale_intensity=True,
     zero_boundary: zeros padding if True, else border.
     scale_intensity: shift [-1, 1] intensities to [0, 1] around the warp,
     so zeros padding maps to the -1 background."""
-    grid = phi.movedim(1, -1)
-    padding = "zeros" if zero_boundary else "border"
-    if scale_intensity:
-        out = grid_sample_normalized((image + 1.0) * 0.5, grid,
-                                     padding=padding, taps_dtype=taps_dtype)
-        return out * 2.0 - 1.0
-    return grid_sample_normalized(image, grid, padding=padding,
-                                  taps_dtype=taps_dtype)
+    return warp_with_taps(warp_taps(image, scale_intensity, taps_dtype), phi,
+                          zero_boundary, scale_intensity)

@@ -1,29 +1,37 @@
-"""Trilinear warp at pixel coordinates: the Hopper kernel and its plain
-PyTorch version.
+"""Trilinear warp: the Hopper kernel and its plain PyTorch version.
 
 The kernel (``csrc/warp_trilinear.cu``) replaces the forward of
 ``liftreg_tpu/ops/pallas_warp.py:_warp_plane_kernel`` with the semantics of
 ``liftreg_tpu/ops/resample.py:_oct_plain``, exact for any field (the TPU
-kernel clamps outside its (dy, dx) window). It is bound by bytes: the f32
-coordinates, the taps and the f32 output, ~0.30 GB or ~0.09 ms of the
-card's memory rate at the 160^3 serving shape with B=4 and bf16 taps. One
-thread computes one output position.
+kernel clamps outside its (dy, dx) window). It takes its points in one of
+two layouts: pixel coordinates (B, M, 3), ``grid_sample``'s points, or
+(``normalized=True``) the normalized map phi (B, 3, *out_shape) where it
+lies, which ``warp_image`` passes: the kernel then makes the pixel
+coordinates in registers as the glue ``(phi + 1) * (n - 1) / 2`` rounds
+them, and with ``scale_intensity`` returns ``out * 2 - 1``, so no
+coordinate buffer and no rescale pass exist on the card. It is bound by
+bytes: phi, the taps and the f32 output, ~0.30 GB or ~0.088 ms of the
+card's memory rate at the 160^3 serving shape with B=4 and bf16 taps. A
+thread computes 4 points (2 with f32 taps) 32 apart, so that each of a
+warp's loads reads neighbouring addresses.
 
 :func:`warp_trilinear` launches the kernel for CUDA tensors and runs
-:func:`warp_trilinear_plain` for CPU tensors; it never falls back from one
-to the other. ``warp_trilinear.launches`` counts kernel launches.
+:func:`warp_trilinear_plain` (the glue and the gather, as the port ran
+them before the kernel read phi) for CPU tensors; it never falls back from
+one to the other. ``warp_trilinear.launches`` counts kernel launches in
+either layout.
 
 The coordinate gradient (the TPU kernel's ``with_grad`` variant) is the
-kernel's second entry, :func:`warp_coord_grad`, with the analytic plain
-version :func:`warp_coord_grad_plain`; :func:`warp_trilinear_ad` wraps the
-two in a ``torch.autograd.Function``. At a kink (a coordinate on an integer
-or on a border clip) the gradient follows XLA's autodiff of
-``liftreg_tpu/ops/resample.py:warp_image``, the path that the JAX
-refinement differentiates: there ``d|t|/dt = 1`` at 0, ``max(0, y)`` and
-``clip`` split the derivative in halves at a tie, and the z axis of f32
-taps (``_trilinear_quad``) differentiates ``floor``-based weights. Plain
-autograd of :func:`warp_trilinear_plain` uses other conventions and is not
-the reference.
+kernel's second entry, :func:`warp_coord_grad`, in the same two layouts,
+with the analytic plain version :func:`warp_coord_grad_plain`;
+:func:`warp_trilinear_ad` wraps the two in a ``torch.autograd.Function``.
+At a kink (a coordinate on an integer or on a border clip) the gradient
+follows XLA's autodiff of ``liftreg_tpu/ops/resample.py:warp_image``, the
+path that the JAX refinement differentiates: there ``d|t|/dt = 1`` at 0,
+``max(0, y)`` and ``clip`` split the derivative in halves at a tie, and the
+z axis of f32 taps (``_trilinear_quad``) differentiates ``floor``-based
+weights. Plain autograd of :func:`warp_trilinear_plain` uses other
+conventions and is not the reference.
 
 Each axis samples in one of three modes (:func:`axis_modes`), chosen from
 the volume's shape as ``liftreg_tpu/ops/resample.py:grid_sample`` routes
@@ -32,6 +40,8 @@ it, so that a spatial dim of 1 is sampled and differentiated as in JAX:
 ``GENERIC`` (the generic gather path, taken when W or H is 1).
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -114,12 +124,22 @@ def _axes(taps, coords, border, quad_z, grad):
             for d, (n, mode) in enumerate(zip(taps.shape[2:], modes))]
 
 
-def warp_trilinear_plain(taps, coords, border):
-    """taps (B, C, D, W, H) bf16/f32, coords (B, M, 3) f32 pixel (z, y, x)
-    -> (B, C, M) f32. Border padding clips the coordinates first; in the
-    ``OCT`` mode starts are clip(floor(c), 0, n-2) and the weights
-    relu(1-|t|), relu(1-|t-1|), so zeros padding falls out of vanishing
-    weights; corners are summed in (dz, dy, dx) order in f32."""
+def _scale(taps, like):
+    """f32((n - 1) / 2) of each spatial axis of the volume, in ``like``'s
+    dtype: the normalized-to-pixel factor of ``grid_sample_normalized``."""
+    return torch.tensor([(n - 1) * 0.5 for n in taps.shape[2:]],
+                        dtype=like.dtype, device=like.device)
+
+
+def _pixel_coords(taps, phi):
+    """The glue that the kernel folds in: phi (B, 3, *out_shape) normalized
+    -> (B, M, 3) f32 pixel coordinates ``(phi + 1) * (n - 1) / 2``."""
+    grid = phi.movedim(1, -1)
+    return ((grid + 1.0) * _scale(taps, grid)).reshape(
+        phi.shape[0], -1, 3).float()
+
+
+def _gather_sum(taps, coords, border):
     B, C, D, W, H = taps.shape
     M = coords.shape[1]
     (iz, wz, _), (iy, wy, _), (ix, wx, _) = _axes(taps, coords, border,
@@ -135,38 +155,93 @@ def warp_trilinear_plain(taps, coords, border):
     return out
 
 
-def _check(taps, coords, name, **more):
-    """Device, dtypes and shapes of a call. ``more`` holds further f32
-    operands (the cotangent)."""
-    _build.inputs_device(name, {"taps": taps, "coords": coords, **more},
-                         {"taps": TAPS_DTYPES, "coords": _F32, "g": _F32})
-    if taps.dim() != 5 or coords.dim() != 3 or coords.shape[-1] != 3 \
-            or coords.shape[0] != taps.shape[0]:
-        raise ValueError(f"{name}: want taps (B, C, D, W, H) and "
-                         f"coords (B, M, 3); got {tuple(taps.shape)}, "
-                         f"{tuple(coords.shape)}")
+def warp_trilinear_plain(taps, coords, border, normalized=False,
+                         scale_intensity=False):
+    """taps (B, C, D, W, H) bf16/f32 sampled at coords (B, M, 3) f32 pixel
+    (z, y, x) -> (B, C, M) f32, or with ``normalized`` at phi
+    (B, 3, *out_shape) normalized -> (B, C, *out_shape), then with
+    ``scale_intensity`` ``out * 2 - 1``. Border padding clips the
+    coordinates first; in the ``OCT`` mode starts are clip(floor(c), 0,
+    n-2) and the weights relu(1-|t|), relu(1-|t-1|), so zeros padding falls
+    out of vanishing weights; corners are summed in (dz, dy, dx) order in
+    f32."""
+    if not normalized:
+        return _gather_sum(taps, coords, border)
+    out = _gather_sum(taps, _pixel_coords(taps, coords), border)
+    if scale_intensity:
+        out = out * 2.0 - 1.0
+    return out.reshape(taps.shape[:2] + coords.shape[2:])
+
+
+def _points(taps, coords, normalized, name):
+    """M, the number of points of a call, after checking the points'
+    shape against the taps'."""
+    B = taps.shape[0]
+    if normalized:
+        ok = coords.dim() >= 3 and coords.shape[:2] == (B, 3)
+        want = "phi (B, 3, *out_shape)"
+    else:
+        ok = coords.dim() == 3 and coords.shape[::2] == (B, 3)
+        want = "coords (B, M, 3)"
+    if taps.dim() != 5 or not ok:
+        raise ValueError(f"{name}: want taps (B, C, D, W, H) and {want}; "
+                         f"got {tuple(taps.shape)}, {tuple(coords.shape)}")
     if min(taps.shape[2:]) < 1:
         raise ValueError(f"{name}: empty volume {tuple(taps.shape[2:])}")
     if taps.dtype not in TAPS_DTYPES or coords.dtype != torch.float32:
-        raise TypeError(f"{name}: want bf16/f32 taps and f32 coords; got "
-                        f"{taps.dtype}, {coords.dtype}")
+        raise TypeError(f"{name}: want bf16/f32 taps and f32 coordinates; "
+                        f"got {taps.dtype}, {coords.dtype}")
+    return math.prod(coords.shape[2:]) if normalized else coords.shape[1]
 
 
-def warp_trilinear(taps, coords, border):
-    """The kernel on CUDA tensors, the plain version on CPU tensors."""
-    _check(taps, coords, "warp_trilinear")
+def _check(taps, coords, name, normalized, scale_intensity, **more):
+    """Device, dtypes and shapes of a call; returns M. ``more`` holds
+    further f32 operands (the cotangent)."""
+    _build.inputs_device(name, {"taps": taps, "coords": coords, **more},
+                         {"taps": TAPS_DTYPES, "coords": _F32, "g": _F32})
+    if scale_intensity and not normalized:
+        raise ValueError(f"{name}: scale_intensity needs normalized "
+                         "coordinates (phi)")
+    return _points(taps, coords, normalized, name)
+
+
+def check_offsets(taps_shape, M):
+    """Raise ``ValueError`` unless the warp kernels' 32-bit offsets hold
+    for taps of ``taps_shape`` (B, C, D, W, H) and M points: they index
+    one (b, c) volume and one batch element's points in 32 bits
+    (D*W*H < 2^31, M < 2^31 - 2^16) and take b from the grid's second
+    dimension (B < 2^16)."""
+    B, C, D, W, H = (int(n) for n in taps_shape)
+    if D * W * H >= 2 ** 31 or M >= 2 ** 31 - 2 ** 16 or B >= 2 ** 16:
+        raise ValueError(f"warp kernels: taps {tuple(taps_shape)} and {M} "
+                         "points exceed the kernels' 32-bit offsets")
+
+
+def warp_trilinear(taps, coords, border, normalized=False,
+                   scale_intensity=False):
+    """:func:`warp_trilinear_plain`'s function: the kernel on CUDA tensors,
+    the plain version on CPU tensors. ``scale_intensity`` needs
+    ``normalized``."""
+    M = _check(taps, coords, "warp_trilinear", normalized, scale_intensity)
     if taps.device.type == "cpu":
-        return warp_trilinear_plain(taps, coords, border)
+        return warp_trilinear_plain(taps, coords, border, normalized,
+                                    scale_intensity)
+    check_offsets(taps.shape, M)
     B, C, D, W, H = taps.shape
-    M = coords.shape[1]
-    out = torch.empty((B, C, M), dtype=torch.float32, device=taps.device)
+    out_shape = coords.shape[2:] if normalized else (M,)
+    out = torch.empty((B, C) + tuple(out_shape), dtype=torch.float32,
+                      device=taps.device)
     lib = _build.library()
+    args = (taps.data_ptr(), int(taps.dtype == torch.bfloat16),
+            coords.data_ptr(), out.data_ptr(), B, C, D, W, H, M, int(border),
+            _packed(axis_modes((D, W, H), quad_z=False)))
     with torch.cuda.device(taps.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.liftreg_warp_trilinear(
-            taps.data_ptr(), int(taps.dtype == torch.bfloat16),
-            coords.data_ptr(), out.data_ptr(), B, C, D, W, H, M, int(border),
-            _packed(axis_modes((D, W, H), quad_z=False)), stream)
+        if normalized:
+            rc = lib.liftreg_warp_trilinear_phi(*args, int(scale_intensity),
+                                                stream)
+        else:
+            rc = lib.liftreg_warp_trilinear(*args, stream)
     _build.check(rc, "warp_trilinear")
     warp_trilinear.launches += 1
     return out
@@ -175,17 +250,12 @@ def warp_trilinear(taps, coords, border):
 warp_trilinear.launches = 0
 
 
-def warp_coord_grad_plain(taps, coords, g, border):
-    """taps (B, C, D, W, H) bf16/f32, coords (B, M, 3) f32, cotangent g
-    (B, C, M) f32 -> dcoords (B, M, 3) f32, the gradient of
-    ``sum(g * warp_trilinear(taps, coords, border))`` with respect to the
-    coordinates, at kinks as XLA's autodiff of the JAX warp gives it."""
+def _coord_grad_sum(taps, coords, g, border):
     B, C, D, W, H = taps.shape
     M = coords.shape[1]
     axes = _axes(taps, coords, border, quad_z=taps.dtype == torch.float32,
                  grad=True)
     v = taps.reshape(B, C, D * W * H)
-    g = g.float()
     grad = [torch.zeros((B, M), dtype=torch.float32, device=taps.device)
             for _ in range(3)]
     for a in (0, 1):
@@ -203,40 +273,56 @@ def warp_coord_grad_plain(taps, coords, g, border):
     return torch.stack(grad, dim=-1)
 
 
-def check_grad_offsets(taps_shape, M):
-    """Raise ``ValueError`` unless the coordinate-gradient kernel's 32-bit
-    offsets hold for taps of ``taps_shape`` (B, C, D, W, H) and M points:
-    it indexes one (b, c) volume and one batch element's points in 32 bits
-    (D*W*H < 2^31, M < 2^31 - 2^16) and takes b from the grid's second
-    dimension (B < 2^16)."""
-    B, C, D, W, H = (int(n) for n in taps_shape)
-    if D * W * H >= 2 ** 31 or M >= 2 ** 31 - 2 ** 16 or B >= 2 ** 16:
-        raise ValueError(f"warp_coord_grad: taps {tuple(taps_shape)} and "
-                         f"{M} points exceed the kernel's 32-bit offsets")
+def warp_coord_grad_plain(taps, coords, g, border, normalized=False,
+                          scale_intensity=False):
+    """taps (B, C, D, W, H) bf16/f32, coords (B, M, 3) f32 and a cotangent
+    g (B, C, M) f32 -> dcoords (B, M, 3) f32, the gradient of
+    ``sum(g * warp_trilinear(taps, coords, border))`` with respect to the
+    coordinates, at kinks as XLA's autodiff of the JAX warp gives it. With
+    ``normalized``, phi (B, 3, *out_shape) and g (B, C, *out_shape) ->
+    dphi (B, 3, *out_shape), as autograd carries the gradient back through
+    the glue of :func:`warp_trilinear_plain` (g doubled under
+    ``scale_intensity``, dcoords times (n - 1) / 2)."""
+    B, C = taps.shape[:2]
+    g = g.float().reshape(B, C, -1)
+    if not normalized:
+        return _coord_grad_sum(taps, coords, g, border)
+    if scale_intensity:
+        g = g * 2.0
+    dcoords = _coord_grad_sum(taps, _pixel_coords(taps, coords), g, border)
+    grid_shape = (B,) + coords.shape[2:] + (3,)
+    return (dcoords.reshape(grid_shape) * _scale(taps, dcoords)).movedim(
+        -1, 1).contiguous()
 
 
-def warp_coord_grad(taps, coords, g, border):
+def warp_coord_grad(taps, coords, g, border, normalized=False,
+                    scale_intensity=False):
     """The coordinate-gradient kernel on CUDA tensors, the plain version on
     CPU tensors. ``warp_coord_grad.launches`` counts kernel launches."""
-    _check(taps, coords, "warp_coord_grad", g=g)
+    M = _check(taps, coords, "warp_coord_grad", normalized, scale_intensity,
+               g=g)
     B, C, D, W, H = taps.shape
-    M = coords.shape[1]
-    if g.shape != (B, C, M) or g.dtype != torch.float32:
+    g_shape = (B, C) + (tuple(coords.shape[2:]) if normalized else (M,))
+    if g.shape != g_shape or g.dtype != torch.float32:
         raise ValueError(f"warp_coord_grad: want an f32 cotangent of shape "
-                         f"{(B, C, M)}; got {tuple(g.shape)} {g.dtype}")
+                         f"{g_shape}; got {tuple(g.shape)} {g.dtype}")
     if taps.device.type == "cpu":
-        return warp_coord_grad_plain(taps, coords, g, border)
-    check_grad_offsets(taps.shape, M)
-    dcoords = torch.empty((B, M, 3), dtype=torch.float32, device=taps.device)
+        return warp_coord_grad_plain(taps, coords, g, border, normalized,
+                                     scale_intensity)
+    check_offsets(taps.shape, M)
+    dcoords = torch.empty_like(coords)
     lib = _build.library()
-    with torch.cuda.device(taps.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.liftreg_warp_coord_grad(
-            taps.data_ptr(), int(taps.dtype == torch.bfloat16),
+    args = (taps.data_ptr(), int(taps.dtype == torch.bfloat16),
             coords.data_ptr(), g.data_ptr(), dcoords.data_ptr(), B, C, D, W,
             H, M, int(border),
-            _packed(axis_modes((D, W, H), taps.dtype == torch.float32)),
-            stream)
+            _packed(axis_modes((D, W, H), taps.dtype == torch.float32)))
+    with torch.cuda.device(taps.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        if normalized:
+            rc = lib.liftreg_warp_coord_grad_phi(*args, int(scale_intensity),
+                                                 stream)
+        else:
+            rc = lib.liftreg_warp_coord_grad(*args, stream)
     _build.check(rc, "warp_coord_grad")
     warp_coord_grad.launches += 1
     return dcoords
@@ -250,10 +336,10 @@ class _WarpTrilinear(torch.autograd.Function):
     differentiable in the coordinates only."""
 
     @staticmethod
-    def forward(ctx, taps, coords, border):
+    def forward(ctx, taps, coords, border, normalized, scale_intensity):
         ctx.save_for_backward(taps, coords)
-        ctx.border = border
-        return warp_trilinear(taps, coords, border)
+        ctx.flags = (border, normalized, scale_intensity)
+        return warp_trilinear(taps, coords, *ctx.flags)
 
     @staticmethod
     def backward(ctx, g):
@@ -261,18 +347,20 @@ class _WarpTrilinear(torch.autograd.Function):
         dcoords = None
         if ctx.needs_input_grad[1]:
             dcoords = warp_coord_grad(taps, coords, g.contiguous(),
-                                      ctx.border)
-        return None, dcoords, None
+                                      *ctx.flags)
+        return None, dcoords, None, None, None
 
 
-def warp_trilinear_ad(taps, coords, border):
-    """:func:`warp_trilinear`, differentiable with respect to ``coords``.
-    Raises if ``taps`` requires grad: the image gradient is not ported
-    (the TPU kernel returns NaN for it)."""
+def warp_trilinear_ad(taps, coords, border, normalized=False,
+                      scale_intensity=False):
+    """:func:`warp_trilinear`, differentiable with respect to ``coords``
+    (or phi). Raises if ``taps`` requires grad: the image gradient is not
+    ported (the TPU kernel returns NaN for it)."""
     if taps.requires_grad and torch.is_grad_enabled():
         raise NotImplementedError(
             "warp_trilinear_ad: the gradient with respect to the image is "
-            "not ported (ROADMAP B3); detach the image")
+            "not ported (ROADMAP B2); detach the image")
     if coords.requires_grad and torch.is_grad_enabled():
-        return _WarpTrilinear.apply(taps, coords, border)
-    return warp_trilinear(taps, coords, border)
+        return _WarpTrilinear.apply(taps, coords, border, normalized,
+                                    scale_intensity)
+    return warp_trilinear(taps, coords, border, normalized, scale_intensity)

@@ -147,17 +147,24 @@ def make_refiner(img_sz, sim="ncc", sim_opts=None, n_steps=30, lr=0.05,
     if sim_opts:
         sim_fn = functools.partial(sim_fn, **dict(sim_opts))
 
-    def _losses(coefs, pca, moving, target):
+    def _losses(coefs, pca, taps, target):
         disp = expand_pca(coefs, pca["vectors"], pca["mean"], img_sz)
         phi = disp + identity_map(img_sz, device=disp.device)[None]
-        warped = resample.warp_image(moving, phi, zero_boundary=True,
-                                     scale_intensity=True,
-                                     taps_dtype=warp_taps_dtype)
+        warped = resample.warp_with_taps(taps, phi, zero_boundary=True,
+                                         scale_intensity=True)
         sim_loss = sim_fn(warped, target, reduction="none")
         total = sim_loss + reg_factor * displacement_reg(disp,
                                                          reduction="none")
         return total, (sim_loss, phi, warped)
 
-    return _build_refine(_losses, lr, n_steps,
-                         early_stop_patience=early_stop_patience,
-                         early_stop_tol=early_stop_tol)
+    steps = _build_refine(_losses, lr, n_steps,
+                          early_stop_patience=early_stop_patience,
+                          early_stop_tol=early_stop_tol)
+
+    def refine(coefs0, pca, moving, target):
+        # the moving image's taps are the same in every step: built once
+        taps = resample.warp_taps(moving, scale_intensity=True,
+                                  taps_dtype=warp_taps_dtype)
+        return steps(coefs0, pca, taps, target)
+
+    return refine

@@ -11,7 +11,10 @@ sums the planes in another order than the plain dense products: atol
 1e-5 * max|plain|, rtol 1e-5; the lift adds at most 4 taps: atol 1e-6,
 rtol 1e-5, and its bf16 output into a buffer equals its f32 output
 rounded to bf16, bit for bit. The warp's coordinate gradient uses fused multiply-adds where
-the plain version rounds twice: atol 1e-5 * max|plain|. The PCA backward
+the plain version rounds twice: atol 1e-5 * max|plain|. The phi-layout
+entries of both warp kernels hold the same tolerances: the forward makes
+the pixel coordinates and the ``* 2 - 1`` rescale with the plain glue's
+f32 roundings. The PCA backward
 rounds an f32 sum taken in another order to bf16: one bf16 step, rtol
 2^-8, plus atol 1e-4 * max|plain| for sums that cancel to near zero."""
 import pytest
@@ -273,3 +276,79 @@ def test_pca_grad_kernel_is_deterministic(device, B, L, n):
     second = pca_grad(cot, V)
     torch.cuda.synchronize()
     assert torch.equal(first, second)
+
+
+def _phi(g, B, shape, device):
+    """(B, 3, *shape) normalized map: the identity plus a smooth
+    displacement of up to ~4 voxels, a third of the points on integer
+    pixel coordinates, and batch element 0's first and last planes far
+    outside the volume."""
+    import torch.nn.functional as F
+    n = torch.tensor(shape, dtype=torch.float32, device=device)
+    half = ((n - 1.0) * 0.5).clamp(min=0.5).view(1, 3, 1, 1, 1)
+    axes = [torch.arange(s, dtype=torch.float32, device=device)
+            for s in shape]
+    ident = torch.stack(torch.meshgrid(*axes, indexing="ij"))[None]
+    low = torch.randn((B, 3, 4, 4, 4), generator=g, device=device)
+    pix = ident + F.interpolate(low, size=shape, mode="trilinear",
+                                align_corners=True) * 4.0
+    kink = torch.rand(pix.shape, generator=g, device=device) < 0.33
+    pix = torch.where(kink, torch.floor(pix), pix)
+    pix[0, :, 0] = 3.0 * max(shape)
+    pix[0, :, -1] = -2.0 * max(shape)
+    return (pix / half - 1.0).contiguous()
+
+
+@pytest.mark.parametrize("case", ["serving_b1", "serving_b4", "serving_b9",
+                                  "ragged_m", "unaligned", "unit_d",
+                                  "unit_w"])
+@pytest.mark.parametrize("taps", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("border", [False, True])
+@pytest.mark.parametrize("scale_intensity", [False, True])
+def test_warp_phi_kernels_match_plain(device, case, taps, border,
+                                      scale_intensity):
+    """Both warp kernels with phi in its (B, 3, D, W, H) layout (the path
+    of warp_image) against their plain versions: the 160^3 serving shape
+    with B = 1, 4 and 9; M = 6001 points, not a multiple of the kernels'
+    points a thread; phi and the cotangent one float off a 16-byte
+    boundary (the scalar paths); spatial dims of 1 (the quad and generic
+    axis modes). Forward atol 1e-6, gradient atol 1e-5 * max|plain|."""
+    g = torch.Generator(device=device).manual_seed(8)
+    C, spatial, out_shape = 2, (9, 12, 10), (9, 12, 10)
+    B = 2
+    if case.startswith("serving"):
+        B, C, spatial = int(case[len("serving_b"):]), 1, (160, 160, 160)
+        out_shape = spatial
+    elif case == "ragged_m":
+        out_shape = (6001,)
+    elif case == "unit_d":
+        spatial = out_shape = (1, 12, 10)
+    elif case == "unit_w":
+        spatial = out_shape = (9, 1, 10)
+    vol = torch.rand((B, C) + spatial, generator=g, device=device).to(taps)
+    if case == "ragged_m":
+        phi = torch.rand((B, 3) + out_shape, generator=g,
+                         device=device) * 2.6 - 1.3
+    else:
+        phi = _phi(g, B, out_shape, device)
+    cot = torch.randn((B, C) + out_shape, generator=g, device=device)
+    if case == "unaligned":
+        phi, cot = _unaligned(phi), _unaligned(cot)
+    before = (warp_trilinear.launches, warp_coord_grad.launches)
+    got = warp_trilinear(vol, phi, border, normalized=True,
+                         scale_intensity=scale_intensity)
+    got_grad = warp_coord_grad(vol, phi, cot, border, normalized=True,
+                               scale_intensity=scale_intensity)
+    torch.cuda.synchronize()
+    assert (warp_trilinear.launches, warp_coord_grad.launches) == \
+        (before[0] + 1, before[1] + 1)
+    assert got.shape == (B, C) + out_shape
+    assert got_grad.shape == phi.shape and got_grad.is_contiguous()
+    torch.testing.assert_close(
+        got, warp_trilinear_plain(vol, phi, border, normalized=True,
+                                  scale_intensity=scale_intensity),
+        atol=1e-6, rtol=0)
+    want = warp_coord_grad_plain(vol, phi, cot, border, normalized=True,
+                                 scale_intensity=scale_intensity)
+    torch.testing.assert_close(got_grad, want, rtol=0,
+                               atol=1e-5 * float(want.abs().max()))

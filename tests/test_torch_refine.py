@@ -143,6 +143,44 @@ def test_best_iterate_is_per_sample_and_skips_nan():
     assert res["total_per_sample"][1] < (target[1] ** 2).sum()
 
 
+@pytest.mark.parametrize("taps", [None, "bfloat16"])
+def test_hoisted_taps_match_taps_built_every_step(monkeypatch, taps):
+    """make_refiner builds the moving image's tap tensor once per call,
+    outside the step loop; the result is bit-equal to the same loop
+    building it in every step through resample.warp_image (the port's
+    losses written out)."""
+    from liftreg_tpu_torch.coords import identity_map
+    from liftreg_tpu_torch.losses.registration import displacement_reg
+    from liftreg_tpu_torch.losses.similarity import ncc_loss
+    from liftreg_tpu_torch.models.subspace_backproj import expand_pca
+    from liftreg_tpu_torch.ops import resample
+
+    pca, moving, target, z0 = _batched_problem()
+    tp = {k: torch.from_numpy(v) for k, v in pca.items()}
+    tdt = None if taps is None else torch.bfloat16
+    args = (torch.from_numpy(z0), tp, torch.from_numpy(moving),
+            torch.from_numpy(target))
+
+    def every_step(coefs, pca_, moving_, target_):
+        disp = expand_pca(coefs, pca_["vectors"], pca_["mean"], IMG)
+        phi = disp + identity_map(IMG)[None]
+        warped = resample.warp_image(moving_, phi, taps_dtype=tdt)
+        sim = ncc_loss(warped, target_, reduction="none")
+        total = sim + 1e-3 * displacement_reg(disp, reduction="none")
+        return total, (sim, phi, warped)
+
+    want = _build_refine(every_step, 0.1, 4)(*args)
+    built = []
+    warp_taps = resample.warp_taps
+    monkeypatch.setattr(resample, "warp_taps",
+                        lambda *a, **kw: built.append(1) or warp_taps(*a,
+                                                                      **kw))
+    got = make_refiner(IMG, n_steps=4, lr=0.1, warp_taps_dtype=tdt)(*args)
+    assert len(built) == 1
+    for key in KEYS:
+        assert torch.equal(got[key], want[key]), key
+
+
 def _pipeline_case(refine_steps, **kw):
     rng = np.random.default_rng(3)
     n = 3 * SZ ** 3

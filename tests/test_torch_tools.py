@@ -154,3 +154,96 @@ def test_refine_inputs_shapes():
     assert pca["mean"].shape == (3 * 12 ** 3,)
     assert set(seg.unique().tolist()) <= {0.0, 1.0}
     assert float(src.min()) >= -900.0 and float(src.max()) <= -100.0
+
+
+import torch_warp_sweep  # noqa: E402
+
+
+def test_warp_sweep_variants_exist_and_start_from_the_port():
+    rows = torch_warp_sweep.WARPS
+    assert rows[0] == ("csrc", ROOT / "liftreg_tpu_torch/csrc/"
+                       "warp_trilinear.cu", ())
+    for name, path, defines in rows:
+        src = path.read_text()
+        for d in defines:
+            # every knob is one its source reads
+            assert f"#ifndef {d.split('=')[0]}" in src, (name, d)
+    names = [r[0] for r in rows]
+    assert len(names) == len(set(names))
+
+
+@pytest.mark.parametrize("name", sorted(torch_warp_sweep.ABLATIONS))
+def test_warp_sweep_ablations_patch_the_sources(name):
+    """Each ablation's patterns still match the source they patch."""
+    src, subs = torch_warp_sweep.ABLATIONS[name]
+    text = src.read_text()
+    for pattern, repl in subs:
+        text, count = re.subn(pattern, repl, text)
+        assert count > 0, pattern
+
+
+def test_warp_sweep_reads_ptxas_registers():
+    log = "\n".join([
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_121"
+        "warp_trilinear_kernelI13__nv_bfloat16Li0ELi1EEEvPKT_PKfPfiiiiiiiii"
+        "i' for 'sm_90a'",
+        "ptxas info    : Used 72 registers, used 0 barriers",
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_121"
+        "warp_trilinear_kernelIfLin1ELi0EEEvPKT_PKfPfiiiiiiiiii' for "
+        "'sm_90a'",
+        "ptxas info    : Used 40 registers",
+    ])
+    assert torch_warp_sweep._registers(log) == {
+        "warp_trilinear_kernel<13__nv_bfloat16Li0ELi1E>": 72,
+        "warp_trilinear_kernel<fLin1ELi0E>": 40}
+
+
+def test_warp_phi_cases_shapes():
+    """chip_smoke.py's phi-layout cases at a small size: the batch sizes,
+    the ragged point count, the unaligned copies, the unit dims."""
+    import torch.nn.functional as F
+    cs = torch_kernel_ab.chip_smoke_module()
+    cs.SZ, cs.B = 10, 2
+    g = torch.Generator().manual_seed(0)
+    cases = cs.warp_phi_cases(torch, F, g, torch.device("cpu"))
+    assert set(cases) == {"serving_b1", "serving_b2", "serving_b9",
+                          "unaligned", "ragged_m", "unit_d", "unit_w",
+                          "unit_h"}
+    for name, (vol, phi, cot) in cases.items():
+        assert phi.shape[:2] == (vol.shape[0], 3)
+        assert cot.shape == vol.shape[:2] + phi.shape[2:], name
+        assert phi.is_contiguous() and cot.is_contiguous()
+    assert cases["ragged_m"][1].shape[2:] == (6001,)
+    assert cases["unaligned"][1].data_ptr() % 16 != 0
+    assert cases["unaligned"][2].data_ptr() % 16 != 0
+    assert torch.equal(cases["unaligned"][1], cases["serving_b2"][1])
+    assert cases["unit_w"][0].shape[2:] == (10, 1, 10)
+    # phi's pixel coordinates are the smooth field's
+    coords = cs._smooth_coords(torch, F, torch.Generator().manual_seed(1),
+                               2, 10, 4.0, torch.device("cpu"))
+    back = (cs._phi_of(coords, 10).movedim(1, -1) + 1.0) * 4.5
+    torch.testing.assert_close(back.reshape(2, -1, 3), coords)
+
+
+def test_glue_counter_sees_the_plain_glue():
+    """chip_smoke.py's glue_check counter on the CPU, where warp_image runs
+    the plain glue: it sees the coordinate buffer, one rescale per warp
+    and one tap cast per call (two with refinement: the encoder's
+    prediction and the refinement's steps). On the card the first two
+    must be 0."""
+    from liftreg_tpu_torch import RegistrationPipeline
+    cs = torch_kernel_ab.chip_smoke_module()
+    sz, g = (12, 12, 12), torch.Generator().manual_seed(0)
+    pca = {"vectors": (torch.randn((3, 3 * 12 ** 3), generator=g)
+                       * 0.01).bfloat16(), "mean": torch.zeros(3 * 12 ** 3)}
+    hu = [torch.rand((2, 1) + sz, generator=g) * -1000.0 for _ in range(2)]
+    seg = (torch.rand((2, 1) + sz, generator=g) > 0.3).float()
+    for steps, warps, casts in ((0, 1, 1), (2, 5, 2)):
+        pipe = RegistrationPipeline(sz, latent_dim=3, refine_steps=steps,
+                                    compute_dtype=torch.bfloat16,
+                                    device="cpu")
+        counts = cs.glue_ops(torch, lambda: pipe.register(pca, *hu, seg,
+                                                          seg), 2, 12)
+        assert counts["coordinate_buffers"] >= warps
+        assert counts["rescales"] == warps
+        assert counts["tap_casts"] == casts

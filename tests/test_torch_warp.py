@@ -16,7 +16,8 @@ from liftreg_tpu import coords as jcoords
 from liftreg_tpu.ops import pallas_warp
 from liftreg_tpu.ops import resample as jresample
 from liftreg_tpu_torch.ops import resample as tresample
-from liftreg_tpu_torch.ops.warp_kernel import (check_grad_offsets,
+from liftreg_tpu_torch.ops.warp_kernel import (check_offsets,
+                                               warp_coord_grad,
                                                warp_trilinear,
                                                warp_trilinear_plain)
 
@@ -122,6 +123,19 @@ def test_wrapper_rejects_bad_inputs():
         warp_trilinear(taps, torch.zeros((2, 4, 3)), False)
     with pytest.raises(ValueError):
         tresample.grid_sample(taps, pts.reshape(1, 4, 1, 3), padding="wrap")
+    # phi (B, 3, *out_shape): its batch, its channels, its cotangent's shape;
+    # scale_intensity only with phi
+    phi = torch.zeros((1, 3) + SHAPE)
+    with pytest.raises(ValueError):
+        warp_trilinear(taps, phi[:, :2], False, normalized=True)
+    with pytest.raises(ValueError):
+        warp_trilinear(taps, torch.zeros((2, 3) + SHAPE), False,
+                       normalized=True)
+    with pytest.raises(ValueError):
+        warp_trilinear(taps, pts, False, scale_intensity=True)
+    with pytest.raises(ValueError):
+        warp_coord_grad(taps, phi, torch.zeros((1, 1, 4)), False,
+                        normalized=True)
 
 
 def _coords_with_kinks(rng, shape, B, M):
@@ -193,10 +207,10 @@ def test_grid_sample_rejects_unknown_taps_name():
     ((2 ** 16, 1, 8, 8, 8), 512, False),
 ])
 def test_grad_offset_check_is_a_function_of_the_shape(taps_shape, M, fits):
-    """The coordinate-gradient kernel's 32-bit offsets, checked from the
-    shape alone (no such volume is allocated)."""
+    """The warp kernels' 32-bit offsets, checked from the shape alone (no
+    such volume is allocated)."""
     if fits:
-        check_grad_offsets(taps_shape, M)
+        check_offsets(taps_shape, M)
     else:
         with pytest.raises(ValueError):
-            check_grad_offsets(taps_shape, M)
+            check_offsets(taps_shape, M)

@@ -15,9 +15,11 @@ tolerances, and prints one JSON line per variant: CUDA-event times in ms
 (20 launches after 2 warm-ups), the bound of the bytes each must move, the
 registers per thread from ``ptxas`` and the error. The PCA backward is timed
 at several grid sizes (blocks per SM), the coordinate gradient with bf16
-and f32 taps. Ablations (``ABLATIONS``: the port's source with some loads or
-the stores taken out) show what the rest of each kernel costs; their
-results are not checked. ``--kernels pca`` or ``warp`` runs one kernel's
+and f32 taps, with phi in its (B, 3, D, W, H) layout as the refinement
+passes it and with the same points as pixel coordinates (a variant
+without the phi entry, only so). Ablations (``ABLATIONS``: the port's
+source with some loads or the stores taken out) show what the rest of
+each kernel costs; their results are not checked. ``--kernels pca`` or ``warp`` runs one kernel's
 variants, ``--only REGEX`` the variants whose name matches. Needs a CUDA
 card and nvcc; imports nothing of JAX.
 """
@@ -39,6 +41,7 @@ PCA_SRC = CSRC / "pca_expand.cu"
 WARP_SRC = CSRC / "warp_trilinear.cu"
 WARP_SHARED = ROOT / "tools" / "warp_variants" / \
     "warp_coord_grad_shared_rows.cu"
+WARP_KNOBS = ROOT / "tools" / "warp_variants" / "warp_trilinear_knobs.cu"
 PCA_VARIANTS = ROOT / "tools" / "pca_variants"
 PCA_LDG = PCA_VARIANTS / "pca_grad_ldg.cu"
 PCA_TMA = PCA_VARIANTS / "pca_grad_tma.cu"
@@ -81,6 +84,14 @@ WARPS += [(f"t{t}", WARP_SRC, (f"LIFTREG_GRAD_THREADS={t}",))
 WARPS += [(f"pts2_t{t}", WARP_SRC, ("LIFTREG_GRAD_POINTS=2",
                                     f"LIFTREG_GRAD_THREADS={t}"))
           for t in (128, 512)]
+# other register caps (blocks an SM; 1 leaves them to the compiler), and
+# cache hints of the streams (tools/warp_variants/warp_trilinear_knobs.cu)
+WARPS += [("minb1", WARP_SRC, ("LIFTREG_GRAD_MIN_BLOCKS=1",)),
+          ("minb3", WARP_SRC, ("LIFTREG_GRAD_MIN_BLOCKS=3",)),
+          ("t256_minb4", WARP_SRC, ("LIFTREG_GRAD_THREADS=256",
+                                    "LIFTREG_GRAD_MIN_BLOCKS=4"))]
+WARPS += [(f"hints{h}", WARP_KNOBS, (f"LIFTREG_GRAD_HINTS={h}",))
+          for h in (1, 2)]
 # ablations: the port's source with one kind of work taken out by a text
 # substitution (regex, replacement); their results are wrong by design
 ABLATIONS = {
@@ -117,8 +128,8 @@ ABLATIONS = {
         (r"load_tap\(v, at\[k\]\)", "static_cast<float>(at[k])")]),
     # the stores happen only for a value that never occurs
     "warp_no_stores": (WARP_SRC, [
-        (r"store_floats<3 \* kGradPts>\(dcoords",
-         "if (grad[0] == -12345.f) store_floats<3 * kGradPts>(dcoords")]),
+        (r"store_points<LAYOUT, kGradPts>\(dpts",
+         "if (grad[0] == -12345.f) store_points<LAYOUT, kGradPts>(dpts")]),
 }
 
 
@@ -243,14 +254,24 @@ def main(argv):
         del cot, V, want
 
     if "warp" in kinds:
+        # phi in its (B, 3, D, W, H) layout with scale_intensity, as the
+        # refinement calls it; a variant without the phi entry gets the
+        # same points as pixel coordinates and the doubled cotangent
         vol = torch.rand((B, 1, SZ, SZ, SZ), generator=g, device=dev)
-        coords = cs._smooth_coords(torch, F, g, B, SZ, 4.0, dev)
+        phi = cs._phi_of(cs._smooth_coords(torch, F, g, B, SZ, 4.0, dev), SZ)
+        # phi's pixel coordinates as the kernels round them: another ulp
+        # can move a point across a cell face, where the gradient jumps
+        scale = torch.full((3,), (SZ - 1) * 0.5, device=dev)
+        coords = ((phi.movedim(1, -1) + 1.0) * scale).reshape(
+            B, -1, 3).contiguous()
         cot = torch.randn((B, 1, SZ ** 3), generator=g, device=dev)
+        cot2 = cot * 2.0
         M = coords.shape[1]
-        out = torch.empty_like(coords)
+        out = torch.empty_like(phi)
         taps = {dt: vol.to(dt) for dt in (torch.bfloat16, torch.float32)}
-        wants = {dt: warp_coord_grad_plain(t, coords, cot, False)
-                 for dt, t in taps.items()}
+        wants = {dt: warp_coord_grad_plain(
+            t, phi, cot.reshape(B, 1, SZ, SZ, SZ), False, normalized=True,
+            scale_intensity=True) for dt, t in taps.items()}
         for name, ablation in variants["warp"]:
             if ("warp", name) not in built:
                 continue
@@ -262,27 +283,43 @@ def main(argv):
                 emit(row)
                 continue
             lib = _build.load(lib_path)
-            for dt, t in taps.items():
-                modes = _packed(axis_modes((SZ,) * 3, dt == torch.float32))
+            # both layouts where the variant has the phi entry: the cost of
+            # the layout in one run
+            layouts = ["phi", "pixel"] if hasattr(
+                lib, "liftreg_warp_coord_grad_phi") else ["pixel"]
+            for layout in layouts:
+                for dt, t in taps.items():
+                    modes = _packed(axis_modes((SZ,) * 3,
+                                               dt == torch.float32))
+                    head = (t.data_ptr(), int(dt == torch.bfloat16))
 
-                def call():
-                    rc = lib.liftreg_warp_coord_grad(
-                        t.data_ptr(), int(dt == torch.bfloat16),
-                        coords.data_ptr(), cot.data_ptr(), out.data_ptr(), B,
-                        1, SZ, SZ, SZ, M, 0, modes, stream)
-                    if rc:
-                        raise RuntimeError(f"{name}: CUDA error {rc}")
-                out.fill_(float("nan"))
-                call()
-                rel = float((out - wants[dt]).abs().max()) \
-                    / float(wants[dt].abs().max())
-                ms = cs._cuda_ms(call, 20)
-                bound = (t.numel() * t.element_size() + coords.numel() * 8
-                         + cot.numel() * 4) / cs.HBM_BYTES_PER_S * 1e3
-                row[str(dt).split(".")[-1]] = {
-                    "ms": ms, "bound_ms": bound, "share": bound / ms,
-                    "rel_err": rel,
-                    "ok": ablation or rel <= cs.WARP_GRAD_REL_TOL}
+                    def call():
+                        if layout == "phi":
+                            rc = lib.liftreg_warp_coord_grad_phi(
+                                *head, phi.data_ptr(), cot.data_ptr(),
+                                out.data_ptr(), B, 1, SZ, SZ, SZ, M, 0,
+                                modes, 1, stream)
+                        else:
+                            rc = lib.liftreg_warp_coord_grad(
+                                *head, coords.data_ptr(), cot2.data_ptr(),
+                                out.data_ptr(), B, 1, SZ, SZ, SZ, M, 0,
+                                modes, stream)
+                        if rc:
+                            raise RuntimeError(f"{name}: CUDA error {rc}")
+                    out.fill_(float("nan"))
+                    call()
+                    got = out if layout == "phi" else (
+                        out.reshape(B, SZ, SZ, SZ, 3) * scale).movedim(-1, 1)
+                    rel = float((got - wants[dt]).abs().max()) \
+                        / float(wants[dt].abs().max())
+                    ms = cs._cuda_ms(call, 20)
+                    bound = (t.numel() * t.element_size() + coords.numel() * 8
+                             + cot.numel() * 4) / cs.HBM_BYTES_PER_S * 1e3
+                    key = str(dt).split(".")[-1]
+                    row[key if layout == "phi" else f"pixel_{key}"] = {
+                        "ms": ms, "bound_ms": bound, "share": bound / ms,
+                        "rel_err": rel,
+                        "ok": ablation or rel <= cs.WARP_GRAD_REL_TOL}
             emit(row)
 
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)

@@ -10,7 +10,10 @@ parent compares two versions in turns), and prints one JSON line of CUDA
 event times in ms (20 launches after 3 warm-ups) at the serving shapes of
 this checkout's ``chip_smoke.py``, whose seeded input builders and timer
 it uses: 160^3, B=4, 4 views on a 240^2 detector, latent 56 (the DRR
-kernels also with one volume, ``_b1``), and the steady-state
+kernels also with one volume, ``_b1``; the warp kernels with pixel
+coordinates and, where the tree has it, with phi in its (B, 3, D, W, H)
+layout, ``_phi``; ``warp_image`` with its glue, forward and with the phi
+gradient), and the steady-state
 time of ``RegistrationPipeline.register`` there (bf16 encoder, basis and
 taps, random seeded weights; host clock over 10 calls after 2 warm-ups,
 ending in a synchronize). ``register_refine`` is the same pipeline with
@@ -19,6 +22,7 @@ after 1 warm-up on the host clock, their median, and the peak memory.
 Needs a CUDA card and nvcc; imports nothing of JAX.
 """
 import importlib.util
+import inspect
 import json
 import os
 import subprocess
@@ -44,7 +48,7 @@ def _time_tree(root):
     import torch
     import torch.nn.functional as F
     from liftreg_tpu_torch import RegistrationPipeline
-    from liftreg_tpu_torch.ops import drr
+    from liftreg_tpu_torch.ops import drr, resample
     from liftreg_tpu_torch.ops.drr_kernel import backproject_taps, project_taps
     from liftreg_tpu_torch.ops.pca_kernel import pca_expand, pca_grad
     from liftreg_tpu_torch.ops.warp_kernel import (warp_coord_grad,
@@ -70,12 +74,32 @@ def _time_tree(root):
     coefs = torch.randn((batch, cs.LATENT), generator=g, device=dev)
     g_pca = torch.randn((batch, n), generator=g, device=dev)
     out = {"root": root}
+    # the same points as phi (B, 3, D, W, H), for a tree whose warp kernels
+    # take that layout, and warp_image's cotangent
+    phi = cs._phi_of(coords, sz)
+    cot5 = cot.reshape(batch, 1, sz, sz, sz)
+    phi_layout = "normalized" in inspect.signature(warp_trilinear).parameters
     for tdt in (torch.bfloat16, torch.float32):
         taps = vol.to(tdt)
         key = str(tdt).split(".")[-1]
         out[f"warp_{key}"] = ms(lambda: warp_trilinear(taps, coords, False))
         out[f"warp_grad_{key}"] = ms(
             lambda: warp_coord_grad(taps, coords, cot, False))
+        if phi_layout:
+            out[f"warp_phi_{key}"] = ms(lambda: warp_trilinear(
+                taps, phi, False, normalized=True, scale_intensity=True))
+            out[f"warp_grad_phi_{key}"] = ms(lambda: warp_coord_grad(
+                taps, phi, cot5, False, normalized=True,
+                scale_intensity=True))
+    # warp_image as the main path calls it (bf16 taps), forward and forward
+    # with the phi gradient: the kernels with whatever glue the tree has
+    img = vol * 2.0 - 1.0
+    phi_g = phi.clone().requires_grad_(True)
+    out["warp_image_bf16"] = ms(lambda: resample.warp_image(
+        img, phi, taps_dtype=torch.bfloat16))
+    out["warp_image_grad_bf16"] = ms(lambda: torch.autograd.grad(
+        resample.warp_image(img, phi_g, taps_dtype=torch.bfloat16), phi_g,
+        cot5))
     out["drr_project"] = ms(lambda: project_taps(att, *fwd))
     out["drr_backproject"] = ms(lambda: backproject_taps(proj, *bwd))
     # one volume: how much of the time the batch's work takes
