@@ -13,7 +13,9 @@ line with its elapsed seconds:
 3. pca_check / warp_check / drr_check / grad_check: each kernel against
    its plain PyTorch version on the card, at the shapes of the serving
    path (plus ragged shapes, both tap types, both paddings, coordinates
-   far outside, on integers and on the edges of the DRR's zero padding,
+   far outside, on integers and on the edges of the DRR's zero padding;
+   the projector's adjoint with 3 and 4 views, B = 1, 4 and 5, sorted
+   edge and integer coordinates, and twice, which must give the same bits;
    a batch of 9 for the PCA expansion, volumes with a spatial dim of 1 for
    the warp and its gradient, a point count that the gradient's points per
    thread do not divide, the PCA backward twice, which must give the same
@@ -33,27 +35,37 @@ line with its elapsed seconds:
    config on smooth seeded volumes and a smooth basis, counts zeroed just
    before and read just after; the refined objective of each case must not
    exceed its unrefined objective;
-6. glue_check: one register call without and one with refinement under
-   a dispatch mode that sees every aten op: no op may make a (B, D, W, H,
-   3) coordinate buffer or the warp's `out * 2 - 1`, and the moving
-   image's tap tensor is cast once per warp_image call outside the
-   refinement's steps;
+   refine_projection: the same with refine_domain="projection" (each step
+   differentiates the projector through its adjoint kernel), through
+   register and then register_projections, each with its counts zeroed
+   just before and read just after and checked exactly, and each case no
+   worse than unrefined;
+6. glue_check: one register call without refinement and one with each
+   domain's refinement under a dispatch mode that sees every aten op: no
+   op may make a (B, D, W, H, 3) coordinate buffer or the warp's
+   `out * 2 - 1`, the moving image's tap tensor is cast once per
+   warp_image call outside the refinement's steps, and no op copies
+   between host and card (each such copy stalls the stream);
 7. reference / refine_reference: the pipeline on the card against the same
    pipeline on the CPU (the kernels' plain versions) at 32^3, without and
-   with 5 refinement steps;
+   with 5 refinement steps (image domain with NCC and with LNCC, projection
+   domain with NCC and with NGF);
 8. times: each kernel, its plain version and one PyTorch library call of
    the same function, with CUDA events (the warp and its gradient in both
    layouts and with both tap types; the lift also as the serving path
    runs it, bf16 into the encoder's buffer, with the bound of the bytes it
-   writes); the steady-state register time, with and without refinement,
-   and peak memory;
-9. profile / profile_refine: one register call, without and with
+   writes); the steady-state register time, with and without refinement
+   (image domain with NCC and with LNCC, projection domain), and peak
+   memory;
+9. profile / profile_refine / profile_refine_projection: one register
+   call, without refinement, with image-domain and with projection-domain
    refinement, under torch.profiler: device time by layer (from kernel
    names) and the device's idle share.
 
 Then the nvidia-smi line, one JSON line of per-kernel numbers
-(``launches`` from the refine phase, which runs all six kernels;
-``serving_launches`` from main_path's register), and last
+(``launches`` and ``projection_launches`` from refine_projection's
+register, which runs all seven kernels; ``serving_launches`` from
+main_path's register, ``image_refine_launches`` from refine's), and last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero; so does a
 missing card, and a watchdog after 15 minutes.
 """
@@ -105,10 +117,15 @@ LIFT_TOL = 1e-6
 # largest value for sums that cancel to near zero)
 WARP_GRAD_REL_TOL = 1e-5
 PCA_GRAD_RTOL, PCA_GRAD_REL_ATOL = 2.0 ** -8, 1e-4
+# the adjoint sums each view's tap pairs in another order than the plain
+# dense products (relative to the largest value)
+ADJ_REL_TOL = 1e-5
 # refinement on the card against the CPU at 32^3 over 5 steps, f32 encoder
 # and taps, bf16 basis: the f32 differences of the encoder and the kernels
 # reach the Adam updates, and dcoefs can round to the neighbouring bf16
 REFINE_REF_TOL = (1e-4, 1e-3)
+# the LNCC refinement's options in times (configs/lncc_v5e8)
+LNCC_OPTS = {"smooth": 3}
 # card against CPU at 32^3, (phi, warped): the two round the f32 HU
 # normalisation differently by an ulp (CUDA divides by a scalar through its
 # reciprocal), and the encoder's f32 convolutions sum in another order. With
@@ -168,7 +185,10 @@ def _max_err(a, b):
 def _layer(kernel_name):
     """Layer of a device kernel, from its name."""
     name = kernel_name.lower()
-    for layer, keys in (("pca_grad", ("pca_grad",)),
+    for layer, keys in (("drr_project_adjoint", ("adjoint_gather",
+                                                 "adjoint_scale",
+                                                 "adjoint_row_order")),
+                        ("pca_grad", ("pca_grad",)),
                         ("pca_expand", ("pca_expand",)),
                         ("warp_coord_grad", ("warp_coord_grad",)),
                         ("warp_trilinear", ("warp_trilinear",)),
@@ -310,13 +330,15 @@ def glue_ops(torch, fn, batch, sz):
     included, and count: all ops; ops whose result is a coordinate buffer
     (last dim 3 and batch * 3 * sz^3 elements); the warp's rescale, 1
     subtracted from a volume of batch * sz^3 elements that was multiplied
-    by 2; and casts of a (batch, 1, sz, sz, sz) volume to bf16, the moving
-    image's taps."""
+    by 2; casts of a (batch, 1, sz, sz, sz) volume to bf16, the moving
+    image's taps; and the transfers that stall the stream: tensors copied
+    from the host to the card (a device tensor made from host data, or a
+    copy from a CPU tensor) and values read back from the card."""
     from torch.utils._python_dispatch import TorchDispatchMode
     from torch.utils._pytree import tree_leaves
     aten = torch.ops.aten
     counts = {"ops": 0, "coordinate_buffers": 0, "rescales": 0,
-              "tap_casts": 0}
+              "tap_casts": 0, "host_to_device": 0, "device_to_host": 0}
     doubled = set()
     n_coords = batch * 3 * sz ** 3
 
@@ -344,6 +366,20 @@ def glue_ops(torch, fn, batch, sz):
             if op is aten._to_copy and out.dtype == torch.bfloat16 \
                     and tuple(out.shape) == (batch, 1) + (sz,) * 3:
                 counts["tap_casts"] += 1
+            # (source, destination) of a copy between devices
+            src_dst = {aten._to_copy: (0, None), aten.copy_: (1, 0),
+                       aten.lift_fresh: (None, None)}
+            if op in src_dst:
+                s_i, d_i = src_dst[op]
+                src = "cpu" if s_i is None else args[s_i].device.type
+                dst = (out if d_i is None else args[d_i]).device.type
+                if src == "cpu" and dst == "cuda":
+                    counts["host_to_device"] += 1
+                if src == "cuda" and dst == "cpu":
+                    counts["device_to_host"] += 1
+            if op is aten._local_scalar_dense \
+                    and args[0].device.type == "cuda":
+                counts["device_to_host"] += 1
             return out
 
     with Count():
@@ -385,11 +421,12 @@ def main():
 
     from liftreg_tpu_torch import RegistrationPipeline
     from liftreg_tpu_torch.models.subspace_backproj import mask_lung
+    from liftreg_tpu_torch.ops import resample
     from liftreg_tpu_torch.ops import _build, drr
-    from liftreg_tpu_torch.ops.drr_kernel import (backproject_taps,
-                                                  backproject_taps_plain,
-                                                  project, project_taps,
-                                                  project_taps_plain)
+    from liftreg_tpu_torch.ops.drr_kernel import (
+        backproject_taps, backproject_taps_plain, project,
+        project_adjoint_taps, project_adjoint_taps_plain, project_taps,
+        project_taps_plain)
     from liftreg_tpu_torch.ops.pca_kernel import (MAX_CHUNK, pca_expand,
                                                   pca_expand_plain, pca_grad,
                                                   pca_grad_plain)
@@ -398,12 +435,13 @@ def main():
                                                    warp_trilinear,
                                                    warp_trilinear_plain)
     from liftreg_tpu_torch.pipeline import normalize_hu
-    from liftreg_tpu_torch.refine import make_refiner
+    from liftreg_tpu_torch.refine import make_projection_refiner, make_refiner
 
     KERNELS = {"pca_expand": pca_expand, "pca_grad": pca_grad,
                "warp_trilinear": warp_trilinear,
                "warp_coord_grad": warp_coord_grad,
                "drr_project": project_taps,
+               "drr_project_adjoint": project_adjoint_taps,
                "drr_backproject": backproject_taps}
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -422,8 +460,8 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
-    kind = torch.cuda.get_device_name(0)
-    _emit(name=kind, nvidia_smi=smi, count=torch.cuda.device_count())
+    device_name = torch.cuda.get_device_name(0)
+    _emit(name=device_name, nvidia_smi=smi, count=torch.cuda.device_count())
 
     g = torch.Generator(device=dev).manual_seed(0)
     n = 3 * SZ ** 3
@@ -553,12 +591,54 @@ def main():
         lift_buf[:, 1:], backproject_taps(proj_in, *bwd_geom).bfloat16())
         and (lift_buf[:, 0] == 3.0).all())
     drr_errs["lift_bf16_buffer_bit_equal"] = lift_bf16_equal
+
+    def adjoint_err(cot, geom, vol_shape):
+        """[max abs error, that error over the largest value, whether a
+        second call gives the same bits] of the adjoint kernel"""
+        want = project_adjoint_taps_plain(cot, *geom, vol_shape)
+        got = project_adjoint_taps(cot, *geom, vol_shape)
+        again = project_adjoint_taps(cot, *geom, vol_shape)
+        err = _max_err(got, want)
+        return [err, err / float(want.abs().max()),
+                bool(torch.equal(got, again))]
+
+    # the projector's adjoint: the serving shape with B = 1, 4 and 5 and with
+    # 3 views; the ragged shape with sorted edge and integer coordinates
+    # (rising rows, as poses make them) and edge coordinates falling
+    adj = {}
+    for batch in (1, B, 5):
+        adj[f"serving_b{batch}"] = adjoint_err(
+            torch.randn((batch, 4) + res, generator=g, device=dev), fwd_geom,
+            (SZ,) * 3)
+    poses3 = torch.from_numpy(drr.synthesize_poses(30.0, 3, SZ)).to(dev)
+    adj["serving_3views"] = adjoint_err(
+        torch.randn((B, 3) + res, generator=g, device=dev),
+        drr.forward_geometry(poses3, (SZ,) * 3, res, (2.2, 2.2, 2.2)),
+        (SZ,) * 3)
+
+    def sorted_pix(shape, n, values):
+        if values == "integer":
+            pix = torch.randint(-2, n + 2, shape, generator=g,
+                                device=dev).float()
+        else:
+            pix = _edge_pix(torch, g, shape, n, dev)
+        pix = pix.sort(dim=-1).values
+        return (pix.flip(-1) if values == "falling" else pix).contiguous()
+
+    for values in ("edges", "integer", "falling"):
+        adj[f"ragged_{values}"] = adjoint_err(
+            torch.randn((5, 3, rd, rh), generator=g, device=dev),
+            (sorted_pix((3, W2, rd), D2, values),
+             sorted_pix((3, W2, rh), H2, values), geom2[2]), (D2, W2, H2))
+    drr_errs["adjoint"] = adj
+    errs["drr_project_adjoint"] = max(e[0] for e in adj.values())
     errs["drr_project"] = max(drr_errs["project_serving"],
                               drr_errs["project_ragged"])
     errs["drr_backproject"] = max(drr_errs["lift_serving"],
                                   drr_errs["lift_ragged"])
     _emit(max_err=drr_errs, tol={"project_rel": PROJ_REL_TOL,
-                                 "lift": LIFT_TOL})
+                                 "lift": LIFT_TOL,
+                                 "adjoint_rel": ADJ_REL_TOL})
     proj_rel = max(drr_errs["project_serving_rel"],
                    drr_errs["project_ragged_rel"])
     _require(proj_rel <= PROJ_REL_TOL,
@@ -567,6 +647,8 @@ def main():
              f"lift kernel error {errs['drr_backproject']}")
     _require(lift_bf16_equal, "the lift's bf16 buffer is not its f32 output "
              "rounded once")
+    _require(all(e[1] <= ADJ_REL_TOL and e[2] for e in adj.values()),
+             f"the adjoint kernel disagrees or changes its bits: {adj}")
 
     _begin("grad_check")
     cot = torch.randn((B, 1, SZ ** 3), generator=g, device=dev)
@@ -661,7 +743,8 @@ def main():
     # this shape, runs as two passes (chunks, then their ordered sum) and
     # counts them as one launch, as the PCA backward does
     serving = {"pca_expand": 1, "pca_grad": 0, "warp_trilinear": 1,
-               "warp_coord_grad": 0, "drr_project": 1, "drr_backproject": 1}
+               "warp_coord_grad": 0, "drr_project": 1,
+               "drr_project_adjoint": 0, "drr_backproject": 1}
     _require(launches == serving,
              f"main path launch counts {launches}, expected {serving}")
 
@@ -696,8 +779,8 @@ def main():
     first_ms = (time.perf_counter() - t0) * 1e3
     refine_launches = _counts(KERNELS)
     refine_peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-    expected = {"drr_project": 1, "drr_backproject": 1,
-                "pca_expand": REFINE_STEPS + 3,
+    expected = {"drr_project": 1, "drr_project_adjoint": 0,
+                "drr_backproject": 1, "pca_expand": REFINE_STEPS + 3,
                 "pca_grad": REFINE_STEPS + 1,
                 "warp_trilinear": REFINE_STEPS + 3,
                 "warp_coord_grad": REFINE_STEPS + 1}
@@ -739,6 +822,93 @@ def main():
           first_call_ms=first_ms, peak_memory_gib=refine_peak_gib)
     del out0, res0, inputs
 
+    # -- projection-domain refinement at the serving config ----------------
+    _begin("refine_projection")
+    pipe_p = RegistrationPipeline((SZ,) * 3, latent_dim=LATENT,
+                                  compute_dtype=torch.bfloat16,
+                                  refine_steps=REFINE_STEPS,
+                                  refine_domain="projection")
+    pipe_p.model.load_state_dict(pipe.model.state_dict())
+    torch.cuda.reset_peak_memory_stats()
+    _zero(KERNELS)
+    t0 = time.perf_counter()
+    warped_p, phi_p = pipe_p.register(r_pca, r_src, r_tgt, r_seg, r_seg)
+    torch.cuda.synchronize()
+    first_p_ms = (time.perf_counter() - t0) * 1e3
+    projection_launches = _counts(KERNELS)
+    proj_peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    res_p = pipe_p.last_refine
+    # the target DRR, N+1 steps and the final evaluation; the encoder's
+    # warp, N+2 in the refiner and the rewarp of the masked CT
+    expected_p = {"drr_project": REFINE_STEPS + 3,
+                  "drr_project_adjoint": REFINE_STEPS + 1,
+                  "drr_backproject": 1, "pca_expand": REFINE_STEPS + 3,
+                  "pca_grad": REFINE_STEPS + 1,
+                  "warp_trilinear": REFINE_STEPS + 4,
+                  "warp_coord_grad": REFINE_STEPS + 1}
+    _require(bool(torch.isfinite(warped_p).all()
+                  and torch.isfinite(phi_p).all()),
+             "non-finite projection-refined output")
+    _require(projection_launches == expected_p,
+             f"launch counts {projection_launches}, expected {expected_p}")
+    # the unrefined objective: a refiner of 0 steps at the encoder's
+    # coefficients, from the same inputs
+    target_proj = drr.normalize_drr(project(
+        drr.calc_relative_atten_coef(r_tgt[:, 0]), pipe_p.poses,
+        pipe_p.resolution, pipe_p.spacing))
+    inputs = {"source": normalize_hu(r_src), "target": normalize_hu(r_tgt),
+              "target_proj": target_proj, "target_poses": pipe_p.poses[None],
+              "source_label": r_seg, "target_label": r_seg}
+    with torch.no_grad():
+        out0 = pipe_p.model(inputs, r_pca)
+    r_atten = drr.calc_relative_atten_coef(r_src)
+    res0 = make_projection_refiner(
+        (SZ,) * 3, pipe_p.poses, pipe_p.resolution, pipe_p.spacing,
+        n_steps=0, warp_taps_dtype=torch.bfloat16)(
+        out0["pca_coefs"], r_pca, r_atten, target_proj)
+    unrefined_p = res0["total_per_sample"]
+    refined_p = res_p["total_per_sample"]
+    hist_p = res_p["total_history"]
+    _require(bool(torch.equal(res0["total_history"][0], hist_p[0])),
+             f"unrefined objective {float(res0['total_history'][0])} is not "
+             f"the refinement's step 0 {float(hist_p[0])}")
+    _require(bool((refined_p <= unrefined_p).all()),
+             f"projection refinement made a case worse: "
+             f"{refined_p.tolist()} > {unrefined_p.tolist()}")
+    # the output is the masked CT rewarped by the refined phi
+    _require(bool(torch.equal(warped_p, resample.warp_image(
+        mask_lung(inputs["source"], r_seg), phi_p,
+        taps_dtype=torch.bfloat16))), "the output is not the rewarped CT")
+    del out0, res0, inputs
+
+    # register_projections: the same refinement without the target DRR
+    _zero(KERNELS)
+    warped_pp, phi_pp = pipe_p.register_projections(r_pca, r_src,
+                                                    target_proj, r_seg)
+    torch.cuda.synchronize()
+    projections_launches = _counts(KERNELS)
+    refined_pp = pipe_p.last_refine["total_per_sample"]
+    _require(bool(torch.isfinite(warped_pp).all()
+                  and torch.isfinite(phi_pp).all()),
+             "non-finite output of register_projections")
+    _require(projections_launches == dict(expected_p,
+                                          drr_project=REFINE_STEPS + 2),
+             f"register_projections launch counts {projections_launches}")
+    _require(bool((refined_pp <= unrefined_p).all()),
+             f"register_projections' refinement made a case worse: "
+             f"{refined_pp.tolist()} > {unrefined_p.tolist()}")
+    _emit(launches=projection_launches,
+          launches_projections=projections_launches, steps=REFINE_STEPS,
+          unrefined_total_per_sample=unrefined_p.tolist(),
+          refined_total_per_sample=refined_p.tolist(),
+          register_projections_refined_total_per_sample=refined_pp.tolist(),
+          register_projections_phi_max_abs_diff=_max_err(phi_pp, phi_p),
+          total_history=[round(float(x), 6) for x in hist_p],
+          sim_history_first_last=[float(res_p["sim_history"][0]),
+                                  float(res_p["sim_history"][-1])],
+          first_call_ms=first_p_ms, peak_memory_gib=proj_peak_gib)
+    del warped_pp, phi_pp, r_atten
+
     # -- no glue around the warp on the card --------------------------------
     _begin("glue_check")
     glue = {"register": glue_ops(
@@ -746,14 +916,22 @@ def main():
                 B, SZ),
             "register_refine": glue_ops(
                 torch, lambda: pipe_r.register(r_pca, r_src, r_tgt, r_seg,
+                                               r_seg), B, SZ),
+            "register_refine_projection": glue_ops(
+                torch, lambda: pipe_p.register(r_pca, r_src, r_tgt, r_seg,
                                                r_seg), B, SZ)}
     _emit(**glue)
     _require(all(c["coordinate_buffers"] == 0 and c["rescales"] == 0
                  for c in glue.values()),
              f"glue around the warp on the card: {glue}")
+    # a copy between host and card waits for the stream: none in a call
+    _require(all(c["host_to_device"] == 0 and c["device_to_host"] == 0
+                 for c in glue.values()),
+             f"a call copies between host and card: {glue}")
     # one cast for the encoder's prediction, one for the refinement's steps
     _require(glue["register"]["tap_casts"] == 1
-             and glue["register_refine"]["tap_casts"] == 2,
+             and glue["register_refine"]["tap_casts"] == 2
+             and glue["register_refine_projection"]["tap_casts"] == 3,
              f"the tap tensor is built more than once per call: {glue}")
 
     # -- the card against the CPU at a small size --------------------------
@@ -799,25 +977,37 @@ def main():
     s_args = [field * 400.0 - 500.0,
               torch.roll(field, shifts=(1, -2, 1), dims=(2, 3, 4)) * 400.0
               - 500.0] + [torch.ones((2, 1) + small)] * 2
-    outs = {}
-    for where in ("cpu", "cuda"):
-        p = RegistrationPipeline(small, latent_dim=L_small,
-                                 warp_taps_dtype=torch.float32,
-                                 refine_steps=5, refine_lr=0.02, device=where)
-        p.model.load_state_dict(state)
-        pc = {k: v.to(where) for k, v in small_pca.items()}
-        outs[where] = [t.cpu() for t in
-                       p.register(pc, *(a.to(where) for a in s_args))]
-        outs[where].append(p.last_refine["total_history"].cpu())
-    refine_ref = {"phi": _max_err(outs["cuda"][1], outs["cpu"][1]),
-                  "warped": _max_err(outs["cuda"][0], outs["cpu"][0]),
-                  "total_history": _max_err(outs["cuda"][2], outs["cpu"][2]),
-                  "tol": REFINE_REF_TOL}
-    _emit(max_abs_err=refine_ref,
-          history_cpu=[float(x) for x in outs["cpu"][2]])
-    _require(refine_ref["phi"] <= REFINE_REF_TOL[0]
-             and refine_ref["warped"] <= REFINE_REF_TOL[1],
-             "refinement on the card disagrees with the CPU")
+    # image domain with NCC and with LNCC (pre-smoothed, two scales);
+    # projection domain with NCC and with NGF
+    configs = {"image_ncc": {},
+               "image_lncc": {"refine_sim": "lncc", "refine_sim_opts": {
+                   "smooth": 3, "scales": [1, 2]}},
+               "projection_ncc": {"refine_domain": "projection"},
+               "projection_ngf": {"refine_domain": "projection",
+                                  "refine_sim": "ngf"}}
+    refine_ref = {}
+    for cfg, opts in configs.items():
+        outs = {}
+        for where in ("cpu", "cuda"):
+            p = RegistrationPipeline(small, latent_dim=L_small,
+                                     warp_taps_dtype=torch.float32,
+                                     refine_steps=5, refine_lr=0.02,
+                                     device=where, **opts)
+            p.model.load_state_dict(state)
+            pc = {k: v.to(where) for k, v in small_pca.items()}
+            outs[where] = [t.cpu() for t in
+                           p.register(pc, *(a.to(where) for a in s_args))]
+            outs[where].append(p.last_refine["total_history"].cpu())
+        refine_ref[cfg] = {
+            "phi": _max_err(outs["cuda"][1], outs["cpu"][1]),
+            "warped": _max_err(outs["cuda"][0], outs["cpu"][0]),
+            "total_history": _max_err(outs["cuda"][2], outs["cpu"][2]),
+            "history_cpu": [float(x) for x in outs["cpu"][2]]}
+    _emit(max_abs_err=refine_ref, tol=REFINE_REF_TOL)
+    for cfg, e in refine_ref.items():
+        _require(e["phi"] <= REFINE_REF_TOL[0]
+                 and e["warped"] <= REFINE_REF_TOL[1],
+                 f"refinement ({cfg}) on the card disagrees with the CPU")
 
     # -- times -------------------------------------------------------------
     _begin("times")
@@ -884,6 +1074,17 @@ def main():
                                       (2.2, 2.2, 2.2))
     lib_ms["drr_project"] = _cuda_ms(
         lambda: drr.project_with_mats(att, Rx, Rz, dx), 5)
+    # the adjoint of the projector on the cotangent of its output; its
+    # library call is the f32 torch.matmul chain of the transposed products
+    # on the dense matrices, built outside the timed calls
+    cot_proj = torch.randn((B, 4) + res, generator=g, device=dev)
+    ms["drr_project_adjoint"] = _cuda_ms(
+        lambda: project_adjoint_taps(cot_proj, *fwd_geom, (SZ,) * 3), 20)
+    plain_ms["drr_project_adjoint"] = _cuda_ms(
+        lambda: project_adjoint_taps_plain(cot_proj, *fwd_geom, (SZ,) * 3),
+        5)
+    lib_ms["drr_project_adjoint"] = _cuda_ms(
+        lambda: drr.project_adjoint_with_mats(cot_proj, Rx, Rz, dx), 5)
     del Rx, Rz
     ms["drr_backproject"] = _cuda_ms(
         lambda: backproject_taps(proj_in, *bwd_geom), 20)
@@ -907,6 +1108,8 @@ def main():
         + cot.numel() * 4 + phi.numel() * 4,
         "drr_project": att.numel() * 4 + sum(t.numel() * 4 for t in fwd_geom)
         + B * 4 * res[0] * res[1] * 4,
+        "drr_project_adjoint": cot_proj.numel() * 4
+        + sum(t.numel() * 4 for t in fwd_geom) + B * SZ ** 3 * 4,
         "drr_backproject": proj_in.numel() * 4
         + sum(t.numel() * 4 for t in bwd_geom) + B * 4 * SZ ** 3 * 4,
     }
@@ -919,6 +1122,10 @@ def main():
                             * B * M, PEAK_F32_FLOPS),
         "drr_project": (DRR_OPS_PER_TWO_TAPS * B * 4 * SZ * res[0]
                         * (SZ + res[1]), PEAK_F32_FLOPS),
+        # the transposed passes: each pixel's two z taps, then each
+        # (row, column) value's two x taps
+        "drr_project_adjoint": (DRR_OPS_PER_TWO_TAPS * B * 4 * SZ * res[0]
+                                * (res[1] + SZ), PEAK_F32_FLOPS),
         "drr_backproject": (DRR_OPS_PER_TWO_TAPS * B * 4 * SZ * SZ
                             * (res[1] + SZ), PEAK_F32_FLOPS),
     }
@@ -934,7 +1141,7 @@ def main():
     lift_bf16 = {"ms": lift_bf16_ms,
                  "bound_ms": lift_bf16_bytes / HBM_BYTES_PER_S * 1e3,
                  "bound_by": "bytes"}
-    del cot_bf16, att, proj_in, lift_buf
+    del cot_bf16, att, proj_in, lift_buf, cot_proj
     torch.cuda.empty_cache()
 
     def steady(p, pca_, args_, iters):
@@ -952,14 +1159,38 @@ def main():
     register_ms, peak_gib = steady(pipe, pca, (src_hu, tgt_hu, seg, seg), 5)
     r_args = (r_src, r_tgt, r_seg, r_seg)
     refine_ms, refine_peak = steady(pipe_r, r_pca, r_args, 3)
+    proj_ms, proj_peak = steady(pipe_p, r_pca, r_args, 3)
+    pipe_l = RegistrationPipeline((SZ,) * 3, latent_dim=LATENT,
+                                  compute_dtype=torch.bfloat16,
+                                  refine_steps=REFINE_STEPS,
+                                  refine_sim="lncc",
+                                  refine_sim_opts=LNCC_OPTS)
+    pipe_l.model.load_state_dict(pipe.model.state_dict())
+    lncc_ms, lncc_peak = steady(pipe_l, r_pca, r_args, 3)
+    lncc_hist = pipe_l.last_refine["total_history"]
+    del pipe_l
+
+    def per_step(t_ms):
+        return (t_ms - register_ms) / (REFINE_STEPS + 1)
+
     _emit(kernel_ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
           warp_layouts=layout_times, lift_bf16_buffer=lift_bf16,
           register_ms=register_ms, register_per_s=B * 1e3 / register_ms,
           peak_memory_gib=peak_gib, register_refine_ms=refine_ms,
           register_refine_per_s=B * 1e3 / refine_ms,
-          refine_ms_per_step=(refine_ms - register_ms) / (REFINE_STEPS + 1),
-          refine_peak_memory_gib=refine_peak, batch=B,
-          refine_steps=REFINE_STEPS)
+          refine_ms_per_step=per_step(refine_ms),
+          refine_peak_memory_gib=refine_peak,
+          register_refine_projection_ms=proj_ms,
+          register_refine_projection_per_s=B * 1e3 / proj_ms,
+          refine_projection_ms_per_step=per_step(proj_ms),
+          refine_projection_peak_memory_gib=proj_peak,
+          register_refine_lncc_ms=lncc_ms,
+          register_refine_lncc_per_s=B * 1e3 / lncc_ms,
+          refine_lncc_ms_per_step=per_step(lncc_ms),
+          refine_lncc_peak_memory_gib=lncc_peak, lncc_opts=LNCC_OPTS,
+          lncc_total_history_first_last=[float(lncc_hist[0]),
+                                         float(lncc_hist[-1])],
+          batch=B, refine_steps=REFINE_STEPS)
 
     def profile_call(fn):
         from torch.profiler import ProfilerActivity, profile
@@ -992,6 +1223,8 @@ def main():
     profile_call(lambda: pipe.register(pca, src_hu, tgt_hu, seg, seg))
     _begin("profile_refine")
     profile_call(lambda: pipe_r.register(r_pca, *r_args))
+    _begin("profile_refine_projection")
+    profile_call(lambda: pipe_p.register(r_pca, *r_args))
 
     replaces = {
         "pca_expand": "liftreg_tpu/ops/pallas_pca.py:30",
@@ -999,6 +1232,8 @@ def main():
         "warp_trilinear": "liftreg_tpu/ops/pallas_warp.py:61",
         "warp_coord_grad": "liftreg_tpu/ops/pallas_warp.py:61",
         "drr_project": "liftreg_tpu/ops/pallas_drr.py:27",
+        # no TPU kernel: XLA's autodiff of project_with_mats (:184-218)
+        "drr_project_adjoint": "liftreg_tpu/ops/drr.py:184",
         "drr_backproject": "liftreg_tpu/ops/pallas_drr.py:59",
     }
     sources = {
@@ -1007,6 +1242,7 @@ def main():
         "warp_trilinear": "liftreg_tpu_torch/csrc/warp_trilinear.cu",
         "warp_coord_grad": "liftreg_tpu_torch/csrc/warp_trilinear.cu",
         "drr_project": "liftreg_tpu_torch/csrc/drr_project.cu",
+        "drr_project_adjoint": "liftreg_tpu_torch/csrc/drr_project_adjoint.cu",
         "drr_backproject": "liftreg_tpu_torch/csrc/drr_backproject.cu",
     }
     kernels = []
@@ -1016,12 +1252,15 @@ def main():
         kernels.append({
             "name": name, "route": "cuda", "source": sources[name],
             "replaces": replaces[name],
-            "launches": refine_launches[name], "max_abs_err": errs[name],
+            "launches": projection_launches[name],
+            "max_abs_err": errs[name],
             "ms": ms[name], "plain_ms": plain_ms[name],
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": lib_ms[name]})
-        kernels[-1]["serving_launches"] = launches[name]
+        kernels[-1].update(projection_launches=projection_launches[name],
+                           image_refine_launches=refine_launches[name],
+                           serving_launches=launches[name])
     next(k for k in kernels if k["name"] == "drr_backproject").update(
         bf16_buffer_ms=lift_bf16["ms"],
         bf16_buffer_bound_ms=lift_bf16["bound_ms"])
@@ -1030,7 +1269,7 @@ def main():
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind,
+        "platform": "gpu", "kind": device_name,
         "count": torch.cuda.device_count()}}), flush=True)
     timer.cancel()
     return 0

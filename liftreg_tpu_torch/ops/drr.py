@@ -12,8 +12,10 @@ Bv[p,k]^T`` with the reversed coronal axis folded into ``Bu``/``Bv``.
 coordinates whose 2-tap rows make those matrices; the kernels of
 :mod:`.drr_kernel` read the coordinates, and the dense products here
 (plain f32 ``torch.matmul``, as the JAX package leaves them to XLA at
-HIGHEST precision) are their plain versions; ``project`` and
-``backproject`` from poses are in :mod:`.drr_kernel`. Callers that need f32 parity
+HIGHEST precision) are their plain versions, and
+:func:`project_adjoint_with_mats` is the plain version of the projector's
+adjoint; ``project`` and ``backproject`` from poses are in
+:mod:`.drr_kernel`. Callers that need f32 parity
 on CUDA turn TF32 off (``RegistrationPipeline`` does).
 """
 from __future__ import annotations
@@ -31,8 +33,14 @@ def calc_relative_atten_coef(img):
 
 def normalize_drr(proj):
     """DRR clip [0, 6] -> [-1, 1], the dataset's stored-projection
-    normalization."""
-    return proj.clamp(0.0, 6.0) / 6.0 * 2.0 - 1.0
+    normalization. The clip is ``minimum(maximum(p, 0), 6)``, as
+    ``jnp.clip`` is, so that its gradient at 0 and at 6 is 1/2, as in JAX
+    (``clamp``'s is 1); the values are the same. The bounds are filled on
+    the device: a tensor copied from a host scalar would synchronise the
+    stream."""
+    clipped = torch.minimum(torch.maximum(proj, proj.new_zeros(())),
+                            proj.new_full((), 6.0))
+    return clipped / 6.0 * 2.0 - 1.0
 
 
 def synthesize_poses(scan_range_deg, n_proj, width, emitter_y_scale=3.5):
@@ -151,6 +159,31 @@ def project_with_mats(vol, Rx, Rz, dx, plane_chunk=32):
         rz = Rz[:, k0:k1].permute(0, 1, 3, 2).reshape(P, kc * H, res_h)
         total = total + torch.matmul(t, rz[None])
     return total * dx[None] * 0.1  # mm -> cm
+
+
+def project_adjoint_with_mats(g, Rx, Rz, dx, plane_chunk=32):
+    """The VJP of :func:`project_with_mats` with respect to the volume:
+    g (B, P, res_d, res_h) -> dvol (B, D, W, H) = sum_p Rx[p,k]^T @ G[b,p]
+    @ Rz[p,k] per coronal plane k, chunked over the planes. The cotangent
+    is scaled as autograd of ``total * dx * 0.1`` scales it,
+    ``G = (g * 0.1) * dx``."""
+    B, P, res_d, _ = g.shape
+    W, D = Rx.shape[1], Rx.shape[3]
+    H = Rz.shape[3]
+    G = g * 0.1 * dx[None]
+    dvol = torch.empty((B, D, W, H), dtype=torch.float32, device=g.device)
+    for k0 in range(0, W, plane_chunk):
+        k1 = min(k0 + plane_chunk, W)
+        kc = k1 - k0
+        # (B, P, 1, res_d, res_h) @ (1, P, kc, res_h, H)
+        #   -> (B, P, kc, res_d, H)
+        u = torch.matmul(G[:, :, None], Rz[None, :, k0:k1])
+        u = u.permute(0, 2, 1, 3, 4).reshape(B, kc, P * res_d, H)
+        # the views and detector rows in one contraction:
+        # (1, kc, D, P*res_d) @ (B, kc, P*res_d, H) -> (B, kc, D, H)
+        rx = Rx[:, k0:k1].permute(1, 3, 0, 2).reshape(kc, D, P * res_d)
+        dvol[:, :, k0:k1, :] = torch.matmul(rx[None], u).permute(0, 2, 1, 3)
+    return dvol
 
 
 def backproject_with_mats(proj, Bu, Bv, plane_chunk=16):

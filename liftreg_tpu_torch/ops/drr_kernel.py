@@ -1,26 +1,32 @@
-"""DRR projector and backprojection lift from per-plane pixel coordinates:
-the Hopper kernels and their plain PyTorch versions.
+"""DRR projector, its adjoint and the backprojection lift from per-plane
+pixel coordinates: the Hopper kernels and their plain PyTorch versions.
 
 The kernels replace ``liftreg_tpu/ops/pallas_drr.py``: ``_proj_kernel`` by
 ``csrc/drr_project.cu`` and ``_backproj_kernel`` by
-``csrc/drr_backproject.cu``. The TPU kernels run dense matmul chains over
-the interpolation matrices of ``drr.forward_matrices`` /
+``csrc/drr_backproject.cu``; ``csrc/drr_project_adjoint.cu`` is the
+projector's adjoint, whose JAX counterpart is XLA's autodiff of
+``liftreg_tpu/ops/drr.py:project_with_mats``. The TPU kernels run dense
+matmul chains over the interpolation matrices of ``drr.forward_matrices`` /
 ``drr.backward_matrices``; every row of those holds at most two taps, so the
 Hopper kernels read the coordinates (:func:`.drr.forward_geometry`,
 :func:`.drr.backward_geometry`) and gather the taps. The plain versions are
 the dense products of :mod:`.drr` on the matrices built from the same
 coordinates.
 
-:func:`project_taps` and :func:`backproject_taps` launch the kernels for
-CUDA tensors and run the plain versions for CPU tensors; they never fall
-back from one to the other. ``.launches`` on each counts kernel launches,
-one per call; a projector call whose plane loop is split runs as two
-passes on the card (the chunks' partial sums, then their ordered sum),
-counted as one launch.
+:func:`project_taps`, :func:`project_adjoint_taps` and
+:func:`backproject_taps` launch the kernels for CUDA tensors and run the
+plain versions for CPU tensors; they never fall back from one to the other.
+``.launches`` on each counts kernel launches, one per call; a projector call
+whose plane loop is split runs as two passes on the card (the chunks'
+partial sums, then their ordered sum), and an adjoint call as three (the
+scaled cotangent, the order of the geometry's rows, the gather), each
+counted as one launch. :func:`project_taps_ad` is the projector under
+autograd: its backward is the adjoint.
 :func:`backproject_taps` can write into a given ``out``, f32 or bf16, such
 as the channels 1..P of the encoder's input buffer.
-:func:`project` and :func:`backproject` take the poses instead of the
-geometry, as ``liftreg_tpu.ops.drr.project``/``backproject`` do.
+:func:`project` (differentiable with respect to the volume) and
+:func:`backproject` take the poses instead of the geometry, as
+``liftreg_tpu.ops.drr.project``/``backproject`` do.
 """
 from __future__ import annotations
 
@@ -35,6 +41,17 @@ def project_taps_plain(vol, x_pix, z_pix, dx, plane_chunk=32):
     return drr.project_with_mats(vol, drr._two_tap_matrix(x_pix, vol.shape[1]),
                                  drr._two_tap_matrix(z_pix, vol.shape[3]), dx,
                                  plane_chunk=plane_chunk)
+
+
+def project_adjoint_taps_plain(g, x_pix, z_pix, dx, vol_shape,
+                               plane_chunk=32):
+    """g (B, P, res_d, res_h) f32, the geometry of :func:`project_taps_plain`
+    for a volume of ``vol_shape`` (D, W, H) -> dvol (B, D, W, H) f32: the
+    dense transposed products."""
+    D, _, H = (int(n) for n in vol_shape)
+    return drr.project_adjoint_with_mats(
+        g, drr._two_tap_matrix(x_pix, D), drr._two_tap_matrix(z_pix, H), dx,
+        plane_chunk=plane_chunk)
 
 
 def backproject_taps_plain(proj, u_pix, v_pix, plane_chunk=16):
@@ -123,6 +140,85 @@ def project_taps(vol, x_pix, z_pix, dx, plane_chunk=32):
 project_taps.launches = 0
 
 
+def project_adjoint_taps(g, x_pix, z_pix, dx, vol_shape, plane_chunk=32):
+    """The projector's adjoint: the adjoint kernel on CUDA tensors, the
+    plain version on CPU tensors (``plane_chunk`` only shapes the plain
+    version's products). g (B, P, res_d, res_h) and the geometry of
+    :func:`project_taps` for a volume of ``vol_shape`` (D, W, H) -> dvol
+    (B, D, W, H) f32."""
+    tensors = {"g": g, "x_pix": x_pix, "z_pix": z_pix, "dx": dx}
+    device = _build.inputs_device("project_adjoint_taps", tensors,
+                                  dict.fromkeys(tensors, _F32))
+    if g.dim() != 4 or x_pix.dim() != 3 or z_pix.dim() != 3 \
+            or dx.dim() != 3 or len(vol_shape) != 3:
+        raise ValueError("project_adjoint_taps: want g (B, P, res_d, "
+                         "res_h), x_pix (P, W, res_d), z_pix (P, W, res_h), "
+                         "dx (P, res_d, res_h), vol_shape (D, W, H)")
+    B, P, res_d, res_h = g.shape
+    D, W, H = (int(n) for n in vol_shape)
+    if x_pix.shape != (P, W, res_d) or z_pix.shape != (P, W, res_h) \
+            or dx.shape != (P, res_d, res_h):
+        raise ValueError(f"project_adjoint_taps: shapes {tuple(g.shape)}, "
+                         f"{tuple(x_pix.shape)}, {tuple(z_pix.shape)}, "
+                         f"{tuple(dx.shape)} and volume {(D, W, H)} do not "
+                         "agree")
+    if device.type == "cpu":
+        return project_adjoint_taps_plain(g, x_pix, z_pix, dx, (D, W, H),
+                                          plane_chunk)
+    out = torch.empty((B, D, W, H), dtype=torch.float32, device=device)
+    _check_int32("project_adjoint_taps", g.numel(), x_pix.numel(),
+                 z_pix.numel(), out.numel())
+    # the scaled cotangent (g * 0.1) * dx, and the order of each geometry row
+    scaled = torch.empty_like(g)
+    order = torch.empty((2 * P * W,), dtype=torch.int32, device=device)
+    lib = _build.library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.liftreg_drr_project_adjoint(
+            g.data_ptr(), x_pix.data_ptr(), z_pix.data_ptr(), dx.data_ptr(),
+            out.data_ptr(), scaled.data_ptr(), order.data_ptr(), B, P, D, W,
+            H, res_d, res_h, stream)
+    _build.check(rc, "project_adjoint_taps")
+    project_adjoint_taps.launches += 1
+    return out
+
+
+project_adjoint_taps.launches = 0
+
+
+class _ProjectTaps(torch.autograd.Function):
+    """:func:`project_taps` whose backward with respect to the volume is
+    :func:`project_adjoint_taps` (the kernel on the card, the plain adjoint
+    on the CPU)."""
+
+    @staticmethod
+    def forward(ctx, vol, x_pix, z_pix, dx, plane_chunk):
+        ctx.save_for_backward(x_pix, z_pix, dx)
+        ctx.vol_shape = tuple(vol.shape[1:])
+        ctx.plane_chunk = plane_chunk
+        return project_taps(vol, x_pix, z_pix, dx, plane_chunk)
+
+    @staticmethod
+    def backward(ctx, g):
+        x_pix, z_pix, dx = ctx.saved_tensors
+        dvol = project_adjoint_taps(g.contiguous(), x_pix, z_pix, dx,
+                                    ctx.vol_shape, ctx.plane_chunk)
+        return dvol, None, None, None, None
+
+
+def project_taps_ad(vol, x_pix, z_pix, dx, plane_chunk=32):
+    """:func:`project_taps`, differentiable with respect to ``vol``; the
+    geometry takes no gradient."""
+    if not torch.is_grad_enabled():
+        return project_taps(vol, x_pix, z_pix, dx, plane_chunk)
+    if any(t.requires_grad for t in (x_pix, z_pix, dx)):
+        raise NotImplementedError("project_taps_ad: no gradient with "
+                                  "respect to the projector's geometry")
+    if not vol.requires_grad:
+        return project_taps(vol, x_pix, z_pix, dx, plane_chunk)
+    return _ProjectTaps.apply(vol, x_pix, z_pix, dx, plane_chunk)
+
+
 def backproject_taps(proj, u_pix, v_pix, plane_chunk=16, out=None):
     """The lift kernel on CUDA tensors, the plain version on CPU tensors
     (``plane_chunk`` only shapes the plain version's products).
@@ -186,9 +282,10 @@ backproject_taps.launches = 0
 def project(vol, poses, resolution=None, spacing=(2.2, 2.2, 2.2),
             plane_chunk=32):
     """DRR of ``(B, D, W, H)`` (or ``(D, W, H)``) attenuation volumes;
-    ``poses`` (P, 3) numpy or tensor in voxel units. Builds the geometry
-    on every call; callers with static poses keep
-    :func:`.drr.forward_geometry` and call :func:`project_taps`."""
+    ``poses`` (P, 3) numpy or tensor in voxel units. Differentiable with
+    respect to ``vol`` (:func:`project_taps_ad`). Builds the geometry on
+    every call; callers with static poses keep
+    :func:`.drr.forward_geometry` and call :func:`project_taps_ad`."""
     squeeze = vol.dim() == 3
     if squeeze:
         vol = vol[None]
@@ -197,7 +294,8 @@ def project(vol, poses, resolution=None, spacing=(2.2, 2.2, 2.2),
     poses = torch.as_tensor(poses, dtype=vol.dtype, device=vol.device)
     geometry = drr.forward_geometry(poses, vol.shape[1:], resolution,
                                     spacing)
-    out = project_taps(vol.contiguous(), *geometry, plane_chunk=plane_chunk)
+    out = project_taps_ad(vol.contiguous(), *geometry,
+                          plane_chunk=plane_chunk)
     return out[0] if squeeze else out
 
 

@@ -1,8 +1,9 @@
 """Inference pipeline, PyTorch port of ``liftreg_tpu/pipeline.py``:
 HU clip -> attenuation -> DRR -> projection normalization ->
 backprojection lift -> encoder -> PCA expansion -> warp, then optionally
-per-case refinement of the PCA coefficients (``refine_steps``, image
-domain).
+per-case refinement of the PCA coefficients (``refine_steps``), against the
+target CT (``refine_domain="image"``) or against the projections
+(``"projection"``).
 
 Example::
 
@@ -22,7 +23,8 @@ from .device import resolve_device, resolve_dtype
 from .models.subspace_backproj import LiftRegSubspaceBackproj, mask_lung
 from .ops import drr
 from .ops.drr_kernel import project_taps
-from .refine import make_refiner
+from .ops.resample import warp_image
+from .refine import make_projection_refiner, make_refiner
 
 normalize_drr = drr.normalize_drr
 
@@ -49,11 +51,15 @@ class RegistrationPipeline:
     for projections of another size, as the JAX model does.
 
     ``refine_steps > 0`` continues each case after the encoder's
-    prediction with that many Adam steps on the PCA coefficients
-    (:func:`.refine.make_refiner`), against the (lung-masked) target CT.
-    Only ``refine_domain="image"`` is ported. ``refiner`` is the refinement
-    function (None without refinement); ``last_refine`` holds its output
-    dict from the last :meth:`register` call.
+    prediction with that many Adam steps on the PCA coefficients. With
+    ``refine_domain="image"`` (:func:`.refine.make_refiner`) the objective
+    compares the warped CT with the (lung-masked) target CT; with
+    ``"projection"`` (:func:`.refine.make_projection_refiner`,
+    ``proj_norm="drr"``) it compares the DRR of the warped attenuation
+    with the target projections, so :meth:`register_projections` refines
+    too; the output is then the masked CT rewarped by the refined phi.
+    ``refiner`` is the refinement function (None without refinement);
+    ``last_refine`` holds its output dict from the last call.
     """
 
     def __init__(self, img_sz=(160, 160, 160), latent_dim=56, n_proj=4,
@@ -88,22 +94,24 @@ class RegistrationPipeline:
             mask_ct=mask_ct).to(self.device).eval()
         self.refiner = None
         self.last_refine = None
+        self.refine_domain = refine_domain
+        self.warp_taps_dtype = warp_taps_dtype
         if refine_steps:
-            if refine_domain == "projection":
-                raise NotImplementedError(
-                    "refine_domain='projection' is not ported yet: it needs "
-                    "the projector's adjoint (ROADMAP.md, next slice: "
-                    "projection-domain refinement)")
-            if refine_domain != "image":
+            opts = dict(sim=refine_sim, sim_opts=refine_sim_opts,
+                        n_steps=int(refine_steps), lr=refine_lr,
+                        reg_factor=refine_reg_factor,
+                        warp_taps_dtype=warp_taps_dtype,
+                        early_stop_patience=refine_early_stop_patience,
+                        early_stop_tol=refine_early_stop_tol)
+            if refine_domain == "image":
+                self.refiner = make_refiner(self.img_sz, **opts)
+            elif refine_domain == "projection":
+                self.refiner = make_projection_refiner(
+                    self.img_sz, self.poses, self.resolution, self.spacing,
+                    proj_norm="drr", **opts)
+            else:
                 raise ValueError(f"refine_domain {refine_domain!r} not in "
                                  "('image', 'projection')")
-            self.refiner = make_refiner(
-                self.img_sz, sim=refine_sim, sim_opts=refine_sim_opts,
-                n_steps=int(refine_steps), lr=refine_lr,
-                reg_factor=refine_reg_factor,
-                warp_taps_dtype=warp_taps_dtype,
-                early_stop_patience=refine_early_stop_patience,
-                early_stop_tol=refine_early_stop_tol)
 
     def _inputs(self, source_hu, target, target_proj):
         inputs = {
@@ -138,20 +146,41 @@ class RegistrationPipeline:
         out = self.model(inputs, pca)
         if self.refiner is None:
             return out["warped"], out["phi"]
-        # the encoder's weights gather no gradient: the refinement starts
-        # from detached coefficients and only they require grad
-        res = self.refiner(out["pca_coefs"].detach(), pca,
-                           self._moving_cp(inputs), out["target"])
+        return self._refine_tail(out, pca, source_hu, inputs)
+
+    def _refine_tail(self, out, pca, source_hu, inputs):
+        """Refine each case from the encoder's prediction; returns
+        ``(warped, phi)``. The encoder's weights gather no gradient: the
+        refinement starts from detached coefficients and only they require
+        grad."""
+        coefs0 = out["pca_coefs"].detach()
+        if self.refine_domain == "image":
+            res = self.refiner(coefs0, pca, self._moving_cp(inputs),
+                               out["target"])
+            self.last_refine = res
+            return res["warped"], res["phi"]
+        # the projection domain reads no target CT: the DRR of the warped
+        # attenuation against the target projections
+        res = self.refiner(coefs0, pca,
+                           drr.calc_relative_atten_coef(source_hu),
+                           inputs["target_proj"])
         self.last_refine = res
-        return res["warped"], res["phi"]
+        # the output is register's: the masked, normalized CT under the
+        # refined map, not the warped attenuation
+        warped = warp_image(self._moving_cp(inputs), res["phi"],
+                            zero_boundary=True, scale_intensity=True,
+                            taps_dtype=self.warp_taps_dtype)
+        return warped, res["phi"]
 
     @torch.no_grad()
     def register_projections(self, pca, source_hu, target_proj,
                              source_seg=None):
         """Register from projections only (no target CT): ``target_proj``
-        (B, P, pw, ph) in the normalized DRR convention. Returns
+        (B, P, pw, ph) in the normalized DRR convention. With projection-
+        domain refinement each case is refined against ``target_proj``;
+        image-domain refinement raises ``ValueError``. Returns
         ``(warped, phi)``."""
-        if self.refiner is not None:
+        if self.refiner is not None and self.refine_domain != "projection":
             raise ValueError(
                 "register_projections with refine_steps requires "
                 "refine_domain='projection' (image-domain refinement needs "
@@ -162,4 +191,6 @@ class RegistrationPipeline:
             inputs["source_label"] = source_seg
             inputs["target_label"] = torch.ones_like(source_seg)
         out = self.model(inputs, pca)
-        return out["warped"], out["phi"]
+        if self.refiner is None:
+            return out["warped"], out["phi"]
+        return self._refine_tail(out, pca, source_hu, inputs)

@@ -1,13 +1,15 @@
 """Instance refinement in the PCA subspace, PyTorch port of
-``liftreg_tpu/refine.py`` (``_build_refine`` and ``make_refiner``; the
-projection-domain refiner is still to be ported, ``ROADMAP.md``).
+``liftreg_tpu/refine.py``: ``_build_refine``, ``make_refiner`` (image
+domain) and ``make_projection_refiner`` (projection domain).
 
 After the amortized encoder prediction, Adam optimizes the (B, L) latent
 coefficients per case. Each step differentiates the objective of training,
 ``sim(warped, target) + reg_factor * ||grad disp||^2``, through the PCA
 expansion and the warp: on CUDA the PCA kernel and its backward, the warp
-kernel and its coordinate gradient. The loop runs eagerly; each step's
-autograd graph is freed before the next step.
+kernel and its coordinate gradient. The projection domain scores the DRR
+of the warped attenuation against measured projections instead, and so
+also differentiates through the projector (its adjoint kernel). The loop
+runs eagerly; each step's autograd graph is freed before the next step.
 
 Typical use::
 
@@ -26,7 +28,8 @@ from .coords import identity_map
 from .losses.registration import displacement_reg
 from .losses.similarity import get_similarity
 from .models.subspace_backproj import expand_pca
-from .ops import resample
+from .ops import drr, resample
+from .ops.drr_kernel import project_taps_ad
 
 #: optax.adam's defaults besides the learning rate
 ADAM_B1, ADAM_B2, ADAM_EPS, ADAM_EPS_ROOT = 0.9, 0.999, 1e-8, 0.0
@@ -166,5 +169,87 @@ def make_refiner(img_sz, sim="ncc", sim_opts=None, n_steps=30, lr=0.05,
         taps = resample.warp_taps(moving, scale_intensity=True,
                                   taps_dtype=warp_taps_dtype)
         return steps(coefs0, pca, taps, target)
+
+    return refine
+
+
+#: similarities that score (B, 1, D, W, H) volumes only (3D box filters)
+#: and so cannot score (B, P, pw, ph) projections
+_VOLUME_ONLY_SIMS = ("lncc",)
+
+
+def make_projection_refiner(img_sz, poses, resolution,
+                            spacing=(2.2, 2.2, 2.2), sim="ncc",
+                            sim_opts=None, n_steps=30, lr=0.05,
+                            reg_factor=1e-3, proj_norm="drr",
+                            warp_taps_dtype=None, fast_vjp=False,
+                            early_stop_patience=None, early_stop_tol=1e-4):
+    """Projection-domain refinement: the objective needs no target CT, only
+    the measured projections.
+
+    Arguments as ``liftreg_tpu.refine.make_projection_refiner`` (without
+    ``mesh``; ``fast_vjp`` is accepted and changes nothing, as in
+    :func:`make_refiner`). ``poses`` (P, 3) numpy or tensor in voxel units;
+    the projector's geometry is built once here, on the poses' device, and
+    moved to the inputs' device if they lie elsewhere. ``proj_norm``:
+    ``"drr"`` (clip [0, 6] -> [-1, 1], the pipeline's convention),
+    ``"minmax"`` (min-max over the whole batch -> [-1, 1]) or ``None``
+    (raw line integrals); it must match how ``target_proj`` was made.
+
+    Returns ``refine(coefs0, pca, moving_atten, target_proj) -> dict`` with
+    the keys of :func:`make_refiner`; ``moving_atten`` (B, 1, D, W, H) is
+    the moving CT's linear attenuation (``drr.calc_relative_atten_coef``),
+    ``target_proj`` (B, P, pw, ph), and ``warped`` is the warped
+    attenuation. The attenuation's taps are built once per call, without
+    the [-1, 1] intensity shift.
+    """
+    del fast_vjp
+    if sim in _VOLUME_ONLY_SIMS:
+        raise ValueError(
+            f"similarity {sim!r} is 3D-volume-only (NCDHW box-filter "
+            f"convolutions) and cannot score (B, P, pw, ph) projections; "
+            f"use a 2D-capable similarity for projection-domain "
+            f"refinement (e.g. 'ncc', 'ngf')")
+    if proj_norm not in ("drr", "minmax", None):
+        raise ValueError(f"proj_norm {proj_norm!r} not in ('drr', 'minmax', "
+                         "None)")
+    img_sz = tuple(int(s) for s in img_sz)
+    sim_fn = get_similarity(sim)
+    if sim_opts:
+        sim_fn = functools.partial(sim_fn, **dict(sim_opts))
+    poses = torch.as_tensor(poses, dtype=torch.float32)
+    geometry = drr.forward_geometry(poses, img_sz,
+                                    tuple(int(r) for r in resolution),
+                                    tuple(float(s) for s in spacing))
+
+    def _normalize(p):
+        if proj_norm == "drr":
+            return drr.normalize_drr(p)
+        if proj_norm == "minmax":
+            lo, hi = p.amin(), p.amax()
+            return (p - lo) / (hi - lo) * 2.0 - 1.0
+        return p
+
+    def _losses(coefs, pca, taps, target_proj, geom):
+        disp = expand_pca(coefs, pca["vectors"], pca["mean"], img_sz)
+        phi = disp + identity_map(img_sz, device=disp.device)[None]
+        # attenuation is a nonnegative density: no [-1, 1] shift
+        warped = resample.warp_with_taps(taps, phi, zero_boundary=True,
+                                         scale_intensity=False)
+        proj = _normalize(project_taps_ad(warped[:, 0], *geom))
+        sim_loss = sim_fn(proj, target_proj, reduction="none")
+        total = sim_loss + reg_factor * displacement_reg(disp,
+                                                         reduction="none")
+        return total, (sim_loss, phi, warped)
+
+    steps = _build_refine(_losses, lr, n_steps,
+                          early_stop_patience=early_stop_patience,
+                          early_stop_tol=early_stop_tol)
+
+    def refine(coefs0, pca, moving_atten, target_proj):
+        taps = resample.warp_taps(moving_atten, scale_intensity=False,
+                                  taps_dtype=warp_taps_dtype)
+        geom = tuple(t.to(moving_atten.device) for t in geometry)
+        return steps(coefs0, pca, taps, target_proj, geom)
 
     return refine

@@ -16,13 +16,22 @@ entries of both warp kernels hold the same tolerances: the forward makes
 the pixel coordinates and the ``* 2 - 1`` rescale with the plain glue's
 f32 roundings. The PCA backward
 rounds an f32 sum taken in another order to bf16: one bf16 step, rtol
-2^-8, plus atol 1e-4 * max|plain| for sums that cancel to near zero."""
+2^-8, plus atol 1e-4 * max|plain| for sums that cancel to near zero. The
+projector's adjoint sums each view's tap pairs in another order than the
+plain dense products: atol 1e-5 * max|plain|, rtol 1e-5, and a second call
+gives the same bits (no float atomics). LNCC on the card with TF32 allowed
+for convolutions against the CPU (f32 box sums in another order): the
+value rtol 1e-5, atol 1e-6; the gradient rtol 1e-4, atol 1e-4 * max|CPU|
+(TF32 sums would be off by ~1e-3)."""
 import pytest
 import torch
 
 from liftreg_tpu_torch.ops import drr
+from liftreg_tpu_torch.losses.similarity import lncc_loss
 from liftreg_tpu_torch.ops.drr_kernel import (backproject_taps,
                                               backproject_taps_plain,
+                                              project_adjoint_taps,
+                                              project_adjoint_taps_plain,
                                               project_taps,
                                               project_taps_plain)
 from liftreg_tpu_torch.ops.pca_kernel import (MAX_CHUNK, pca_expand,
@@ -191,6 +200,87 @@ def test_drr_backproject_kernel_matches_plain(device, geometry, views, B,
     assert backproject_taps.launches == before + 2
     assert torch.equal(buf[:, 1:], got.bfloat16())
     assert bool((buf[:, 0] == 3.0).all())
+
+
+def _sorted_pix(g, shape, n, device, integer=False):
+    """Edge coordinates (``_edge_pix``) or integers from -2 to n + 1,
+    sorted along the detector axis, as poses make them: rising rows."""
+    if integer:
+        pix = torch.randint(-2, n + 2, shape, generator=g,
+                            device=device).float()
+    else:
+        pix = _edge_pix(g, shape, n, device)
+    return pix.sort(dim=-1).values.contiguous()
+
+
+@pytest.mark.parametrize("B,vol_shape,res", DRR_SHAPES
+                         + [(1, (160, 160, 160), (240, 240))])
+@pytest.mark.parametrize("views", [3, 4])
+@pytest.mark.parametrize("geometry", ["poses", "edges", "integer", "falling",
+                                      "unordered"])
+def test_drr_adjoint_kernel_matches_plain(device, geometry, views, B,
+                                          vol_shape, res):
+    """The adjoint kernel against its plain version: the projector's
+    shapes and B = 1 at the serving shape; coordinates from poses, sorted
+    edge values, sorted integers, edge values in falling order, and (off
+    the serving shape: the kernel then reads whole rows) in no order. Two
+    calls give the same bits."""
+    if geometry == "unordered" and vol_shape[0] == 160:
+        pytest.skip("rows in no order cost the kernel whole rows a voxel: "
+                    "run at the small shapes")
+    g = torch.Generator(device=device).manual_seed(9)
+    D, W, H = vol_shape
+    cot = torch.randn((B, views) + res, generator=g, device=device)
+    poses = torch.from_numpy(drr.synthesize_poses(30.0, views, W)).to(device)
+    x_pix, z_pix, dx = drr.forward_geometry(poses, (D, W, H), res,
+                                            (2.2, 2.0, 2.4))
+    if geometry in ("edges", "integer"):
+        x_pix = _sorted_pix(g, tuple(x_pix.shape), D, device,
+                            geometry == "integer")
+        z_pix = _sorted_pix(g, tuple(z_pix.shape), H, device,
+                            geometry == "integer")
+    elif geometry == "falling":
+        x_pix = _sorted_pix(g, tuple(x_pix.shape), D, device).flip(-1)
+        z_pix = _sorted_pix(g, tuple(z_pix.shape), H, device).flip(-1)
+    elif geometry == "unordered":
+        x_pix = _edge_pix(g, tuple(x_pix.shape), D, device)
+        z_pix = _edge_pix(g, tuple(z_pix.shape), H, device)
+    x_pix, z_pix = x_pix.contiguous(), z_pix.contiguous()
+    before = project_adjoint_taps.launches
+    got = project_adjoint_taps(cot, x_pix, z_pix, dx, vol_shape)
+    again = project_adjoint_taps(cot, x_pix, z_pix, dx, vol_shape)
+    torch.cuda.synchronize()
+    assert project_adjoint_taps.launches == before + 2
+    assert got.shape == (B, D, W, H)
+    assert torch.equal(got, again)
+    want = project_adjoint_taps_plain(cot, x_pix, z_pix, dx, vol_shape)
+    torch.testing.assert_close(got, want, rtol=1e-5,
+                               atol=1e-5 * float(want.abs().max()))
+
+
+def test_lncc_keeps_f32_box_sums_with_tf32_allowed(device):
+    """lncc_loss on the card with TF32 allowed for convolutions (PyTorch's
+    default), value and gradient against the CPU."""
+    g = torch.Generator().manual_seed(10)
+    x = torch.rand((2, 1, 40, 36, 44), generator=g) * 2.0 - 1.0
+    y = 0.6 * x + 0.4 * (torch.rand(x.shape, generator=g) * 2.0 - 1.0)
+    opts = {"smooth": 3, "scales": [1, 2]}
+    results = {}
+    flag = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        for where in ("cpu", "cuda"):
+            xt = x.detach().to(where).requires_grad_(True)
+            loss = lncc_loss(xt, y.to(where), **opts)
+            loss.backward()
+            results[where] = (loss.detach().cpu(), xt.grad.cpu())
+    finally:
+        torch.backends.cudnn.allow_tf32 = flag
+    torch.testing.assert_close(results["cuda"][0], results["cpu"][0],
+                               rtol=1e-5, atol=1e-6)
+    want = results["cpu"][1]
+    torch.testing.assert_close(results["cuda"][1], want, rtol=1e-4,
+                               atol=1e-4 * float(want.abs().max()))
 
 
 def _unaligned(t):

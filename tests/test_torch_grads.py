@@ -1,6 +1,6 @@
 """Gradients of the port against liftreg_tpu on the CPU: the warp's
 coordinate gradient, the PCA backward, NCC and the displacement
-regulariser.
+regulariser (NGF and LNCC: tests/test_torch_similarity.py).
 
 The refinement differentiates ``resample.warp_image`` with XLA's autodiff,
 so that is the reference, kinks included: coordinates on integers and on
@@ -271,14 +271,23 @@ def test_similarity_values_and_gradients(name, reduction):
 
 
 def test_similarity_registry():
+    """Every name of the JAX registry resolves to the port's function of
+    the same name; ``"gradient"``, in neither registry, raises KeyError as
+    in JAX."""
+    assert set(tsim.SIMILARITY_REGISTRY) == set(jsim.SIMILARITY_REGISTRY)
+    for name, fn in jsim.SIMILARITY_REGISTRY.items():
+        assert tsim.get_similarity(name).__name__ == fn.__name__, name
     assert tsim.get_similarity("liftreg.layers.losses.NCCLoss") \
         is tsim.ncc_loss
-    for name, item in (("lncc", "A2"), ("ngf", "A1"), ("gradient", "A2"),
-                       ("liftreg.layers.losses.NGFLoss", "A1")):
-        with pytest.raises(ValueError, match=item):
+    assert tsim.get_similarity("ngf") is tsim.ngf_loss
+    assert tsim.get_similarity("liftreg.layers.losses.NGFLoss") \
+        is tsim.ngf_loss
+    assert tsim.get_similarity("lncc") is tsim.lncc_loss
+    for name in ("gradient", "nope"):
+        with pytest.raises(KeyError):
+            jsim.get_similarity(name)
+        with pytest.raises(KeyError):
             tsim.get_similarity(name)
-    with pytest.raises(KeyError):
-        tsim.get_similarity("nope")
 
 
 @pytest.mark.parametrize("reduction", ["mean", "sum", "none"])

@@ -225,9 +225,20 @@ def test_pipeline_refinement_matches_jax():
 
 
 def test_pipeline_refinement_options():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        RegistrationPipeline(IMG, latent_dim=LATENT, refine_steps=2,
-                             refine_domain="projection", device="cpu")
+    """Projection-domain refinement builds its refiner (register and
+    register_projections through it: tests/test_torch_projection_refine.py);
+    an unknown domain raises; register_projections refuses image-domain
+    refinement, which needs a target CT."""
+    tp = RegistrationPipeline(IMG, latent_dim=LATENT, refine_steps=2,
+                              refine_domain="projection", device="cpu")
+    assert tp.refiner is not None and tp.refine_domain == "projection"
+    zeros = {"vectors": torch.zeros((LATENT, 3 * SZ ** 3)),
+             "mean": torch.zeros(3 * SZ ** 3)}
+    src = torch.full((1, 1) + IMG, -500.0)
+    target_proj = torch.zeros((1, 4) + tp.resolution)
+    warped, phi = tp.register_projections(zeros, src, target_proj)
+    assert warped.shape == src.shape and phi.shape == (1, 3) + IMG
+    assert tp.last_refine["total_history"].shape == (3,)
     with pytest.raises(ValueError):
         RegistrationPipeline(IMG, latent_dim=LATENT, refine_steps=2,
                              refine_domain="volume", device="cpu")
