@@ -14,8 +14,11 @@ line with its elapsed seconds:
    its plain PyTorch version on the card, at the shapes of the serving
    path (plus ragged shapes, both tap types, both paddings, coordinates
    far outside, on integers and on the edges of the DRR's zero padding;
-   the projector's adjoint with 3 and 4 views, B = 1, 4 and 5, sorted
-   edge and integer coordinates, and twice, which must give the same bits;
+   the projector's adjoint with 3, 4 and 9 views, B = 1, 4, 5 and 9, sorted
+   edge and integer coordinates, a detector narrower than the volume's
+   shadow and a view group in no order, twice, which must give the same
+   bits, with its plan equal to the plain plan and no tile of the serving
+   geometry on its general path;
    a batch of 9 for the PCA expansion, volumes with a spatial dim of 1 for
    the warp and its gradient, a point count that the gradient's points per
    thread do not divide, the PCA backward twice, which must give the same
@@ -64,12 +67,13 @@ line with its elapsed seconds:
 
 Then the nvidia-smi line, one JSON line of per-kernel numbers
 (``launches`` and ``projection_launches`` from refine_projection's
-register, which runs all seven kernels; ``serving_launches`` from
+register, which runs all eight kernels; ``serving_launches`` from
 main_path's register, ``image_refine_launches`` from refine's), and last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero; so does a
 missing card, and a watchdog after 15 minutes.
 """
 import json
+import math
 import os
 import subprocess
 import sys
@@ -100,6 +104,9 @@ WARP_GRAD_PHI_OPS = 3 * 2 + 1 + 3
 # and res_d*res_h along z (accumulated over planes), the lift D*ph along u
 # and D*H along v
 DRR_OPS_PER_TWO_TAPS = 4
+# one step of the adjoint plan's binary search: a subtraction, the sign's
+# multiply and a comparison
+PLAN_OPS_PER_STEP = 3
 
 SZ = 160
 B = 4
@@ -185,9 +192,8 @@ def _max_err(a, b):
 def _layer(kernel_name):
     """Layer of a device kernel, from its name."""
     name = kernel_name.lower()
-    for layer, keys in (("drr_project_adjoint", ("adjoint_gather",
-                                                 "adjoint_scale",
-                                                 "adjoint_row_order")),
+    for layer, keys in (("drr_adjoint_plan", ("adjoint_plan",)),
+                        ("drr_project_adjoint", ("adjoint_tiles",)),
                         ("pca_grad", ("pca_grad",)),
                         ("pca_expand", ("pca_expand",)),
                         ("warp_coord_grad", ("warp_coord_grad",)),
@@ -425,8 +431,8 @@ def main():
     from liftreg_tpu_torch.ops import _build, drr
     from liftreg_tpu_torch.ops.drr_kernel import (
         backproject_taps, backproject_taps_plain, project,
-        project_adjoint_taps, project_adjoint_taps_plain, project_taps,
-        project_taps_plain)
+        project_adjoint_plan, project_adjoint_plan_plain, project_adjoint_taps,
+        project_adjoint_taps_plain, project_taps, project_taps_plain)
     from liftreg_tpu_torch.ops.pca_kernel import (MAX_CHUNK, pca_expand,
                                                   pca_expand_plain, pca_grad,
                                                   pca_grad_plain)
@@ -442,6 +448,7 @@ def main():
                "warp_coord_grad": warp_coord_grad,
                "drr_project": project_taps,
                "drr_project_adjoint": project_adjoint_taps,
+               "drr_adjoint_plan": project_adjoint_plan,
                "drr_backproject": backproject_taps}
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -594,27 +601,43 @@ def main():
 
     def adjoint_err(cot, geom, vol_shape):
         """[max abs error, that error over the largest value, whether a
-        second call gives the same bits] of the adjoint kernel"""
+        second call gives the same bits, the tiles that took the kernel's
+        general path, whether the plan equals the plain plan] of the adjoint
+        kernel, with its plan built once"""
+        plan = project_adjoint_plan(geom[0], geom[1], vol_shape)
+        general = torch.zeros(1, dtype=torch.int32, device=dev)
         want = project_adjoint_taps_plain(cot, *geom, vol_shape)
-        got = project_adjoint_taps(cot, *geom, vol_shape)
-        again = project_adjoint_taps(cot, *geom, vol_shape)
+        got = project_adjoint_taps(cot, *geom, vol_shape, plan=plan,
+                                   general_tiles=general)
+        again = project_adjoint_taps(cot, *geom, vol_shape, plan=plan)
         err = _max_err(got, want)
         return [err, err / float(want.abs().max()),
-                bool(torch.equal(got, again))]
+                bool(torch.equal(got, again)), int(general.item()),
+                bool(torch.equal(plan, project_adjoint_plan_plain(
+                    geom[0], geom[1], vol_shape)))]
 
-    # the projector's adjoint: the serving shape with B = 1, 4 and 5 and with
-    # 3 views; the ragged shape with sorted edge and integer coordinates
-    # (rising rows, as poses make them) and edge coordinates falling
+    def pose_geom(views, vol_shape, det):
+        poses_v = torch.from_numpy(drr.synthesize_poses(
+            30.0, views, vol_shape[1])).to(dev)
+        return drr.forward_geometry(poses_v, vol_shape, det, (2.2, 2.2, 2.2))
+
+    # the projector's adjoint: the serving shape with B = 1, 4, 5 and 9
+    # (three batch groups) and with 3 and 9 views (three view groups of the
+    # stage); the ragged shape with sorted edge and integer coordinates
+    # (rising rows, as poses make them) and edge coordinates falling; a
+    # detector narrower than the volume's shadow; and rows in no order in
+    # the middle view group of 9 at a small shape (the general path, then
+    # the staged path adding onto its sums). The serving geometry must take
+    # no general path.
     adj = {}
-    for batch in (1, B, 5):
+    for batch in (1, B, 5, 9):
         adj[f"serving_b{batch}"] = adjoint_err(
             torch.randn((batch, 4) + res, generator=g, device=dev), fwd_geom,
             (SZ,) * 3)
-    poses3 = torch.from_numpy(drr.synthesize_poses(30.0, 3, SZ)).to(dev)
-    adj["serving_3views"] = adjoint_err(
-        torch.randn((B, 3) + res, generator=g, device=dev),
-        drr.forward_geometry(poses3, (SZ,) * 3, res, (2.2, 2.2, 2.2)),
-        (SZ,) * 3)
+    for views in (3, 9):
+        adj[f"serving_{views}views"] = adjoint_err(
+            torch.randn((B, views) + res, generator=g, device=dev),
+            pose_geom(views, (SZ,) * 3, res), (SZ,) * 3)
 
     def sorted_pix(shape, n, values):
         if values == "integer":
@@ -630,8 +653,20 @@ def main():
             torch.randn((5, 3, rd, rh), generator=g, device=dev),
             (sorted_pix((3, W2, rd), D2, values),
              sorted_pix((3, W2, rh), H2, values), geom2[2]), (D2, W2, H2))
+    adj["narrow_detector"] = adjoint_err(
+        torch.randn((B, 4, 30, 40), generator=g, device=dev),
+        pose_geom(4, (48, 20, 64), (30, 40)), (48, 20, 64))
+    geom9 = pose_geom(9, (20, 17, 22), (30, 27))
+    geom9[0][4:8] = _edge_pix(torch, g, (4, 17, 30), 20, dev)
+    geom9[1][4:8] = _edge_pix(torch, g, (4, 17, 27), 22, dev)
+    adj["views9_middle_unordered"] = adjoint_err(
+        torch.randn((5, 9, 30, 27), generator=g, device=dev), geom9,
+        (20, 17, 22))
     drr_errs["adjoint"] = adj
     errs["drr_project_adjoint"] = max(e[0] for e in adj.values())
+    # the plan's entries are integers: 0 where it equals the plain plan
+    errs["drr_adjoint_plan"] = 0.0 if all(e[4] for e in adj.values()) \
+        else float("inf")
     errs["drr_project"] = max(drr_errs["project_serving"],
                               drr_errs["project_ragged"])
     errs["drr_backproject"] = max(drr_errs["lift_serving"],
@@ -649,6 +684,13 @@ def main():
              "rounded once")
     _require(all(e[1] <= ADJ_REL_TOL and e[2] for e in adj.values()),
              f"the adjoint kernel disagrees or changes its bits: {adj}")
+    _require(all(e[4] for e in adj.values()),
+             f"the adjoint's plan differs from the plain plan: {adj}")
+    _require(all(e[3] == 0 for k, e in adj.items()
+                 if k.startswith("serving")),
+             f"the serving geometry took the adjoint's general path: {adj}")
+    _require(adj["views9_middle_unordered"][3] > 0,
+             "rows in no order did not take the adjoint's general path")
 
     _begin("grad_check")
     cot = torch.randn((B, 1, SZ ** 3), generator=g, device=dev)
@@ -744,7 +786,8 @@ def main():
     # counts them as one launch, as the PCA backward does
     serving = {"pca_expand": 1, "pca_grad": 0, "warp_trilinear": 1,
                "warp_coord_grad": 0, "drr_project": 1,
-               "drr_project_adjoint": 0, "drr_backproject": 1}
+               "drr_project_adjoint": 0, "drr_adjoint_plan": 0,
+               "drr_backproject": 1}
     _require(launches == serving,
              f"main path launch counts {launches}, expected {serving}")
 
@@ -780,6 +823,7 @@ def main():
     refine_launches = _counts(KERNELS)
     refine_peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     expected = {"drr_project": 1, "drr_project_adjoint": 0,
+                "drr_adjoint_plan": 0,
                 "drr_backproject": 1, "pca_expand": REFINE_STEPS + 3,
                 "pca_grad": REFINE_STEPS + 1,
                 "warp_trilinear": REFINE_STEPS + 3,
@@ -839,9 +883,11 @@ def main():
     proj_peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     res_p = pipe_p.last_refine
     # the target DRR, N+1 steps and the final evaluation; the encoder's
-    # warp, N+2 in the refiner and the rewarp of the masked CT
+    # warp, N+2 in the refiner and the rewarp of the masked CT; one plan of
+    # the adjoint for all the steps
     expected_p = {"drr_project": REFINE_STEPS + 3,
                   "drr_project_adjoint": REFINE_STEPS + 1,
+                  "drr_adjoint_plan": 1,
                   "drr_backproject": 1, "pca_expand": REFINE_STEPS + 3,
                   "pca_grad": REFINE_STEPS + 1,
                   "warp_trilinear": REFINE_STEPS + 4,
@@ -1077,15 +1123,25 @@ def main():
     # the adjoint of the projector on the cotangent of its output; its
     # library call is the f32 torch.matmul chain of the transposed products
     # on the dense matrices, built outside the timed calls
+    # with the plan built once, as the projection refiner passes it
     cot_proj = torch.randn((B, 4) + res, generator=g, device=dev)
+    adj_plan = project_adjoint_plan(fwd_geom[0], fwd_geom[1], (SZ,) * 3)
     ms["drr_project_adjoint"] = _cuda_ms(
-        lambda: project_adjoint_taps(cot_proj, *fwd_geom, (SZ,) * 3), 20)
+        lambda: project_adjoint_taps(cot_proj, *fwd_geom, (SZ,) * 3,
+                                     plan=adj_plan), 20)
     plain_ms["drr_project_adjoint"] = _cuda_ms(
         lambda: project_adjoint_taps_plain(cot_proj, *fwd_geom, (SZ,) * 3),
         5)
     lib_ms["drr_project_adjoint"] = _cuda_ms(
         lambda: drr.project_adjoint_with_mats(cot_proj, Rx, Rz, dx), 5)
     del Rx, Rz
+    # the plan: no single PyTorch call computes it
+    ms["drr_adjoint_plan"] = _cuda_ms(
+        lambda: project_adjoint_plan(fwd_geom[0], fwd_geom[1], (SZ,) * 3), 20)
+    plain_ms["drr_adjoint_plan"] = _cuda_ms(
+        lambda: project_adjoint_plan_plain(fwd_geom[0], fwd_geom[1],
+                                           (SZ,) * 3), 5)
+    lib_ms["drr_adjoint_plan"] = None
     ms["drr_backproject"] = _cuda_ms(
         lambda: backproject_taps(proj_in, *bwd_geom), 20)
     # the serving path's variant: bf16 into the encoder's input buffer
@@ -1110,6 +1166,8 @@ def main():
         + B * 4 * res[0] * res[1] * 4,
         "drr_project_adjoint": cot_proj.numel() * 4
         + sum(t.numel() * 4 for t in fwd_geom) + B * SZ ** 3 * 4,
+        "drr_adjoint_plan": (fwd_geom[0].numel() + fwd_geom[1].numel()) * 4
+        + adj_plan.numel() * 4,
         "drr_backproject": proj_in.numel() * 4
         + sum(t.numel() * 4 for t in bwd_geom) + B * 4 * SZ ** 3 * 4,
     }
@@ -1128,6 +1186,13 @@ def main():
                                 * (res[1] + SZ), PEAK_F32_FLOPS),
         "drr_backproject": (DRR_OPS_PER_TWO_TAPS * B * 4 * SZ * SZ
                             * (res[1] + SZ), PEAK_F32_FLOPS),
+        # each geometry row's order (two comparisons a pixel), and per
+        # voxel index two binary searches over its row
+        "drr_adjoint_plan": (
+            2 * (fwd_geom[0].numel() + fwd_geom[1].numel())
+            + PLAN_OPS_PER_STEP * 2 * 4 * SZ
+            * (SZ * math.ceil(math.log2(res[0] + 1))
+               + SZ * math.ceil(math.log2(res[1] + 1))), PEAK_F32_FLOPS),
     }
     # the bound of each layout and tap type: the f32 taps move 33 MB more
     layout_times = {
@@ -1141,7 +1206,7 @@ def main():
     lift_bf16 = {"ms": lift_bf16_ms,
                  "bound_ms": lift_bf16_bytes / HBM_BYTES_PER_S * 1e3,
                  "bound_by": "bytes"}
-    del cot_bf16, att, proj_in, lift_buf, cot_proj
+    del cot_bf16, att, proj_in, lift_buf, cot_proj, adj_plan
     torch.cuda.empty_cache()
 
     def steady(p, pca_, args_, iters):
@@ -1234,6 +1299,9 @@ def main():
         "drr_project": "liftreg_tpu/ops/pallas_drr.py:27",
         # no TPU kernel: XLA's autodiff of project_with_mats (:184-218)
         "drr_project_adjoint": "liftreg_tpu/ops/drr.py:184",
+        # its plan indexes the nonzeros of the dense matrices that
+        # _two_tap_matrix builds for that autodiff
+        "drr_adjoint_plan": "liftreg_tpu/ops/drr.py:105",
         "drr_backproject": "liftreg_tpu/ops/pallas_drr.py:59",
     }
     sources = {
@@ -1243,6 +1311,7 @@ def main():
         "warp_coord_grad": "liftreg_tpu_torch/csrc/warp_trilinear.cu",
         "drr_project": "liftreg_tpu_torch/csrc/drr_project.cu",
         "drr_project_adjoint": "liftreg_tpu_torch/csrc/drr_project_adjoint.cu",
+        "drr_adjoint_plan": "liftreg_tpu_torch/csrc/drr_project_adjoint.cu",
         "drr_backproject": "liftreg_tpu_torch/csrc/drr_backproject.cu",
     }
     kernels = []

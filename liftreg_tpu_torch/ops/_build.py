@@ -133,6 +133,8 @@ SIGNATURES = {
     "liftreg_drr_project_adjoint": [_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR,
                                     _I64, _I64, _I64, _I64, _I64, _I64, _I64,
                                     _PTR],
+    "liftreg_drr_adjoint_plan": [_PTR, _PTR, _PTR, _I64, _I64, _I64, _I64,
+                                 _I64, _I64, _PTR],
     "liftreg_drr_backproject": [_PTR, _PTR, _PTR, _PTR, _I32, _I64, _I64,
                                 _I64, _I64, _I64, _I64, _I64, _I64, _PTR],
 }

@@ -18,10 +18,12 @@ coordinates.
 plain versions for CPU tensors; they never fall back from one to the other.
 ``.launches`` on each counts kernel launches, one per call; a projector call
 whose plane loop is split runs as two passes on the card (the chunks'
-partial sums, then their ordered sum), and an adjoint call as three (the
-scaled cotangent, the order of the geometry's rows, the gather), each
-counted as one launch. :func:`project_taps_ad` is the projector under
-autograd: its backward is the adjoint.
+partial sums, then their ordered sum), counted as one launch. The adjoint
+reads a plan of its geometry (:func:`project_adjoint_plan`: per geometry
+row and voxel index, the run of pixels whose tap reaches it), which a
+caller with static poses builds once and passes in; without one,
+:func:`project_adjoint_taps` builds it first. :func:`project_taps_ad` is
+the projector under autograd: its backward is the adjoint.
 :func:`backproject_taps` can write into a given ``out``, f32 or bf16, such
 as the channels 1..P of the encoder's input buffer.
 :func:`project` (differentiable with respect to the volume) and
@@ -52,6 +54,34 @@ def project_adjoint_taps_plain(g, x_pix, z_pix, dx, vol_shape,
     return drr.project_adjoint_with_mats(
         g, drr._two_tap_matrix(x_pix, D), drr._two_tap_matrix(z_pix, H), dx,
         plane_chunk=plane_chunk)
+
+
+#: entries of :func:`project_adjoint_plan`: no tap reaches the voxel index,
+#: and the geometry row is in no order
+PLAN_EMPTY, PLAN_UNORDERED = -1, -2
+
+
+def project_adjoint_plan_plain(x_pix, z_pix, vol_shape):
+    """The plan of the projector's adjoint for a geometry, from the nonzeros
+    of the dense interpolation matrices: (P, W, D + H, 2) int32, for each
+    row (p, k) of ``x_pix`` (entries ``[:D]``) and of ``z_pix`` (``[D:]``)
+    and each voxel index m, ``(start, count)`` of the pixels whose weight
+    ``max(0, 1 - |pix - m|)`` is nonzero, which is one run in a row that
+    rises or falls; ``(PLAN_EMPTY, 0)`` where there is none, and
+    ``(PLAN_UNORDERED, 0)`` for every m of a row in no order."""
+    D, _, H = (int(n) for n in vol_shape)
+
+    def runs(pix, n):
+        nonzero = drr._two_tap_matrix(pix, n) > 0          # (P, W, R, n)
+        count = nonzero.sum(dim=-2, dtype=torch.int32)
+        start = nonzero.to(torch.int32).argmax(dim=-2).to(torch.int32)
+        start = torch.where(count > 0, start, PLAN_EMPTY)
+        step = pix[..., 1:] - pix[..., :-1]
+        ordered = ((step >= 0).all(-1) | (step <= 0).all(-1))[..., None]
+        return torch.stack([torch.where(ordered, start, PLAN_UNORDERED),
+                            torch.where(ordered, count, 0)], dim=-1)
+
+    return torch.cat([runs(x_pix, D), runs(z_pix, H)], dim=2).to(torch.int32)
 
 
 def backproject_taps_plain(proj, u_pix, v_pix, plane_chunk=16):
@@ -140,12 +170,56 @@ def project_taps(vol, x_pix, z_pix, dx, plane_chunk=32):
 project_taps.launches = 0
 
 
-def project_adjoint_taps(g, x_pix, z_pix, dx, vol_shape, plane_chunk=32):
+def project_adjoint_plan(x_pix, z_pix, vol_shape):
+    """The plan of the projector's adjoint (:func:`project_adjoint_plan_plain`
+    gives its definition) for the geometry of :func:`project_taps` and a
+    volume of ``vol_shape`` (D, W, H): the plan kernel on CUDA tensors, the
+    plain version on CPU tensors. It depends on the geometry alone: a
+    caller with static poses builds it once and passes it to every
+    :func:`project_adjoint_taps`."""
+    tensors = {"x_pix": x_pix, "z_pix": z_pix}
+    device = _build.inputs_device("project_adjoint_plan", tensors,
+                                  dict.fromkeys(tensors, _F32))
+    D, W, H = (int(n) for n in vol_shape)
+    if x_pix.dim() != 3 or z_pix.dim() != 3 or x_pix.shape[1] != W \
+            or z_pix.shape[:2] != x_pix.shape[:2]:
+        raise ValueError(f"project_adjoint_plan: want x_pix (P, W, res_d), "
+                         f"z_pix (P, W, res_h) for a volume {(D, W, H)}; got "
+                         f"{tuple(x_pix.shape)}, {tuple(z_pix.shape)}")
+    if device.type == "cpu":
+        return project_adjoint_plan_plain(x_pix, z_pix, (D, W, H))
+    P, _, res_d = x_pix.shape
+    res_h = z_pix.shape[2]
+    plan = torch.empty((P, W, D + H, 2), dtype=torch.int32, device=device)
+    _check_int32("project_adjoint_plan", x_pix.numel(), z_pix.numel(),
+                 plan.numel())
+    lib = _build.library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.liftreg_drr_adjoint_plan(x_pix.data_ptr(), z_pix.data_ptr(),
+                                          plan.data_ptr(), P, W, D, H, res_d,
+                                          res_h, stream)
+    _build.check(rc, "project_adjoint_plan")
+    project_adjoint_plan.launches += 1
+    return plan
+
+
+project_adjoint_plan.launches = 0
+
+
+def project_adjoint_taps(g, x_pix, z_pix, dx, vol_shape, plane_chunk=32,
+                         plan=None, general_tiles=None):
     """The projector's adjoint: the adjoint kernel on CUDA tensors, the
     plain version on CPU tensors (``plane_chunk`` only shapes the plain
     version's products). g (B, P, res_d, res_h) and the geometry of
     :func:`project_taps` for a volume of ``vol_shape`` (D, W, H) -> dvol
-    (B, D, W, H) f32."""
+    (B, D, W, H) f32.
+
+    On the card, ``plan`` is :func:`project_adjoint_plan` of this geometry
+    (built here when None), and ``general_tiles``, if given, a one-element
+    int32 tensor on the card to which the kernel adds the number of tiles
+    (blocks and view groups) that took its general path; the CPU ignores
+    both."""
     tensors = {"g": g, "x_pix": x_pix, "z_pix": z_pix, "dx": dx}
     device = _build.inputs_device("project_adjoint_taps", tensors,
                                   dict.fromkeys(tensors, _F32))
@@ -165,19 +239,29 @@ def project_adjoint_taps(g, x_pix, z_pix, dx, vol_shape, plane_chunk=32):
     if device.type == "cpu":
         return project_adjoint_taps_plain(g, x_pix, z_pix, dx, (D, W, H),
                                           plane_chunk)
+    if plan is None:
+        plan = project_adjoint_plan(x_pix, z_pix, (D, W, H))
+    if tuple(plan.shape) != (P, W, D + H, 2) or plan.dtype != torch.int32 \
+            or plan.device != device or not plan.is_contiguous():
+        raise ValueError(f"project_adjoint_taps: plan must be a contiguous "
+                         f"int32 {(P, W, D + H, 2)} tensor on {device}, from "
+                         "project_adjoint_plan")
+    if general_tiles is not None and (
+            general_tiles.dtype != torch.int32 or general_tiles.numel() < 1
+            or general_tiles.device != device):
+        raise ValueError("project_adjoint_taps: general_tiles must be an "
+                         f"int32 tensor on {device}")
     out = torch.empty((B, D, W, H), dtype=torch.float32, device=device)
     _check_int32("project_adjoint_taps", g.numel(), x_pix.numel(),
-                 z_pix.numel(), out.numel())
-    # the scaled cotangent (g * 0.1) * dx, and the order of each geometry row
-    scaled = torch.empty_like(g)
-    order = torch.empty((2 * P * W,), dtype=torch.int32, device=device)
+                 z_pix.numel(), plan.numel(), out.numel())
     lib = _build.library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.liftreg_drr_project_adjoint(
             g.data_ptr(), x_pix.data_ptr(), z_pix.data_ptr(), dx.data_ptr(),
-            out.data_ptr(), scaled.data_ptr(), order.data_ptr(), B, P, D, W,
-            H, res_d, res_h, stream)
+            plan.data_ptr(), out.data_ptr(),
+            None if general_tiles is None else general_tiles.data_ptr(), B,
+            P, D, W, H, res_d, res_h, stream)
     _build.check(rc, "project_adjoint_taps")
     project_adjoint_taps.launches += 1
     return out
@@ -188,27 +272,30 @@ project_adjoint_taps.launches = 0
 
 class _ProjectTaps(torch.autograd.Function):
     """:func:`project_taps` whose backward with respect to the volume is
-    :func:`project_adjoint_taps` (the kernel on the card, the plain adjoint
-    on the CPU)."""
+    :func:`project_adjoint_taps` (the kernel on the card, with the plan
+    given to the forward, the plain adjoint on the CPU)."""
 
     @staticmethod
-    def forward(ctx, vol, x_pix, z_pix, dx, plane_chunk):
+    def forward(ctx, vol, x_pix, z_pix, dx, plane_chunk, plan):
         ctx.save_for_backward(x_pix, z_pix, dx)
         ctx.vol_shape = tuple(vol.shape[1:])
         ctx.plane_chunk = plane_chunk
+        ctx.plan = plan
         return project_taps(vol, x_pix, z_pix, dx, plane_chunk)
 
     @staticmethod
     def backward(ctx, g):
         x_pix, z_pix, dx = ctx.saved_tensors
         dvol = project_adjoint_taps(g.contiguous(), x_pix, z_pix, dx,
-                                    ctx.vol_shape, ctx.plane_chunk)
-        return dvol, None, None, None, None
+                                    ctx.vol_shape, ctx.plane_chunk,
+                                    plan=ctx.plan)
+        return dvol, None, None, None, None, None
 
 
-def project_taps_ad(vol, x_pix, z_pix, dx, plane_chunk=32):
+def project_taps_ad(vol, x_pix, z_pix, dx, plane_chunk=32, plan=None):
     """:func:`project_taps`, differentiable with respect to ``vol``; the
-    geometry takes no gradient."""
+    geometry takes no gradient. ``plan``: :func:`project_adjoint_plan` of
+    the geometry, for the backward (built there when None)."""
     if not torch.is_grad_enabled():
         return project_taps(vol, x_pix, z_pix, dx, plane_chunk)
     if any(t.requires_grad for t in (x_pix, z_pix, dx)):
@@ -216,7 +303,7 @@ def project_taps_ad(vol, x_pix, z_pix, dx, plane_chunk=32):
                                   "respect to the projector's geometry")
     if not vol.requires_grad:
         return project_taps(vol, x_pix, z_pix, dx, plane_chunk)
-    return _ProjectTaps.apply(vol, x_pix, z_pix, dx, plane_chunk)
+    return _ProjectTaps.apply(vol, x_pix, z_pix, dx, plane_chunk, plan)
 
 
 def backproject_taps(proj, u_pix, v_pix, plane_chunk=16, out=None):

@@ -29,7 +29,7 @@ from .losses.registration import displacement_reg
 from .losses.similarity import get_similarity
 from .models.subspace_backproj import expand_pca
 from .ops import drr, resample
-from .ops.drr_kernel import project_taps_ad
+from .ops.drr_kernel import project_adjoint_plan, project_taps_ad
 
 #: optax.adam's defaults besides the learning rate
 ADAM_B1, ADAM_B2, ADAM_EPS, ADAM_EPS_ROOT = 0.9, 0.999, 1e-8, 0.0
@@ -191,7 +191,10 @@ def make_projection_refiner(img_sz, poses, resolution,
     ``mesh``; ``fast_vjp`` is accepted and changes nothing, as in
     :func:`make_refiner`). ``poses`` (P, 3) numpy or tensor in voxel units;
     the projector's geometry is built once here, on the poses' device, and
-    moved to the inputs' device if they lie elsewhere. ``proj_norm``:
+    moved to the inputs' device if they lie elsewhere; the plan of its
+    adjoint (:func:`.ops.drr_kernel.project_adjoint_plan`) is built once a
+    call on the card, for all the steps (the plain adjoint on the CPU needs
+    none). ``proj_norm``:
     ``"drr"`` (clip [0, 6] -> [-1, 1], the pipeline's convention),
     ``"minmax"`` (min-max over the whole batch -> [-1, 1]) or ``None``
     (raw line integrals); it must match how ``target_proj`` was made.
@@ -230,13 +233,13 @@ def make_projection_refiner(img_sz, poses, resolution,
             return (p - lo) / (hi - lo) * 2.0 - 1.0
         return p
 
-    def _losses(coefs, pca, taps, target_proj, geom):
+    def _losses(coefs, pca, taps, target_proj, geom, plan):
         disp = expand_pca(coefs, pca["vectors"], pca["mean"], img_sz)
         phi = disp + identity_map(img_sz, device=disp.device)[None]
         # attenuation is a nonnegative density: no [-1, 1] shift
         warped = resample.warp_with_taps(taps, phi, zero_boundary=True,
                                          scale_intensity=False)
-        proj = _normalize(project_taps_ad(warped[:, 0], *geom))
+        proj = _normalize(project_taps_ad(warped[:, 0], *geom, plan=plan))
         sim_loss = sim_fn(proj, target_proj, reduction="none")
         total = sim_loss + reg_factor * displacement_reg(disp,
                                                          reduction="none")
@@ -250,6 +253,8 @@ def make_projection_refiner(img_sz, poses, resolution,
         taps = resample.warp_taps(moving_atten, scale_intensity=False,
                                   taps_dtype=warp_taps_dtype)
         geom = tuple(t.to(moving_atten.device) for t in geometry)
-        return steps(coefs0, pca, taps, target_proj, geom)
+        plan = (project_adjoint_plan(geom[0], geom[1], img_sz)
+                if geom[0].is_cuda else None)
+        return steps(coefs0, pca, taps, target_proj, geom, plan)
 
     return refine

@@ -19,10 +19,11 @@ rounds an f32 sum taken in another order to bf16: one bf16 step, rtol
 2^-8, plus atol 1e-4 * max|plain| for sums that cancel to near zero. The
 projector's adjoint sums each view's tap pairs in another order than the
 plain dense products: atol 1e-5 * max|plain|, rtol 1e-5, and a second call
-gives the same bits (no float atomics). LNCC on the card with TF32 allowed
-for convolutions against the CPU (f32 box sums in another order): the
-value rtol 1e-5, atol 1e-6; the gradient rtol 1e-4, atol 1e-4 * max|CPU|
-(TF32 sums would be off by ~1e-3)."""
+gives the same bits (no float atomics); its plan equals the plain plan,
+and the serving geometry takes none of its general path. LNCC on the card
+with TF32 allowed for convolutions against the CPU (f32 box sums in another
+order): the value rtol 1e-5, atol 1e-6; the gradient rtol 1e-4, atol 1e-4 *
+max|CPU| (TF32 sums would be off by ~1e-3)."""
 import pytest
 import torch
 
@@ -30,6 +31,8 @@ from liftreg_tpu_torch.ops import drr
 from liftreg_tpu_torch.losses.similarity import lncc_loss
 from liftreg_tpu_torch.ops.drr_kernel import (backproject_taps,
                                               backproject_taps_plain,
+                                              project_adjoint_plan,
+                                              project_adjoint_plan_plain,
                                               project_adjoint_taps,
                                               project_adjoint_taps_plain,
                                               project_taps,
@@ -223,8 +226,10 @@ def test_drr_adjoint_kernel_matches_plain(device, geometry, views, B,
     """The adjoint kernel against its plain version: the projector's
     shapes and B = 1 at the serving shape; coordinates from poses, sorted
     edge values, sorted integers, edge values in falling order, and (off
-    the serving shape: the kernel then reads whole rows) in no order. Two
-    calls give the same bits."""
+    the serving shape: the kernel's general path then reads whole rows) in
+    no order. Two calls, with the plan given and without, give the same
+    bits; the plan equals the plain plan; rows in no order take the
+    general path, the serving poses never."""
     if geometry == "unordered" and vol_shape[0] == 160:
         pytest.skip("rows in no order cost the kernel whole rows a voxel: "
                     "run at the small shapes")
@@ -246,16 +251,95 @@ def test_drr_adjoint_kernel_matches_plain(device, geometry, views, B,
         x_pix = _edge_pix(g, tuple(x_pix.shape), D, device)
         z_pix = _edge_pix(g, tuple(z_pix.shape), H, device)
     x_pix, z_pix = x_pix.contiguous(), z_pix.contiguous()
+    plan = project_adjoint_plan(x_pix, z_pix, vol_shape)
+    general = torch.zeros(1, dtype=torch.int32, device=device)
     before = project_adjoint_taps.launches
-    got = project_adjoint_taps(cot, x_pix, z_pix, dx, vol_shape)
+    got = project_adjoint_taps(cot, x_pix, z_pix, dx, vol_shape, plan=plan,
+                               general_tiles=general)
     again = project_adjoint_taps(cot, x_pix, z_pix, dx, vol_shape)
     torch.cuda.synchronize()
     assert project_adjoint_taps.launches == before + 2
     assert got.shape == (B, D, W, H)
     assert torch.equal(got, again)
+    assert torch.equal(plan, project_adjoint_plan_plain(x_pix, z_pix,
+                                                        vol_shape))
+    if geometry == "unordered":
+        assert int(general.item()) > 0
+    if geometry == "poses" and vol_shape[0] == 160:
+        assert int(general.item()) == 0
     want = project_adjoint_taps_plain(cot, x_pix, z_pix, dx, vol_shape)
     torch.testing.assert_close(got, want, rtol=1e-5,
                                atol=1e-5 * float(want.abs().max()))
+
+
+# (name, B, (D, W, H), detector, views, rows in no order in views [a, b)):
+# more views than the kernel stages at once (9: three groups), at a small
+# shape and at the serving shape; three batch groups (B = 9); a shape whose
+# D, W and H are multiples of neither the tile nor the plane chunk; a
+# detector narrower than the volume's shadow (runs end at its edges); and a
+# middle view group in no order between two ordered ones (general path,
+# then the fast path adding onto its sums)
+ADJOINT_CASES = [
+    ("views9", 2, (20, 17, 22), (30, 27), 9, None),
+    ("views9_serving", 4, (160, 160, 160), (240, 240), 9, None),
+    ("batch9", 9, (24, 33, 20), (37, 29), 4, None),
+    ("ragged", 3, (37, 29, 41), (53, 47), 4, None),
+    ("narrow_detector", 4, (48, 20, 64), (30, 40), 4, None),
+    ("views9_middle_unordered", 5, (20, 17, 22), (30, 27), 9, (4, 8)),
+]
+
+
+@pytest.mark.parametrize("name,B,vol_shape,res,views,unordered",
+                         ADJOINT_CASES, ids=[c[0] for c in ADJOINT_CASES])
+def test_drr_adjoint_kernel_view_groups_batches_and_edges(
+        device, name, B, vol_shape, res, views, unordered):
+    """The adjoint kernel against its plain version (atol 1e-5 *
+    max|plain|, rtol 1e-5) where its staging and its tiles meet their
+    limits; two calls give the same bits. Geometry from poses, which take
+    no general path at the serving shape."""
+    g = torch.Generator(device=device).manual_seed(11)
+    D, W, H = vol_shape
+    cot = torch.randn((B, views) + res, generator=g, device=device)
+    poses = torch.from_numpy(drr.synthesize_poses(30.0, views, W)).to(device)
+    x_pix, z_pix, dx = drr.forward_geometry(poses, vol_shape, res,
+                                            (2.2, 2.2, 2.2))
+    if unordered is not None:
+        a, b = unordered
+        x_pix[a:b] = _edge_pix(g, tuple(x_pix[a:b].shape), D, device)
+        z_pix[a:b] = _edge_pix(g, tuple(z_pix[a:b].shape), H, device)
+    plan = project_adjoint_plan(x_pix, z_pix, vol_shape)
+    general = torch.zeros(1, dtype=torch.int32, device=device)
+    got = project_adjoint_taps(cot, x_pix, z_pix, dx, vol_shape, plan=plan,
+                               general_tiles=general)
+    again = project_adjoint_taps(cot, x_pix, z_pix, dx, vol_shape, plan=plan)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert torch.equal(plan, project_adjoint_plan_plain(x_pix, z_pix,
+                                                        vol_shape))
+    if unordered is not None:
+        assert int(general.item()) > 0
+    if D == 160:
+        assert int(general.item()) == 0
+    want = project_adjoint_taps_plain(cot, x_pix, z_pix, dx, vol_shape)
+    assert float(want.abs().max()) > 0
+    torch.testing.assert_close(got, want, rtol=1e-5,
+                               atol=1e-5 * float(want.abs().max()))
+
+
+def test_drr_adjoint_wrapper_rejects_a_wrong_plan(device):
+    x_pix = torch.zeros((2, 5, 7), device=device)
+    z_pix = torch.zeros((2, 5, 6), device=device)
+    dx = torch.ones((2, 7, 6), device=device)
+    g = torch.zeros((1, 2, 7, 6), device=device)
+    plan = project_adjoint_plan(x_pix, z_pix, (4, 5, 3))
+    with pytest.raises(ValueError):
+        project_adjoint_taps(g, x_pix, z_pix, dx, (4, 5, 4), plan=plan)
+    with pytest.raises(ValueError):
+        project_adjoint_taps(g, x_pix, z_pix, dx, (4, 5, 3),
+                             plan=plan.long())
+    with pytest.raises(ValueError):
+        project_adjoint_taps(g, x_pix, z_pix, dx, (4, 5, 3), plan=plan,
+                             general_tiles=torch.zeros(1, device=device))
 
 
 def test_lncc_keeps_f32_box_sums_with_tf32_allowed(device):

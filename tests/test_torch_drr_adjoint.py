@@ -10,6 +10,10 @@ falling order and in no order (the kernel's run search handles rising,
 falling and unordered rows alike; ``tests/test_torch_cuda.py`` holds it to
 this plain version).
 
+The adjoint's plan (``project_adjoint_plan`` on CPU tensors: per geometry
+row and voxel index, the run of pixels whose tap reaches it) equals a
+brute-force search of the nonzeros of JAX's ``_two_tap_matrix``, exactly.
+
 Tolerances: atol/rtol 1e-5 (tests/test_torch_drr_kernels.py's): the two
 packages build the coordinates from poses with f32 operations in another
 order and sum the f32 products in another order. Gradients through
@@ -23,7 +27,9 @@ import torch
 
 from liftreg_tpu.ops import drr as jdrr
 from liftreg_tpu_torch.ops import drr
-from liftreg_tpu_torch.ops.drr_kernel import (project, project_adjoint_taps,
+from liftreg_tpu_torch.ops.drr_kernel import (PLAN_EMPTY, PLAN_UNORDERED,
+                                              project, project_adjoint_plan,
+                                              project_adjoint_taps,
                                               project_adjoint_taps_plain,
                                               project_taps, project_taps_ad)
 
@@ -162,3 +168,88 @@ def test_adjoint_checks_its_inputs():
     geom = (x_pix.requires_grad_(True), z_pix, dx)
     with pytest.raises(NotImplementedError):
         project_taps_ad(torch.zeros((1, 4, W, 3), requires_grad=True), *geom)
+
+
+def _brute_force_plan(pix, n):
+    """(start, count) per row and voxel index from the nonzeros of JAX's
+    dense matrix; every entry of a row in no order is PLAN_UNORDERED."""
+    nonzero = np.asarray(jdrr._two_tap_matrix(jnp.asarray(pix), n)) > 0
+    want = np.zeros(pix.shape[:2] + (n, 2), np.int32)
+    for p_ in range(pix.shape[0]):
+        for k in range(pix.shape[1]):
+            step = np.diff(pix[p_, k])
+            if not ((step >= 0).all() or (step <= 0).all()):
+                want[p_, k] = (PLAN_UNORDERED, 0)
+                continue
+            for m in range(n):
+                (hits,) = np.nonzero(nonzero[p_, k, :, m])
+                if len(hits) == 0:
+                    want[p_, k, m] = (PLAN_EMPTY, 0)
+                    continue
+                # a row in order reaches each voxel from one run of pixels
+                assert (np.diff(hits) == 1).all()
+                want[p_, k, m] = (hits[0], len(hits))
+    return want
+
+
+@pytest.mark.parametrize("B,vol_shape,res", SHAPES)
+@pytest.mark.parametrize("views", [3, 4])
+@pytest.mark.parametrize("geometry", ["poses", "edges", "integer", "falling",
+                                      "unordered"])
+def test_adjoint_plan_matches_brute_force(B, vol_shape, res, views,
+                                          geometry):
+    rng = np.random.default_rng(sum(vol_shape) + 2 * views)
+    D, W, H = vol_shape
+    if geometry == "poses":
+        poses = torch.from_numpy(drr.synthesize_poses(30.0, views, W))
+        x_pix, z_pix, _ = (t.numpy() for t in drr.forward_geometry(
+            poses, vol_shape, res, SPACING))
+    else:
+        x_pix = _pix(rng, (views, W, res[0]), D, geometry)
+        z_pix = _pix(rng, (views, W, res[1]), H, geometry)
+    got = project_adjoint_plan(torch.from_numpy(x_pix),
+                               torch.from_numpy(z_pix), vol_shape)
+    assert got.shape == (views, W, D + H, 2) and got.dtype == torch.int32
+    np.testing.assert_array_equal(got[:, :, :D].numpy(),
+                                  _brute_force_plan(x_pix, D))
+    np.testing.assert_array_equal(got[:, :, D:].numpy(),
+                                  _brute_force_plan(z_pix, H))
+
+
+@pytest.mark.parametrize("geometry", ["poses", "falling"])
+def test_project_taps_ad_with_a_plan_matches_jax_vjp(geometry):
+    """The projector under autograd with the plan built once, as the
+    projection refiner passes it: its backward against ``jax.vjp``."""
+    rng = np.random.default_rng(3)
+    B, vol_shape, res, P = 2, (14, 11, 12), (20, 17), 3
+    D, W, H = vol_shape
+    vol = rng.uniform(0, 0.4, (B,) + vol_shape).astype(np.float32)
+    g = rng.normal(size=(B, P) + res).astype(np.float32)
+    if geometry == "poses":
+        geom = drr.forward_geometry(
+            torch.from_numpy(jdrr.synthesize_poses(30.0, P, W)), vol_shape,
+            res, SPACING)
+    else:
+        geom = tuple(torch.from_numpy(a) for a in (
+            _pix(rng, (P, W, res[0]), D, "falling"),
+            _pix(rng, (P, W, res[1]), H, "falling"),
+            rng.uniform(1, 3, (P,) + res).astype(np.float32)))
+    Rx, Rz = (jdrr._two_tap_matrix(jnp.asarray(t.numpy()), n)
+              for t, n in ((geom[0], D), (geom[1], H)))
+    _, vjp = jax.vjp(lambda v: jdrr.project_with_mats(
+        v, Rx, Rz, jnp.asarray(geom[2].numpy())), jnp.asarray(vol))
+    want = np.asarray(vjp(jnp.asarray(g))[0])
+    plan = project_adjoint_plan(geom[0], geom[1], vol_shape)
+    vt = torch.from_numpy(vol).requires_grad_(True)
+    (got,) = torch.autograd.grad(project_taps_ad(vt, *geom, plan=plan), vt,
+                                 torch.from_numpy(g))
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+def test_adjoint_plan_checks_its_inputs():
+    with pytest.raises(ValueError):
+        project_adjoint_plan(torch.zeros((2, 5, 7)), torch.zeros((2, 4, 6)),
+                             (3, 5, 3))
+    with pytest.raises(ValueError):
+        project_adjoint_plan(torch.zeros((2, 5, 7)), torch.zeros((2, 5, 6)),
+                             (3, 6, 3))

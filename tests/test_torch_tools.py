@@ -45,6 +45,21 @@ def test_sweep_variants_exist_and_start_from_the_port(table):
     assert len(names) == len(set(names))
 
 
+def test_adjoint_sweep_variants_exist_and_start_from_the_port():
+    """The adjoint's sweep starts from the port's source as built, and
+    every knob a variant sets is one its source reads."""
+    rows = torch_drr_sweep.ADJOINTS
+    assert rows[0] == ("csrc", ROOT / "liftreg_tpu_torch/csrc/"
+                       "drr_project_adjoint.cu", ())
+    for name, path, defines in rows:
+        src = path.read_text()
+        for d in defines:
+            assert f"#ifndef {d.split('=')[0]}" in src, (name, d)
+    names = [r[0] for r in rows]
+    assert len(names) == len(set(names))
+    assert "gather" in names
+
+
 @pytest.mark.parametrize("name", sorted(torch_drr_sweep.ABLATIONS))
 def test_sweep_ablations_patch_the_sources(name):
     """Each ablation's patterns still match the source they patch."""
@@ -84,6 +99,23 @@ def test_sweep_reads_ptxas_registers():
     assert torch_drr_sweep._registers(log) == {
         "drr_backproject_rows_bf16": 80, "drr_backproject_rows": 40,
         "drr_project_tiles": 56}
+
+
+def test_sweep_reads_the_adjoint_kernels_registers():
+    """The adjoint's kernels are named after the word adjoint_, after the
+    file's name in the anonymous namespace."""
+    log = "\n".join([
+        "ptxas info    : Compiling entry function '_ZN55_GLOBAL__N__807f513e"
+        "_22_drr_project_adjoint_cu_3e3c4df013adjoint_tilesEPKfS1_S1_S1_PK4"
+        "int2PfPiiiiiiiii' for 'sm_90a'",
+        "ptxas info    : Used 122 registers, used 1 barriers, 5216 bytes smem",
+        "ptxas info    : Compiling entry function '_ZN55_GLOBAL__N__807f513e"
+        "_22_drr_project_adjoint_cu_3e3c4df017adjoint_plan_rowsEPKfS1_P4int2"
+        "iiiii' for 'sm_90a'",
+        "ptxas info    : Used 23 registers, used 1 barriers",
+    ])
+    assert torch_drr_sweep._registers(log) == {"adjoint_tiles": 122,
+                                               "adjoint_plan_rows": 23}
 
 
 import torch_grad_sweep  # noqa: E402

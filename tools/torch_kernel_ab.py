@@ -13,12 +13,16 @@ it uses: 160^3, B=4, 4 views on a 240^2 detector, latent 56 (the DRR
 kernels also with one volume, ``_b1``; the warp kernels with pixel
 coordinates and, where the tree has it, with phi in its (B, 3, D, W, H)
 layout, ``_phi``; ``warp_image`` with its glue, forward and with the phi
-gradient), and the steady-state
+gradient; the projector's adjoint where the tree has it, with its plan
+built once where the tree has one, ``drr_adjoint_plan`` timing the plan),
+and the steady-state
 time of ``RegistrationPipeline.register`` there (bf16 encoder, basis and
 taps, random seeded weights; host clock over 10 calls after 2 warm-ups,
 ending in a synchronize). ``register_refine`` is the same pipeline with
 ``refine_steps=30`` on ``chip_smoke.py``'s refine inputs: each of 3 calls
-after 1 warm-up on the host clock, their median, and the peak memory.
+after 1 warm-up on the host clock, their median, and the peak memory;
+``register_refine_projection`` the same in the projection domain, where
+the tree has it.
 Needs a CUDA card and nvcc; imports nothing of JAX.
 """
 import importlib.util
@@ -48,7 +52,7 @@ def _time_tree(root):
     import torch
     import torch.nn.functional as F
     from liftreg_tpu_torch import RegistrationPipeline
-    from liftreg_tpu_torch.ops import drr, resample
+    from liftreg_tpu_torch.ops import drr, drr_kernel, resample
     from liftreg_tpu_torch.ops.drr_kernel import backproject_taps, project_taps
     from liftreg_tpu_torch.ops.pca_kernel import pca_expand, pca_grad
     from liftreg_tpu_torch.ops.warp_kernel import (warp_coord_grad,
@@ -106,6 +110,25 @@ def _time_tree(root):
     att1, proj1 = att[:1].contiguous(), proj[:1].contiguous()
     out["drr_project_b1"] = ms(lambda: project_taps(att1, *fwd))
     out["drr_backproject_b1"] = ms(lambda: backproject_taps(proj1, *bwd))
+    # the projector's adjoint, on a cotangent of its own generator so that
+    # the other inputs stay those of trees without it
+    if hasattr(drr_kernel, "project_adjoint_taps"):
+        adjoint = drr_kernel.project_adjoint_taps
+        cot_proj = torch.randn(
+            proj.shape, device=dev,
+            generator=torch.Generator(device=dev).manual_seed(1))
+        kw = {}
+        if hasattr(drr_kernel, "project_adjoint_plan"):
+            kw["plan"] = drr_kernel.project_adjoint_plan(fwd[0], fwd[1],
+                                                         (sz,) * 3)
+            out["drr_adjoint_plan"] = ms(
+                lambda: drr_kernel.project_adjoint_plan(fwd[0], fwd[1],
+                                                        (sz,) * 3))
+        cot1 = cot_proj[:1].contiguous()
+        out["drr_project_adjoint"] = ms(
+            lambda: adjoint(cot_proj, *fwd, (sz,) * 3, **kw))
+        out["drr_project_adjoint_b1"] = ms(
+            lambda: adjoint(cot1, *fwd, (sz,) * 3, **kw))
     out["pca_expand"] = ms(lambda: pca_expand(coefs, V, mean))
     out["pca_grad"] = ms(lambda: pca_grad(g_pca, V))
 
@@ -144,6 +167,27 @@ def _time_tree(root):
     out["register_refine"] = sorted(calls)[1]
     out["register_refine_peak_gib"] = \
         torch.cuda.max_memory_allocated() / 2 ** 30
+    del pipe_r
+    if "refine_domain" in inspect.signature(
+            RegistrationPipeline).parameters:
+        pipe_p = RegistrationPipeline((sz,) * 3, latent_dim=cs.LATENT,
+                                      compute_dtype=torch.bfloat16,
+                                      refine_steps=cs.REFINE_STEPS,
+                                      refine_domain="projection")
+        pipe_p.model.load_state_dict(pipe.model.state_dict())
+        pipe_p.register(r_pca, r_src, r_tgt, r_seg, r_seg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        calls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            pipe_p.register(r_pca, r_src, r_tgt, r_seg, r_seg)
+            torch.cuda.synchronize()
+            calls.append((time.perf_counter() - t0) * 1e3)
+        out["register_refine_projection_calls"] = calls
+        out["register_refine_projection"] = sorted(calls)[1]
+        out["register_refine_projection_peak_gib"] = \
+            torch.cuda.max_memory_allocated() / 2 ** 30
     print(json.dumps(out), flush=True)
 
 
