@@ -53,14 +53,49 @@ line with its elapsed seconds:
    pipeline on the CPU (the kernels' plain versions) at 32^3, without and
    with 5 refinement steps (image domain with NCC and with LNCC, projection
    domain with NCC and with NGF);
-8. times: each kernel, its plain version and one PyTorch library call of
+8. train: training at the reference config (configs/cur_task_setting.json:
+   160^3, B = 30, 4 views on a 240^2 detector, latent 56, f32, NCC, the
+   subspace loss, Adam at lr 1e-3, StepLR) through the port's CLI
+   (liftreg_tpu_torch.main) on a dataset the phase writes in
+   Registration2D3DDataset's layout (3 distinct smooth seeded cases, the 30
+   training cases hard links to them, 3 validation cases so that the eval
+   batch is padded; DRRs from the port's projector; a smooth seeded f32
+   basis): 3 epochs with validation and a checkpoint each, counts zeroed
+   just before and read just after (lift and warp once a step and once a
+   validation batch, the coordinate gradient once a step, nothing else),
+   every loss finite; then RegistrationTrainer resumes the last checkpoint
+   (epoch, steps, parameters and moments as saved) for one more epoch; then
+   one step alone must launch the lift, the warp and the coordinate
+   gradient once each, and 5 more are timed;
+   train_check: the step's kernels against their plain versions at the
+   step's own shapes and values (B = 30): the batch's projections lifted
+   into an f32 and a bf16 (B, 5, 160^3) encoder input, phi of the model's
+   forward warping the batch's masked source with f32 and bf16 taps, and
+   the coordinate gradient of both;
+   train_bf16: 3 steps with configs/fast_train's dtypes (bf16 encoder,
+   basis and taps, s2d_encoder) at the same batch: each step also launches
+   the PCA expansion and its backward once per 8 rows, which are held
+   against their plain versions on the bf16 model's coefficients and
+   basis at B = 30;
+   profile_train: one reference step under torch.profiler (as in 10);
+   then the training run's trainer and batch are freed;
+   train_host_loader / train_device_loader: one epoch of 3 reference steps
+   on the same files listed 3 times, its batches read by the host
+   DataLoader (cache_on_device false) and then from the card-resident
+   cache, each under torch.profiler: ms a step and the device's idle share;
+   train_reference: 2 train steps at 32^3 on the card against the same
+   steps on the CPU from the same parameters (losses, parameters and each
+   step's Adam moments, which carry the gradients), then again with the
+   card's warp coordinate gradient doubled, which the moments must catch;
+9. times: each kernel, its plain version and one PyTorch library call of
    the same function, with CUDA events (the warp and its gradient in both
    layouts and with both tap types; the lift also as the serving path
    runs it, bf16 into the encoder's buffer, with the bound of the bytes it
    writes); the steady-state register time, with and without refinement
    (image domain with NCC and with LNCC, projection domain), and peak
-   memory;
-9. profile / profile_refine / profile_refine_projection: one register
+   memory; the train step's median time and peak memory at the reference
+   config, and the bf16 step's (measured in train and train_bf16);
+10. profile / profile_refine / profile_refine_projection: one register
    call, without refinement, with image-domain and with projection-domain
    refinement, under torch.profiler: device time by layer (from kernel
    names) and the device's idle share.
@@ -68,13 +103,16 @@ line with its elapsed seconds:
 Then the nvidia-smi line, one JSON line of per-kernel numbers
 (``launches`` and ``projection_launches`` from refine_projection's
 register, which runs all eight kernels; ``serving_launches`` from
-main_path's register, ``image_refine_launches`` from refine's), and last
+main_path's register, ``image_refine_launches`` from refine's,
+``train_launches`` and ``train_bf16_launches`` from one train step), and last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero; so does a
 missing card, and a watchdog after 15 minutes.
 """
 import json
 import math
 import os
+import shutil
+import statistics
 import subprocess
 import sys
 import threading
@@ -140,6 +178,43 @@ LNCC_OPTS = {"smooth": 3}
 # tap in [0.5, 1): 2^-8, doubled by the [0,1] -> [-1,1] rescale.
 REF_F32_TOL = (1e-4, 1e-4)
 REF_BF16_TOL = (1e-4, 2.0 ** -7)
+# training at the reference config (configs/cur_task_setting.json): B = 30
+# at 160^3, 4 views, latent 56, f32; the dataset's distinct volumes (the 30
+# training cases are hard links to them) and its validation cases (fewer
+# than a batch, so the eval batch is padded)
+TRAIN_CONFIG = "configs/cur_task_setting.json"
+FAST_TRAIN_CONFIG = "configs/fast_train/cur_task_setting.json"
+TRAIN_B = 30
+TRAIN_DISTINCT = 3
+TRAIN_VAL = 3
+TRAIN_EPOCHS = 2               # epochs 0, 1 and 2; the resume runs epoch 3
+TRAIN_TIMED_STEPS = 5          # timed steps after one warm-up
+BF16_STEPS = 3
+# train_reference: 2 steps at 32^3 on the card against the CPU from the
+# same parameters, f32: the losses and the parameters after the steps
+# within atol 1e-5 (the f32 convolutions and the kernels sum in another
+# order; Adam moves each weight by about lr = 1e-3 a step, so the
+# gradients' differences reach the weights only where they are near 0)
+TRAIN_REF_TOL = 1e-5
+# and each step's Adam moments, which carry the gradients, within 1e-2 of
+# each leaf's largest value: the card builds the lift's geometry with its
+# own rounding, so the encoder's input differs slightly from the CPU's,
+# and the first convolution's weight and bias gradients, whose sums
+# cancel, carry that further than the other leaves; the same steps with
+# the card's coordinate gradient doubled must exceed it
+TRAIN_MOMENT_RTOL = 1e-2
+# train_check: the plain versions at B = 30 run this many rows at a time
+TRAIN_CHECK_ROWS = 10
+# the PCA backward at the train step's shapes (B = 30, L = 56, n = 3 *
+# 160^3) against the f64 product: within half a bf16 step of the exact sum,
+# plus 1e-5 of the largest value for the f32 sums' order. Against the plain
+# version (cuBLAS's f32 sum, rounded) PCA_GRAD_RTOL does not hold there:
+# where the exact sum lies at a bf16 rounding midpoint, the two f32 sums
+# round to neighbouring bf16 values, a full step apart, which is up to
+# 2^-7 of the value
+PCA_GRAD_F64_REL_ATOL = 1e-5
+# train_host_loader / train_device_loader: steps of the one epoch timed
+TRAIN_LOADER_STEPS = 3
 
 _state = {"phase": "start", "t0": time.perf_counter()}
 
@@ -192,7 +267,8 @@ def _max_err(a, b):
 def _layer(kernel_name):
     """Layer of a device kernel, from its name."""
     name = kernel_name.lower()
-    for layer, keys in (("drr_adjoint_plan", ("adjoint_plan",)),
+    for layer, keys in (("copy", ("memcpy",)),
+                        ("drr_adjoint_plan", ("adjoint_plan",)),
                         ("drr_project_adjoint", ("adjoint_tiles",)),
                         ("pca_grad", ("pca_grad",)),
                         ("pca_expand", ("pca_expand",)),
@@ -200,7 +276,8 @@ def _layer(kernel_name):
                         ("warp_trilinear", ("warp_trilinear",)),
                         ("drr_project", ("drr_project",)),
                         ("drr_backproject", ("drr_backproject",)),
-                        ("conv", ("conv", "cudnn", "winograd", "implicit")),
+                        ("conv", ("conv", "cudnn", "winograd", "implicit",
+                                  "fprop", "dgrad", "wgrad")),
                         ("matmul", ("gemm", "cublas", "cutlass")),
                         ("gather", ("gather", "index")),):
         if any(k in name for k in keys):
@@ -331,6 +408,91 @@ def refine_inputs(torch, F, g, device):
     return src, tgt, seg, pca
 
 
+def write_train_dataset(torch, F, drr, project_taps, root, sz, n_train,
+                        n_val, n_distinct, latent, views, g, device):
+    """A dataset in Registration2D3DDataset's layout under ``root``:
+    ``{phase}/data_id.npy``, ``preprocessed/<case>_source|target(_seg).npy``
+    (smooth seeded HU volumes, the target a smooth shift of the source),
+    ``drr/drr/drr/<case>_source|target_proj.npy`` made by the port's
+    projector from the volumes as the dataset orients them, ``poses.npy``
+    and a smooth seeded f32 basis ``pca/pca_vectors.npy``/``pca_mean.npy``.
+    The cases are hard links to ``n_distinct`` distinct ones."""
+    import numpy as np
+    pre = os.path.join(root, "preprocessed")
+    drr_dir = os.path.join(root, "drr", "drr", "drr")
+    pca_dir = os.path.join(root, "pca")
+    for d in (pre, drr_dir, pca_dir):
+        os.makedirs(d, exist_ok=True)
+    poses = drr.synthesize_poses(30.0, views, sz)
+    np.save(os.path.join(drr_dir, "poses.npy"), poses)
+    res = drr.default_resolution((sz,) * 3)
+    geom = drr.forward_geometry(torch.from_numpy(poses).to(device), (sz,) * 3,
+                                res, (2.2, 2.2, 2.2))
+    shape = (1, 1) + (sz,) * 3
+    files = ("source", "target", "source_seg", "target_seg",
+             "source_proj", "target_proj")
+    for k in range(n_distinct):
+        base = _smooth_field(torch, F, g, shape, 8, device)
+        vols = {"source": base * 450.0 - 500.0,
+                "target": torch.roll(base, shifts=(2, -3, 1), dims=(2, 3, 4))
+                * 450.0 - 500.0
+                + _smooth_field(torch, F, g, shape, 6, device) * 40.0}
+        for side in ("source", "target"):
+            hu = vols[side][0, 0]
+            np.save(os.path.join(pre, f"d{k}_{side}.npy"), hu.cpu().numpy())
+            np.save(os.path.join(pre, f"d{k}_{side}_seg.npy"),
+                    (hu > -700.0).float().cpu().numpy())
+            # the dataset flips axis 1 (SAR -> SPR) when it reads a volume
+            att = drr.calc_relative_atten_coef(torch.flip(hu, dims=(1,)))
+            proj = project_taps(att[None].contiguous(), *geom)[0]
+            np.save(os.path.join(drr_dir, f"d{k}_{side}_proj.npy"),
+                    proj.cpu().numpy())
+    for phase, n, prefix in (("train", n_train, "tr"), ("val", n_val, "va")):
+        os.makedirs(os.path.join(root, phase), exist_ok=True)
+        names = [f"{prefix}{i:02d}" for i in range(n)]
+        np.save(os.path.join(root, phase, "data_id.npy"), np.array(names))
+        for i, name in enumerate(names):
+            for f in files:
+                folder = drr_dir if f.endswith("proj") else pre
+                os.link(os.path.join(folder, f"d{i % n_distinct}_{f}.npy"),
+                        os.path.join(folder, f"{name}_{f}.npy"))
+    rows = []
+    for start in range(0, latent, 8):
+        n = min(8, latent - start)
+        rows.append((_smooth_field(torch, F, g, (n, 3) + (sz,) * 3, 6, device)
+                     * 0.05).reshape(n, -1).cpu().numpy())
+    np.save(os.path.join(pca_dir, "pca_vectors.npy"), np.concatenate(rows))
+    np.save(os.path.join(pca_dir, "pca_mean.npy"),
+            np.zeros(3 * sz ** 3, np.float32))
+    return root
+
+
+def train_setting(path, root, out, **train):
+    """The setting of ``path`` (a cur_task_setting.json) on the dataset
+    under ``root``: its data and basis paths, its output folder, and the
+    given train keys. Figures are off (the card's machine has no
+    matplotlib); validation and a checkpoint come every epoch."""
+    with open(path) as f:
+        cfg = json.load(f)
+    cfg["dataset"]["data_path"] = root
+    cfg["train"]["model"]["pca_path"] = os.path.join(root, "pca")
+    cfg["train"]["output_path"] = out
+    cfg["train"].update(save_fig=False, val_frequency=1,
+                        save_model_frequency=1)
+    cfg["train"].update(train)
+    return cfg
+
+
+def read_metrics(exp):
+    """{tag: {step: value}} of a training run's logs/metrics.jsonl."""
+    out = {}
+    with open(os.path.join(exp, "logs", "metrics.jsonl")) as f:
+        for line in f:
+            rec = json.loads(line)
+            out.setdefault(rec["tag"], {})[rec["step"]] = rec["value"]
+    return out
+
+
 def glue_ops(torch, fn, batch, sz):
     """Run ``fn`` under a dispatch mode that sees every aten op, backward
     included, and count: all ops; ops whose result is a coordinate buffer
@@ -451,8 +613,6 @@ def main():
                "drr_adjoint_plan": project_adjoint_plan,
                "drr_backproject": backproject_taps}
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
 
     _begin("build")
@@ -1055,6 +1215,463 @@ def main():
                  and e["warped"] <= REFINE_REF_TOL[1],
                  f"refinement ({cfg}) on the card disagrees with the CPU")
 
+    def profile_call(fn, **fields):
+        """Run ``fn`` once under torch.profiler and emit its wall time,
+        device time by layer and the device's idle share, with ``fields``
+        (and the wall time a step where they give ``steps``). Returns
+        (wall ms, device busy ms)."""
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        kernel_ms = {}
+        for e in prof.key_averages():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                kernel_ms[e.key] = e.self_device_time_total / 1e3
+        by_layer = {}
+        for name, t in kernel_ms.items():
+            by_layer[_layer(name)] = by_layer.get(_layer(name), 0.0) + t
+        busy_ms = sum(kernel_ms.values())
+        top = sorted(kernel_ms.items(), key=lambda kv: -kv[1])[:8]
+        # a concatenation's copy kernel (the encoder input is built in place)
+        cat_ms = sum(t for name, t in kernel_ms.items() if "CatArray" in name)
+        if "steps" in fields:
+            fields["ms_per_step"] = wall_ms / fields["steps"]
+        # copies between host and card count as busy; without them
+        compute_ms = busy_ms - by_layer.get("copy", 0.0)
+        _emit(wall_ms=wall_ms, device_busy_ms=busy_ms,
+              device_idle_share=1.0 - busy_ms / wall_ms if busy_ms else None,
+              device_compute_idle_share=1.0 - compute_ms / wall_ms,
+              device_ms_by_layer={k: round(v, 4) for k, v in
+                                  sorted(by_layer.items(),
+                                         key=lambda kv: -kv[1])},
+              top_kernels=[[name[:60], round(t, 4)] for name, t in top],
+              cat_kernel_ms=cat_ms, **fields)
+        return wall_ms, busy_ms
+
+    # -- training at the reference config ----------------------------------
+    _begin("train")
+    from liftreg_tpu_torch.main import main as train_main
+    from liftreg_tpu_torch.train import RegistrationTrainer
+    from liftreg_tpu_torch.utils.checkpoint import load_checkpoint
+    os.environ["LIFTREG_NO_TB"] = "1"
+    train_root = os.path.abspath(os.path.join("build", "chip_smoke_train"))
+    shutil.rmtree(train_root, ignore_errors=True)
+    gt = torch.Generator(device=dev).manual_seed(3)
+    t0 = time.perf_counter()
+    write_train_dataset(torch, F, drr, project_taps,
+                        os.path.join(train_root, "data"), SZ, TRAIN_B,
+                        TRAIN_VAL, TRAIN_DISTINCT, LATENT, 4, gt, dev)
+    write_s = time.perf_counter() - t0
+    setting_dir = os.path.join(train_root, "setting")
+    os.makedirs(setting_dir)
+    with open(os.path.join(setting_dir, "cur_task_setting.json"), "w") as f:
+        # main.py sets the data and output paths; the basis path is ours
+        json.dump(train_setting(TRAIN_CONFIG, os.path.join(train_root,
+                                                           "data"),
+                                "[SET_BY_MAIN]", epoch=TRAIN_EPOCHS), f)
+    torch.cuda.reset_peak_memory_stats()
+    _zero(KERNELS)
+    t0 = time.perf_counter()
+    tr = train_main(["-o", os.path.join(train_root, "out"), "-d",
+                     os.path.join(train_root, "data"), "-e", "reference",
+                     "-s", setting_dir])
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    run_launches = _counts(KERNELS)
+    run_peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    exp = os.path.dirname(tr.check_point_path)
+    metrics = read_metrics(exp)
+    steps = tr.global_step["train"]
+    vals = tr.global_step["val"]
+    totals = [metrics["Train/total_loss"][k]
+              for k in sorted(metrics["Train/total_loss"])]
+    _require(tr.batch_size == TRAIN_B and tr.img_sz == (SZ,) * 3
+             and steps == TRAIN_EPOCHS + 1 and len(totals) == steps,
+             f"the run took {steps} steps of B={tr.batch_size}")
+    _require(all(math.isfinite(v) for tag, vs in metrics.items()
+                 if tag.startswith(("Train/", "Val_")) for v in vs.values())
+             and all(v == 1.0 for v in metrics["Train/finite"].values()),
+             "a non-finite loss or metric in the training run")
+    # each step lifts, warps and takes the warp's coordinate gradient once;
+    # each validation batch lifts and warps once (its label warp is the
+    # plain nearest gather)
+    expected_run = dict({k: 0 for k in KERNELS}, drr_backproject=steps + vals,
+                        warp_trilinear=steps + vals, warp_coord_grad=steps)
+    _require(run_launches == expected_run,
+             f"training run launches {run_launches}, expected {expected_run}")
+    # resume from the last checkpoint for one more epoch
+    last = os.path.join(tr.check_point_path,
+                        f"epoch_{TRAIN_EPOCHS}_checkpoint.ckpt")
+    saved = load_checkpoint(last)
+    with open(os.path.join(exp, "cur_task_setting.json")) as f:
+        resume_cfg = json.load(f)
+    resume_cfg["train"].update(epoch=TRAIN_EPOCHS + 1, continue_train=True,
+                               continue_from=last)
+    del tr
+    torch.cuda.empty_cache()
+    tr = RegistrationTrainer(resume_cfg)
+    resumed = {
+        "start_epoch": tr.start_epoch, "saved_epoch": int(saved["epoch"]),
+        "global_step": dict(tr.global_step),
+        "saved_global_step": dict(saved["global_step"]),
+        "params_bit_equal": all(torch.equal(p.detach().cpu(),
+                                            saved["params"][k])
+                                for k, p in tr.params.items()),
+        "moments_bit_equal": all(torch.equal(tr.opt_state[m][k].cpu(),
+                                             saved["opt_state"][m][k])
+                                 for m in ("mu", "nu") for k in tr.params)}
+    _require(resumed["start_epoch"] == resumed["saved_epoch"] + 1
+             and resumed["global_step"] == resumed["saved_global_step"]
+             and resumed["params_bit_equal"]
+             and resumed["moments_bit_equal"],
+             f"the resumed state is not the saved one: {resumed}")
+    tr.run()
+    metrics = read_metrics(exp)
+    _require(tr.global_step["train"] == steps + 1
+             and math.isfinite(metrics["Train/total_loss"][steps + 1]),
+             "the resumed epoch did not take one finite step")
+    # one train step alone: its launches, then its time (median of
+    # TRAIN_TIMED_STEPS after a warm-up) and peak memory
+    batch_t, names_t = next(iter(tr._iter_device("train", tr.cur_epoch)))
+    torch.cuda.synchronize()
+    _zero(KERNELS)
+    tr.step(batch_t, names_t)
+    torch.cuda.synchronize()
+    train_launches = _counts(KERNELS)
+    expected_step = dict({k: 0 for k in KERNELS}, drr_backproject=1,
+                         warp_trilinear=1, warp_coord_grad=1)
+    _require(train_launches == expected_step,
+             f"one train step launched {train_launches}")
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = []
+    for _ in range(TRAIN_TIMED_STEPS):
+        t0 = time.perf_counter()
+        tr.step(batch_t, names_t)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    train_step_ms = statistics.median(step_ms)
+    train_peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    # the run closed its log: read these steps' losses here
+    _require(all(bool(l["finite"]) for _, l in tr._pending_losses),
+             "a non-finite loss in the timed train steps")
+    tr._pending_losses.clear()
+    _emit(write_dataset_s=write_s, run_s=run_s, steps=steps,
+          val_batches=vals, batch=TRAIN_B, config=TRAIN_CONFIG,
+          total_loss_per_step=totals, launches=run_launches,
+          step_launches=train_launches, resumed=resumed,
+          best_val_score=max(metrics["Val_metrics/score"].values()),
+          step_ms=step_ms, step_ms_median=train_step_ms,
+          peak_memory_gib=max(run_peak_gib, train_peak_gib),
+          run_peak_memory_gib=run_peak_gib)
+
+    def by_rows(fn, batched, *rest, **kw):
+        """``fn`` of the ``batched`` tensors taken TRAIN_CHECK_ROWS rows at
+        a time, concatenated: the plain versions' temporaries at B = 30
+        stay a third of their size beside the trainer"""
+        return torch.cat([
+            fn(*(t[i:i + TRAIN_CHECK_ROWS] for t in batched), *rest, **kw)
+            for i in range(0, batched[0].shape[0], TRAIN_CHECK_ROWS)])
+
+    _begin("train_check")
+    # the step's lift, warp and coordinate gradient against their plain
+    # versions at its own shapes and values (B = 30, 160^3): the batch's
+    # projections, phi of the model's forward, the batch's masked source,
+    # a seeded cotangent
+    model_t = tr.model
+    poses_t = batch_t["target_poses"]
+    poses_t = poses_t[0] if poses_t.dim() == 3 else poses_t
+    proj_t = batch_t["target_proj"].contiguous()
+    geom_t = drr.backward_geometry(poses_t, tr.img_sz, proj_t.shape[2:])
+    lift_want = by_rows(backproject_taps_plain, (proj_t,), *geom_t,
+                        plane_chunk=model_t.backproject_chunk)
+    train_errs, lift_bufs = {}, {}
+    for dt in (torch.float32, torch.bfloat16):
+        # the encoder's input with channel 0 marked: the lift must leave it
+        buf = torch.full((TRAIN_B, 1 + proj_t.shape[1]) + tr.img_sz, 3.0,
+                         dtype=dt, device=dev)
+        model_t.lift(proj_t, poses_t, geom_t, out=buf[:, 1:])
+        lift_bufs[dt] = buf
+    train_errs["lift_f32_buffer"] = _max_err(lift_bufs[torch.float32][:, 1:],
+                                             lift_want)
+    # the bf16 buffer holds the f32 lift rounded once
+    train_errs["lift_bf16_buffer_bit_equal"] = bool(torch.equal(
+        lift_bufs[torch.bfloat16][:, 1:],
+        lift_bufs[torch.float32][:, 1:].bfloat16()))
+    train_errs["lift_channel0_untouched"] = all(
+        bool((b[:, 0] == 3.0).all()) for b in lift_bufs.values())
+    del lift_bufs, lift_want
+    with torch.no_grad():
+        phi_t = model_t(batch_t, tr.pca)["phi"]
+    moving_t = batch_t["source"]
+    if model_t.mask_ct and "source_label" in batch_t:
+        moving_t = mask_lung(moving_t, batch_t["source_label"])
+    cot_t = torch.randn((TRAIN_B, 1) + tr.img_sz, generator=gt, device=dev)
+    flags_t = {"normalized": True, "scale_intensity": True}
+    for tdt in (torch.float32, torch.bfloat16):
+        key = str(tdt).split(".")[-1]
+        tt = resample.warp_taps(moving_t, True, tdt)
+        train_errs[f"warp_{key}"] = _max_err(
+            warp_trilinear(tt, phi_t, False, **flags_t),
+            by_rows(warp_trilinear_plain, (tt, phi_t), False, **flags_t))
+        want = by_rows(warp_coord_grad_plain, (tt, phi_t, cot_t), False,
+                       **flags_t)
+        err = _max_err(warp_coord_grad(tt, phi_t, cot_t, False, **flags_t),
+                       want)
+        train_errs[f"coord_grad_{key}"] = [err, err / float(want.abs().max())]
+        del tt, want
+    del phi_t, moving_t, cot_t
+    warp_keys = ("warp_float32", "warp_bfloat16")
+    grad_keys = ("coord_grad_float32", "coord_grad_bfloat16")
+    errs["drr_backproject"] = max(errs["drr_backproject"],
+                                  train_errs["lift_f32_buffer"])
+    errs["warp_trilinear"] = max(errs["warp_trilinear"],
+                                 *(train_errs[k] for k in warp_keys))
+    errs["warp_coord_grad"] = max(errs["warp_coord_grad"],
+                                  *(train_errs[k][0] for k in grad_keys))
+    _emit(max_err=train_errs, batch=TRAIN_B,
+          tol={"lift": LIFT_TOL, "warp": WARP_TOL,
+               "coord_grad_rel": WARP_GRAD_REL_TOL})
+    _require(train_errs["lift_f32_buffer"] <= LIFT_TOL
+             and train_errs["lift_bf16_buffer_bit_equal"]
+             and train_errs["lift_channel0_untouched"],
+             f"the lift at the train step's shapes disagrees: {train_errs}")
+    _require(all(train_errs[k] <= WARP_TOL for k in warp_keys),
+             f"the warp at the train step's shapes disagrees: {train_errs}")
+    _require(all(train_errs[k][1] <= WARP_GRAD_REL_TOL for k in grad_keys),
+             "the coordinate gradient at the train step's shapes disagrees: "
+             f"{train_errs}")
+
+    _begin("train_bf16")
+    # configs/fast_train's dtypes (bf16 encoder, basis and taps, the s2d
+    # option) at the reference config's batch, latent and shapes
+    with open(FAST_TRAIN_CONFIG) as f:
+        fast_model = json.load(f)["train"]["model"]
+    bf16_keys = ("compute_dtype", "pca_dtype", "warp_taps_dtype",
+                 "s2d_encoder")
+    bf16_cfg = train_setting(TRAIN_CONFIG, os.path.join(train_root, "data"),
+                             os.path.join(train_root, "out_bf16"),
+                             epoch=0, debug_on=False)
+    bf16_cfg["train"]["model"].update({k: fast_model[k] for k in bf16_keys})
+    tr_bf16 = RegistrationTrainer(bf16_cfg)
+    _require(tr_bf16.pca["vectors"].dtype == torch.bfloat16,
+             "the fast_train basis is not bf16")
+    bf16_launches, bf16_ms = [], []
+    for _ in range(BF16_STEPS):
+        _zero(KERNELS)
+        t0 = time.perf_counter()
+        tr_bf16.step(batch_t, names_t)
+        torch.cuda.synchronize()
+        bf16_ms.append((time.perf_counter() - t0) * 1e3)
+        bf16_launches.append(_counts(KERNELS))
+    tr_bf16._flush_losses()
+    bf16_totals = read_metrics(os.path.dirname(
+        tr_bf16.check_point_path))["Train/total_loss"]
+    chunks = -(-TRAIN_B // MAX_CHUNK)
+    expected_bf16 = dict(expected_step, pca_expand=chunks, pca_grad=chunks)
+    # the PCA kernels at the step's shapes (B = 30: three launches of 8
+    # rows and one of 6): the bf16 model's coefficients on the batch, the
+    # bf16 basis, a seeded cotangent
+    with torch.no_grad():
+        coefs_t = tr_bf16.model(batch_t, tr_bf16.pca)["pca_coefs"]
+    coefs_t = coefs_t.float().contiguous()
+    V_t, mean_t = tr_bf16.pca["vectors"], tr_bf16.pca["mean"]
+    pca_t = {"expand": _max_err(pca_expand(coefs_t, V_t, mean_t),
+                                by_rows(pca_expand_plain, (coefs_t,), V_t,
+                                        mean_t))}
+    cot_pca_t = torch.randn((TRAIN_B, V_t.shape[1]), generator=gt,
+                            device=dev)
+    want = by_rows(pca_grad_plain, (cot_pca_t,), V_t)
+    got = pca_grad(cot_pca_t, V_t)
+    V64 = V_t.double()
+    exact = by_rows(lambda c: c.double() @ V64.T, (cot_pca_t,))
+    del V64
+    # half a bf16 step at each exact value: |x| = m 2^e, m in [0.5, 1)
+    half_step = torch.ldexp(torch.ones_like(exact),
+                            torch.frexp(exact).exponent - 9)
+    slack = PCA_GRAD_F64_REL_ATOL * float(exact.abs().max())
+
+    def f64_excess(t):
+        return float(((t.double() - exact).abs() - half_step - slack).max())
+
+    pca_t["grad"] = _max_err(got, want)
+    pca_t["grad_values_unequal_to_plain"] = int((got != want).sum())
+    pca_t["grad_f64_excess"] = f64_excess(got)
+    pca_t["plain_f64_excess"] = f64_excess(want)
+    pca_t["grad_excess_over_plain_tol"] = float(
+        ((got - want).abs() - PCA_GRAD_RTOL * want.abs()
+         - PCA_GRAD_REL_ATOL * float(want.abs().max())).max())
+    pca_t["grad_bf16_values"] = bool(torch.equal(got, got.bfloat16().float()))
+    del coefs_t, cot_pca_t, want, got, exact, half_step
+    errs["pca_expand"] = max(errs["pca_expand"], pca_t["expand"])
+    errs["pca_grad"] = max(errs["pca_grad"], pca_t["grad"])
+    _emit(launches_per_step=bf16_launches, step_ms=bf16_ms,
+          total_loss_per_step=list(bf16_totals.values()),
+          dtypes={k: fast_model[k] for k in bf16_keys},
+          pca_max_err=pca_t, pca_tol=PCA_TOL,
+          pca_grad_f64_tol={"half_bf16_step": True,
+                            "rel_atol": PCA_GRAD_F64_REL_ATOL})
+    _require(all(c == expected_bf16 for c in bf16_launches),
+             f"bf16 train steps launched {bf16_launches}, expected "
+             f"{expected_bf16} each")
+    _require(all(math.isfinite(v) for v in bf16_totals.values()),
+             "a non-finite bf16 training loss")
+    _require(pca_t["expand"] <= PCA_TOL and pca_t["grad_f64_excess"] <= 0
+             and pca_t["plain_f64_excess"] <= 0 and pca_t["grad_bf16_values"],
+             f"the PCA kernels at the train step's shapes disagree: {pca_t}")
+    del tr_bf16, V_t, mean_t
+    torch.cuda.empty_cache()
+
+    _begin("profile_train")
+    profile_call(lambda: tr.step(batch_t, names_t), steps=1)
+    tr._pending_losses.clear()
+    # nothing of the training run stays on the card for what follows
+    del tr, model_t, batch_t, names_t, proj_t, geom_t, poses_t
+    torch.cuda.empty_cache()
+
+    # one epoch of TRAIN_LOADER_STEPS reference steps on the training files
+    # listed TRAIN_LOADER_STEPS times, its batches read by the host
+    # DataLoader (a thread stacks each batch, the step's thread copies it
+    # to the card) and then from the card-resident cache
+    import numpy as np
+    loader_root = os.path.join(train_root, "data_loader")
+    for split, reps in (("train", TRAIN_LOADER_STEPS), ("val", 1)):
+        os.makedirs(os.path.join(loader_root, split))
+        ids = np.load(os.path.join(train_root, "data", split, "data_id.npy"))
+        np.save(os.path.join(loader_root, split, "data_id.npy"),
+                np.tile(ids, reps))
+    for d in ("preprocessed", "drr", "pca"):
+        os.symlink(os.path.join(train_root, "data", d),
+                   os.path.join(loader_root, d))
+    loader_ms = {}
+    for cache in (False, True):
+        kind = "device" if cache else "host"
+        _begin(f"train_{kind}_loader")
+        t0 = time.perf_counter()
+        tl = RegistrationTrainer(train_setting(
+            TRAIN_CONFIG, loader_root,
+            os.path.join(train_root, f"out_{kind}_loader"), epoch=0,
+            debug_on=False, cache_on_device=cache))
+        build_s = time.perf_counter() - t0
+        loader = type(tl.loaders["train"]).__name__
+        _require(loader == ("DeviceDataLoader" if cache else "DataLoader"),
+                 f"cache_on_device={cache} built a {loader}")
+
+        def epoch():
+            for batch, names in tl._iter_device("train", 0):
+                tl.global_step["train"] += 1
+                tl.step(batch, names)
+
+        wall_ms, _ = profile_call(epoch, steps=TRAIN_LOADER_STEPS,
+                                  loader=loader, trainer_build_s=build_s)
+        loader_ms[kind] = wall_ms / TRAIN_LOADER_STEPS
+        tl._flush_losses()
+        losses_l = read_metrics(os.path.dirname(
+            tl.check_point_path))["Train/total_loss"]
+        _require(tl.global_step["train"] == TRAIN_LOADER_STEPS
+                 and len(losses_l) == TRAIN_LOADER_STEPS
+                 and all(math.isfinite(v) for v in losses_l.values()),
+                 f"the {kind} loader's epoch took {tl.global_step['train']} "
+                 f"steps with losses {losses_l}")
+        del tl, epoch
+        torch.cuda.empty_cache()
+
+    _begin("train_reference")
+    ref_root = os.path.join(train_root, "small")
+    write_train_dataset(torch, F, drr, project_taps,
+                        os.path.join(ref_root, "data"), 32, 4, 1, 2, 8, 4,
+                        torch.Generator(device=dev).manual_seed(4), dev)
+
+    def ref_trainer(where, out, init=None):
+        cfg = train_setting(TRAIN_CONFIG, os.path.join(ref_root, "data"),
+                            os.path.join(ref_root, out), epoch=0,
+                            debug_on=False)
+        cfg["dataset"]["img_after_resize"] = [32, 32, 32]
+        cfg["train"]["dataloader"]["batch_size"] = 2
+        cfg["train"]["model"]["latent_dim"] = 8
+        if init is not None:
+            cfg["train"]["init_params_from"] = init
+        return RegistrationTrainer(cfg, device=where)
+
+    def two_steps(rt):
+        """The losses of 2 train steps, each step's Adam moments (the
+        first step's mu is 0.1 g, its nu 0.001 g^2) and the parameters
+        after them, on the CPU."""
+        losses, moments = [], []
+        for b, names in list(rt._iter_device("train", 0))[:2]:
+            step = rt._train_step(b, rt.loss.factor(0), len(names))
+            losses.append({k: float(v) for k, v in step.items()})
+            moments.append({m: {k: v.to("cpu", copy=True) for k, v in
+                                rt.opt_state[m].items()}
+                            for m in ("mu", "nu")})
+        return (losses, moments,
+                {k: p.detach().cpu() for k, p in rt.params.items()})
+
+    def moments_rel(got, want):
+        """{leaf: the largest, over steps and moments, of its max abs error
+        over its largest value}"""
+        worst = {}
+        for g_step, w_step in zip(got, want):
+            for m, leaves in w_step.items():
+                for k, w in leaves.items():
+                    err = _max_err(g_step[m][k], w)
+                    scale = float(w.abs().max())
+                    worst[k] = max(worst.get(k, 0.0),
+                                   err / scale if scale > 0 else err)
+        return worst
+
+    cpu_tr = ref_trainer("cpu", "cpu")
+    init_ckpt = cpu_tr.save_model("init", is_best=False)
+    ref_out = {"cpu": two_steps(cpu_tr)}
+    del cpu_tr
+    ref_out["cuda"] = two_steps(ref_trainer("cuda", "cuda", init_ckpt))
+    # the check's power: the same steps with the card's warp coordinate
+    # gradient doubled (the wrapper the warp's backward calls, replaced for
+    # this run only)
+    from liftreg_tpu_torch.ops import warp_kernel
+
+    def doubled(*args, **kwargs):
+        return warp_coord_grad(*args, **kwargs) * 2.0
+
+    # the wrapper counts its launches on the module's name: here doubled's
+    doubled.launches = 0
+    warp_kernel.warp_coord_grad = doubled
+    try:
+        ref_out["cuda_doubled"] = two_steps(
+            ref_trainer("cuda", "cuda_doubled", init_ckpt))
+    finally:
+        warp_kernel.warp_coord_grad = warp_coord_grad
+    init_params = load_checkpoint(init_ckpt)["params"]
+    ref_errs = {}
+    for run in ("cuda", "cuda_doubled"):
+        losses_r, moments_r, params_r = ref_out[run]
+        ref_errs[run] = {
+            "losses": max(abs(a[k] - b[k])
+                          for a, b in zip(losses_r, ref_out["cpu"][0])
+                          for k in ("total_loss", "sim_loss", "reg_loss")),
+            "params": max(_max_err(params_r[k], p)
+                          for k, p in ref_out["cpu"][2].items()),
+            "moments_rel_by_leaf": moments_rel(moments_r, ref_out["cpu"][1])}
+        ref_errs[run]["moments_rel"] = max(
+            ref_errs[run]["moments_rel_by_leaf"].values())
+    ref_errs["params_moved"] = max(_max_err(ref_out["cpu"][2][k], v)
+                                   for k, v in init_params.items())
+    _emit(max_err=ref_errs, tol=TRAIN_REF_TOL,
+          moments_rtol=TRAIN_MOMENT_RTOL, losses_cpu=ref_out["cpu"][0])
+    ok = ref_errs["cuda"]
+    _require(ok["losses"] <= TRAIN_REF_TOL and ok["params"] <= TRAIN_REF_TOL
+             and ok["moments_rel"] <= TRAIN_MOMENT_RTOL
+             and ref_errs["params_moved"] > 10 * TRAIN_REF_TOL,
+             f"training on the card disagrees with the CPU: {ref_errs}")
+    _require(ref_errs["cuda_doubled"]["moments_rel"] > TRAIN_MOMENT_RTOL,
+             "the moments' check does not see a doubled coordinate "
+             f"gradient: {ref_errs}")
+    del ref_out
+    shutil.rmtree(train_root, ignore_errors=True)
+
     # -- times -------------------------------------------------------------
     _begin("times")
     ms, plain_ms, lib_ms = {}, {}, {}
@@ -1255,34 +1872,11 @@ def main():
           refine_lncc_peak_memory_gib=lncc_peak, lncc_opts=LNCC_OPTS,
           lncc_total_history_first_last=[float(lncc_hist[0]),
                                          float(lncc_hist[-1])],
-          batch=B, refine_steps=REFINE_STEPS)
-
-    def profile_call(fn):
-        from torch.profiler import ProfilerActivity, profile
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        kernel_ms = {}
-        for e in prof.key_averages():
-            if e.device_type == torch.autograd.DeviceType.CUDA:
-                kernel_ms[e.key] = e.self_device_time_total / 1e3
-        by_layer = {}
-        for name, t in kernel_ms.items():
-            by_layer[_layer(name)] = by_layer.get(_layer(name), 0.0) + t
-        busy_ms = sum(kernel_ms.values())
-        top = sorted(kernel_ms.items(), key=lambda kv: -kv[1])[:8]
-        # a concatenation's copy kernel (the encoder input is built in place)
-        cat_ms = sum(t for name, t in kernel_ms.items() if "CatArray" in name)
-        _emit(wall_ms=wall_ms, device_busy_ms=busy_ms,
-              device_idle_share=1.0 - busy_ms / wall_ms if busy_ms else None,
-              device_ms_by_layer={k: round(v, 4) for k, v in
-                                  sorted(by_layer.items(),
-                                         key=lambda kv: -kv[1])},
-              top_kernels=[[name[:60], round(t, 4)] for name, t in top],
-              cat_kernel_ms=cat_ms)
+          batch=B, refine_steps=REFINE_STEPS,
+          train_step_ms=train_step_ms, train_batch=TRAIN_B,
+          train_cases_per_s=TRAIN_B * 1e3 / train_step_ms,
+          train_peak_memory_gib=train_peak_gib,
+          train_bf16_step_ms=statistics.median(bf16_ms[1:]))
 
     _begin("profile")
     profile_call(lambda: pipe.register(pca, src_hu, tgt_hu, seg, seg))
@@ -1290,7 +1884,6 @@ def main():
     profile_call(lambda: pipe_r.register(r_pca, *r_args))
     _begin("profile_refine_projection")
     profile_call(lambda: pipe_p.register(r_pca, *r_args))
-
     replaces = {
         "pca_expand": "liftreg_tpu/ops/pallas_pca.py:30",
         "pca_grad": "liftreg_tpu/ops/pallas_pca.py:78",
@@ -1329,7 +1922,9 @@ def main():
             "library_ms": lib_ms[name]})
         kernels[-1].update(projection_launches=projection_launches[name],
                            image_refine_launches=refine_launches[name],
-                           serving_launches=launches[name])
+                           serving_launches=launches[name],
+                           train_launches=train_launches[name],
+                           train_bf16_launches=bf16_launches[0][name])
     next(k for k in kernels if k["name"] == "drr_backproject").update(
         bf16_buffer_ms=lift_bf16["ms"],
         bf16_buffer_bound_ms=lift_bf16["bound_ms"])

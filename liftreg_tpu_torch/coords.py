@@ -15,29 +15,50 @@ import torch
 def linspace(start, stop, n):
     """``jnp.linspace(start, stop, n)`` in f32, rounded as XLA computes it
     on the CPU for a call outside ``jit`` (a CPU tensor). XLA turns the
-    division by ``n - 1`` into a product with ``r = f32(1/(n-1))`` and
-    fuses the sum into one multiply-add:
-    ``fma(i, f32(stop*r), f32(start*(1 - f32(i*r))))``, the last element
-    ``stop``. The product of two f32 values is exact in f64, so the f64 sum
-    rounded to f32 stands in for the fused multiply-add.
+    division by ``d = n - 1`` into a product with ``r = f32(1/d)``, takes
+    ``tr = f32(stop*r)``, and fuses the sums into multiply-adds:
+
+    - ``out[i] = f32(fma(i, tr, f32(start * s_i)))``, the last element
+      ``stop``;
+    - ``s_i = f32(fma(-i, r, 1))`` for ``i < 32*floor(d/32)`` when
+      ``n >= 353`` (XLA's vectorised loop body of 32 elements contracts
+      ``1 - i*r`` too), else ``s_i = f32(1 - f32(i*r))`` (its scalar
+      remainder);
+    - for ``2 < n <= 34`` element 1 takes the other contraction,
+      ``f32(fma(start, s_1, f32(tr)))``.
+
+    The split comes from XLA's CPU code generation, not from the HLO (it is
+    the same at n = 352 and 353), so the rule holds for the XLA version and
+    the CPU vector width it was measured on (jax 0.9.0, AVX-512) and may
+    move with either. The product of two f32 values is exact in f64, so
+    the f64 sum rounded to f32 stands in for each multiply-add.
     ``torch.linspace`` rounds differently (by an ulp in most elements).
 
-    ``tests/test_torch_coords_drr.py`` holds it bit-equal to
-    ``jnp.linspace`` for ``(-1, 1)`` at every n from 1 to 256 and for the
-    DRR geometry's ranges at the sizes it names. Known exceptions, one ulp
-    in element 1 of ``(-n/2, n/2 - 1)``: n = 7, 12, 15, 21, 25, 29, 31.
-    Inside ``jit`` XLA folds the constants and rounds some elements
-    otherwise; the refinement from zero coefficients still agrees with the
-    JAX refiner (``tests/test_torch_refine.py``)."""
+    ``tests/test_torch_linspace_long.py`` holds it bit-equal to a live
+    ``jnp.linspace`` for every n from 2 to 1024 on ``(-1, 1)``,
+    ``(-n/2, n/2 - 1)``, its reverse, ``(0, 1)`` and ``(-1.1n, 0.7n)``.
+    Inside ``jit``, where the JAX package builds its DRR geometry and
+    identity map, XLA compiles the same expression with its constants
+    folded in and rounds otherwise: the centred range ``(-n/2, n/2 - 1)``
+    differs there by up to 1 ulp of ``n/2`` and ``(-1, 1)`` by up to
+    1 ulp of 1 (measured for n from 2 to 1024); the reversed range
+    ``(n - 1, 0)`` and ``(0, n - 1)`` are bit-equal."""
     n = int(n)
     start32 = torch.tensor(start, dtype=torch.float32)
     if n == 1:
         return start32[None]
     stop32 = torch.tensor(stop, dtype=torch.float32)
+    d = n - 1
     i = torch.arange(n, dtype=torch.float32)
-    r = torch.tensor(1.0 / (n - 1), dtype=torch.float32)
-    low = start32 * (1.0 - i * r)
-    out = (i.double() * (stop32 * r).double() + low.double()).float()
+    r = torch.tensor(1.0, dtype=torch.float32) / d
+    tr = (stop32 * r).double()
+    s = 1.0 - i * r
+    if n >= 353:
+        body = 32 * (d // 32)
+        s[:body] = (1.0 - i[:body].double() * r.double()).float()
+    out = (i.double() * tr + (start32 * s).double()).float()
+    if 2 < n <= 34:
+        out[1] = (start32.double() * s[1].double() + tr).float()
     out[-1] = stop32
     return out
 

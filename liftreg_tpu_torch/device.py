@@ -1,5 +1,8 @@
-"""Device and dtype selection for the port's entry points."""
+"""Device and dtype selection for the port's entry points, and the f32
+precision scope of its own f32 products and convolutions."""
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -29,3 +32,53 @@ def resolve_dtype(dtype, what="dtype"):
         raise ValueError(f"{what} {dtype!r} is not a torch dtype or the name "
                          "of one")
     return found
+
+
+def _new_flags():
+    """The ``fp32_precision`` flag objects of torch's newer TF32 API (cuBLAS
+    products, cuDNN convolutions and RNNs), or () on a torch without it."""
+    cudnn = torch.backends.cudnn
+    flags = (torch.backends.cuda.matmul, getattr(cudnn, "conv", None),
+             getattr(cudnn, "rnn", None))
+    return flags if all(hasattr(f, "fp32_precision") for f in flags) else ()
+
+
+def _read(getter):
+    """A flag of torch's older API, or None where torch refuses to read it
+    because the caller set the newer API."""
+    try:
+        return getter()
+    except RuntimeError:
+        return None
+
+
+@contextlib.contextmanager
+def f32_precision():
+    """Within the block, f32 matrix products and convolutions on the card
+    keep f32 precision (no TF32), as the JAX package asks XLA for HIGHEST;
+    the caller's settings come back on exit, whatever they were. The port
+    wraps its own f32 work in this (the model's forward, the refinement,
+    the plain DRR products, the trainer's steps) and sets no process-wide
+    flag. A backward runs with the flags of the moment it runs, so a caller
+    that differentiates the model itself wraps its backward too.
+
+    Torch has two TF32 APIs, ``allow_tf32`` and the matmul precision, and
+    (newer) ``fp32_precision``, and refuses to read a state in which they
+    disagree. The block sets both to f32 through the older API's setters,
+    which keep them in step, and on exit restores each flag of each API as
+    the caller left it."""
+    new = _new_flags()
+    saved_new = [f.fp32_precision for f in new]
+    saved_matmul = _read(torch.get_float32_matmul_precision)
+    saved_cudnn = _read(lambda: torch.backends.cudnn.allow_tf32)
+    torch.set_float32_matmul_precision("highest")
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        if saved_matmul is not None:
+            torch.set_float32_matmul_precision(saved_matmul)
+        if saved_cudnn is not None:
+            torch.backends.cudnn.allow_tf32 = saved_cudnn
+        for f, value in zip(new, saved_new):
+            f.fp32_precision = value

@@ -1,6 +1,7 @@
 """Similarity measures, PyTorch port of ``liftreg_tpu/losses/similarity.py``:
 ``ncc_loss``, ``ncc_sqr_loss``, ``ngf_loss`` (2D, the projection refiner's)
-and ``lncc_loss`` (3D), with the JAX package's registry of names.
+and ``lncc_loss`` (3D), with the JAX package's registry of names, and
+``gradient_loss`` (3D Sobel gradients), which that registry leaves out.
 
 ``lncc_loss`` takes its box sums in f32 whatever PyTorch's TF32 flags say:
 they are ``avg_pool3d`` sums (``divisor_override=1``), which no TF32 path
@@ -15,6 +16,8 @@ import functools
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from ..device import f32_precision
 
 
 def _batch_mean(per_sample, weights):
@@ -78,6 +81,33 @@ def ngf_loss(i0, i1, eps=1e-10, weights=None, reduction="mean"):
     dot = torch.sum(_ngf_gradient(i0, eps) * _ngf_gradient(i1, eps), dim=-1)
     per_sample = torch.mean(dot.reshape(dot.shape[0], -1) ** 2, dim=1)
     return _reduce(per_sample, weights, reduction)
+
+
+@functools.lru_cache(maxsize=8)
+def _sobel_filters(device, dtype):
+    """(3, 1, 3, 3, 3): the 3D Sobel-like filter along each axis, the
+    outer planes +base and -base. Cached on the device (callers must not
+    write into it)."""
+    base = torch.tensor([[1.0, 2.0, 1.0], [2.0, 4.0, 2.0], [1.0, 2.0, 1.0]])
+    fil = torch.zeros((3, 3, 3, 3))
+    fil[0, 0], fil[0, 2] = base, -base
+    fil[1, :, 0], fil[1, :, 2] = base, -base
+    fil[2, :, :, 0], fil[2, :, :, 2] = base, -base
+    return fil[:, None].to(device=device, dtype=dtype)
+
+
+@f32_precision()
+def gradient_loss(x, y):
+    """Sum over the three axes of the MSE between Sobel gradients of x and y
+    (B, 1, D, W, H), 'same' zero padding. Not in the registry, as in the
+    JAX package."""
+    fil = _sobel_filters(x.device, x.dtype)
+    gx = F.conv3d(x, fil, padding=1)
+    gy = F.conv3d(y, fil, padding=1)
+    total = 0.0
+    for axis in range(3):
+        total = total + torch.mean((gx[:, axis] - gy[:, axis]) ** 2)
+    return total
 
 
 def _box_sum(x, win):

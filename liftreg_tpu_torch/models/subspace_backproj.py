@@ -13,7 +13,7 @@ import torch
 from torch import nn
 
 from ..coords import identity_map
-from ..device import resolve_dtype
+from ..device import f32_precision, resolve_dtype
 from ..ops import drr, resample
 from ..ops.drr_kernel import backproject_taps
 from ..ops.pca_kernel import pca_expand_ad
@@ -87,14 +87,24 @@ class LiftRegSubspaceBackproj(nn.Module):
     'mean': (3*D*W*H,)}``; returns the JAX model's output dict.
     ``compute_dtype`` and ``warp_taps_dtype`` are a ``torch.dtype``, its
     name or None, resolved here (an unknown name raises ``ValueError``).
+    The forward keeps f32 products and convolutions in f32 on the card
+    whatever the caller's TF32 flags (:func:`..device.f32_precision`).
+    ``s2d_encoder`` and ``fast_vjp`` are the JAX model's options and are
+    accepted: ``s2d_encoder`` re-lays the JAX encoder's first two stages as
+    space-to-depth convolutions, the same operator on the same parameter
+    tree, so the port runs the plain convolutions for either value;
+    ``fast_vjp`` picks between two JAX warp VJPs that give the same
+    gradient, and the port has one.
     An optional ``inputs["lift_geometry"]`` carries the lift's prebuilt
     ``drr.backward_geometry``, which must be built for the detector size of
     ``inputs["target_proj"]``."""
 
     def __init__(self, img_sz, latent_dim=56, drr_feature_num=4,
                  enc_filters=(16, 32, 32, 32, 32, 32), compute_dtype=None,
-                 backproject_chunk=16, warp_taps_dtype=None, mask_ct=True):
+                 backproject_chunk=16, warp_taps_dtype=None, mask_ct=True,
+                 s2d_encoder=False, fast_vjp=False):
         super().__init__()
+        del s2d_encoder, fast_vjp
         self.img_sz = tuple(int(s) for s in img_sz)
         self.compute_dtype = resolve_dtype(compute_dtype, "compute_dtype")
         self.backproject_chunk = backproject_chunk
@@ -132,6 +142,7 @@ class LiftRegSubspaceBackproj(nn.Module):
         self.lift(target_proj, poses, geometry, out=x[:, 1:])
         return x
 
+    @f32_precision()
     def forward(self, inputs, pca):
         moving = inputs["source"]            # (B, 1, D, W, H)
         target = inputs["target"]

@@ -11,12 +11,12 @@ Bv[p,k]^T`` with the reversed coronal axis folded into ``Bu``/``Bv``.
 :func:`forward_geometry` and :func:`backward_geometry` give the pixel
 coordinates whose 2-tap rows make those matrices; the kernels of
 :mod:`.drr_kernel` read the coordinates, and the dense products here
-(plain f32 ``torch.matmul``, as the JAX package leaves them to XLA at
+(plain f32 ``torch.matmul``, kept in f32 on the card by
+:func:`..device.f32_precision`, as the JAX package leaves them to XLA at
 HIGHEST precision) are their plain versions, and
 :func:`project_adjoint_with_mats` is the plain version of the projector's
 adjoint; ``project`` and ``backproject`` from poses are in
-:mod:`.drr_kernel`. Callers that need f32 parity
-on CUDA turn TF32 off (``RegistrationPipeline`` does).
+:mod:`.drr_kernel`.
 """
 from __future__ import annotations
 
@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from ..coords import linspace
+from ..device import f32_precision
 
 
 def calc_relative_atten_coef(img):
@@ -141,6 +142,7 @@ def backward_matrices(poses, vol_shape, proj_shape):
             _two_tap_matrix(v_pix, int(proj_shape[1])))
 
 
+@f32_precision()
 def project_with_mats(vol, Rx, Rz, dx, plane_chunk=32):
     """vol (B, D, W, H) attenuation -> (B, P, res_d, res_h), accumulated
     over chunks of coronal planes to bound the intermediate."""
@@ -161,6 +163,7 @@ def project_with_mats(vol, Rx, Rz, dx, plane_chunk=32):
     return total * dx[None] * 0.1  # mm -> cm
 
 
+@f32_precision()
 def project_adjoint_with_mats(g, Rx, Rz, dx, plane_chunk=32):
     """The VJP of :func:`project_with_mats` with respect to the volume:
     g (B, P, res_d, res_h) -> dvol (B, D, W, H) = sum_p Rx[p,k]^T @ G[b,p]
@@ -186,6 +189,7 @@ def project_adjoint_with_mats(g, Rx, Rz, dx, plane_chunk=32):
     return dvol
 
 
+@f32_precision()
 def backproject_with_mats(proj, Bu, Bv, plane_chunk=16):
     """proj (B, P, proj_w, proj_h) -> (B, P, D, W, H), chunked over the
     coronal axis."""

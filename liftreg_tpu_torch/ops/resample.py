@@ -12,7 +12,9 @@ warps one image many times (the refinement) builds once and passes to
 :func:`warp_with_taps`. :func:`grid_sample` takes pixel coordinates
 (B, *out_shape, 3). The sampling is differentiable with respect to the
 coordinates (and so to ``phi``), through the kernel's coordinate-gradient
-entry; not with respect to the image.
+entry; not with respect to the image. ``warp_image(..., mode="nearest")``
+(the trainer's warp of label maps) is a plain gather,
+:func:`grid_sample_nearest`, on either device.
 """
 from __future__ import annotations
 
@@ -81,13 +83,56 @@ def warp_with_taps(taps, phi, zero_boundary=True, scale_intensity=True):
                              scale_intensity=scale_intensity)
 
 
+def grid_sample_nearest(vol, coords, padding="zeros"):
+    """Nearest-neighbour sampling of ``vol`` (B, C, D, W, H) at pixel
+    ``coords`` (B, *out_shape, 3), ``coords[..., d]`` indexing axis ``d``:
+    the voxel ``floor(x + 0.5)`` per axis (half-integers round up), as
+    ``liftreg_tpu.ops.resample.grid_sample(mode="nearest")`` takes it;
+    outside the volume zero (``"zeros"``) or the clamped voxel
+    (``"border"``). ``F.grid_sample(mode="nearest")`` rounds half to even,
+    so it is not used. Returns ``(B, C, *out_shape)`` in ``vol``'s dtype."""
+    if padding not in ("zeros", "border"):
+        raise ValueError(f"padding {padding!r} not in ('zeros', 'border')")
+    B, C = vol.shape[:2]
+    spatial = vol.shape[2:]
+    out_shape = coords.shape[1:-1]
+    c = coords.reshape(B, -1, 3).float()
+    flat = torch.zeros(c.shape[:-1], dtype=torch.int64, device=vol.device)
+    inside = torch.ones(c.shape[:-1], dtype=torch.bool, device=vol.device)
+    stride = 1
+    for d in reversed(range(3)):
+        n = spatial[d]
+        idx = torch.floor(c[..., d] + 0.5).long()
+        inside &= (idx >= 0) & (idx <= n - 1)
+        flat += idx.clamp(0, n - 1) * stride
+        stride *= n
+    out = torch.gather(vol.reshape(B, C, -1), 2,
+                       flat[:, None, :].expand(B, C, flat.shape[1]))
+    if padding == "zeros":
+        out = out * inside[:, None, :].to(out.dtype)
+    return out.reshape(B, C, *out_shape)
+
+
 def warp_image(image, phi, zero_boundary=True, scale_intensity=True,
-               taps_dtype=None):
+               taps_dtype=None, mode="bilinear"):
     """Warp ``image`` (B, C, D, W, H) by the normalized map ``phi``
     (B, 3, D, W, H); channel ``c`` of ``phi`` indexes spatial axis ``c``.
 
     zero_boundary: zeros padding if True, else border.
     scale_intensity: shift [-1, 1] intensities to [0, 1] around the warp,
-    so zeros padding maps to the -1 background."""
+    so zeros padding maps to the -1 background.
+    mode: ``"bilinear"`` (trilinear, the kernel) or ``"nearest"``
+    (:func:`grid_sample_nearest`, which ignores ``taps_dtype``)."""
+    if mode == "nearest":
+        # the pixel coordinates as the JAX package makes them, in f32
+        scale = phi.new_tensor([(n - 1) * 0.5 for n in image.shape[2:]])
+        coords = (phi.movedim(1, -1) + 1.0) * scale
+        padding = "zeros" if zero_boundary else "border"
+        if scale_intensity:
+            return grid_sample_nearest((image + 1.0) * 0.5, coords,
+                                       padding) * 2.0 - 1.0
+        return grid_sample_nearest(image, coords, padding)
+    if mode != "bilinear":
+        raise ValueError(f"mode {mode!r} not in ('bilinear', 'nearest')")
     return warp_with_taps(warp_taps(image, scale_intensity, taps_dtype), phi,
                           zero_boundary, scale_intensity)

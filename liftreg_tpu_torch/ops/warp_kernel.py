@@ -84,17 +84,24 @@ def _abs_grad(t):
     return torch.where(t >= 0, 1.0, -1.0)
 
 
+def _clamp(x, lo, hi):
+    """``fminf(fmaxf(x, lo), hi)`` as the kernel clamps: NaN goes to ``lo``
+    (``clamp`` would keep it, and a NaN index cannot gather)."""
+    return x.clamp(lo, hi).nan_to_num(nan=lo)
+
+
 def _axis(c, n, border, mode, grad):
     """Tap indices, weights and (with ``grad``, else None) the weights'
     derivatives along one axis in ``mode`` (see the module docstring), as
-    the kernel computes them."""
+    the kernel computes them, NaN coordinates included (finite indices,
+    NaN weights)."""
     cg = torch.ones_like(c)
     if border and mode != GENERIC:
         if grad:
             cg = _clip_grad(c, n - 1.0)
-        c = c.clamp(0.0, n - 1.0)
+        c = _clamp(c, 0.0, n - 1.0)
     if mode == OCT:
-        s = torch.floor(c).clamp(0, n - 2)
+        s = _clamp(torch.floor(c), 0.0, n - 2.0)
         t = c - s
         y0, y1 = 1.0 - t.abs(), 1.0 - (t - 1.0).abs()
         idx = (s.long(), s.long() + 1)
@@ -106,7 +113,8 @@ def _axis(c, n, border, mode, grad):
         return idx, weights, grads
     z0 = torch.floor(c)
     f = c - z0
-    k0 = z0.long()
+    # k0 only matters inside [-1, n]: the clamp is exact
+    k0 = _clamp(z0, -2.0, n + 1.0).long()
     if border:
         m0 = m1 = torch.ones_like(c)
     else:

@@ -43,9 +43,9 @@ class RegistrationPipeline:
     it; an unknown name raises ``ValueError`` here. A bf16 compute type
     also selects bf16 warp taps unless ``warp_taps_dtype`` overrides it.
     ``device`` None means the CUDA card and raises without
-    one; pass ``"cpu"`` to run the kernels' plain versions. The pipeline
-    turns TF32 off process-wide so that f32 products and convolutions
-    keep f32 precision, as the JAX package asks XLA for HIGHEST. The DRR
+    one; pass ``"cpu"`` to run the kernels' plain versions. The model and
+    the refinement keep their f32 products and convolutions in f32 on the
+    card (:func:`.device.f32_precision`); no process-wide flag is set. The DRR
     geometry of the (static) poses is built once, here, for a detector of
     ``resolution``; :meth:`register_projections` builds the lift's anew
     for projections of another size, as the JAX model does.
@@ -71,8 +71,6 @@ class RegistrationPipeline:
                  refine_early_stop_patience=None, refine_early_stop_tol=1e-4,
                  device=None):
         self.device = resolve_device(device)
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
         self.img_sz = tuple(int(s) for s in img_sz)
         self.spacing = tuple(float(s) for s in spacing)
         self.resolution = tuple(int(r) for r in resolution) \

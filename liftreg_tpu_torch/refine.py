@@ -25,6 +25,7 @@ import math
 import torch
 
 from .coords import identity_map
+from .device import f32_precision
 from .losses.registration import displacement_reg
 from .losses.similarity import get_similarity
 from .models.subspace_backproj import expand_pca
@@ -73,6 +74,7 @@ def _build_refine(losses_fn, lr, n_steps, early_stop_patience=None,
     evaluations made.
     """
 
+    @f32_precision()
     def refine(coefs0, *args):
         z = coefs0.detach().float().clone()
         B = z.shape[0]

@@ -526,3 +526,101 @@ def test_warp_phi_kernels_match_plain(device, case, taps, border,
                                  scale_intensity=scale_intensity)
     torch.testing.assert_close(got_grad, want, rtol=0,
                                atol=1e-5 * float(want.abs().max()))
+
+
+def _tf32_flags():
+    return (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32,
+            torch.get_float32_matmul_precision())
+
+
+def test_model_alone_keeps_f32_with_tf32_on(device):
+    """C5: the caller turns TF32 on for the process, then builds the model
+    alone (no pipeline) in f32 on the card: its output agrees with the CPU
+    at the pipeline's f32 tolerance (phi atol 1e-5, warped atol 1e-4; TF32
+    convolutions would be off by ~1e-3), and the caller's flags are the
+    same after each call."""
+    from liftreg_tpu_torch.models import LiftRegSubspaceBackproj
+    sz, P, L = (32, 32, 32), 4, 8
+    g = torch.Generator().manual_seed(11)
+    inputs = {"source": torch.rand((2, 1) + sz, generator=g) * 2 - 1,
+              "target": torch.rand((2, 1) + sz, generator=g) * 2 - 1,
+              "target_proj": torch.rand((2, P, 48, 48), generator=g) * 2 - 1,
+              "target_poses": torch.from_numpy(
+                  drr.synthesize_poses(30.0, P, sz[1]))}
+    pca = {"vectors": torch.randn((L, 3 * 32 ** 3), generator=g) * 0.01,
+           "mean": torch.randn((3 * 32 ** 3,), generator=g) * 0.01}
+    torch.manual_seed(11)
+    model = LiftRegSubspaceBackproj(sz, latent_dim=L, drr_feature_num=P)
+    saved = _tf32_flags()
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        caller = _tf32_flags()
+        outs = {}
+        for where in ("cpu", "cuda"):
+            m = LiftRegSubspaceBackproj(sz, latent_dim=L, drr_feature_num=P)
+            m.load_state_dict(model.state_dict())
+            m.to(where)
+            with torch.no_grad():
+                out = m({k: v.to(where) for k, v in inputs.items()},
+                        {k: v.to(where) for k, v in pca.items()})
+            torch.cuda.synchronize()
+            assert _tf32_flags() == caller
+            outs[where] = {k: out[k].cpu() for k in ("phi", "warped")}
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved[0]
+        torch.backends.cudnn.allow_tf32 = saved[1]
+    torch.testing.assert_close(outs["cuda"]["phi"], outs["cpu"]["phi"],
+                               atol=1e-5, rtol=0)
+    torch.testing.assert_close(outs["cuda"]["warped"], outs["cpu"]["warped"],
+                               atol=1e-4, rtol=0)
+
+
+def test_train_step_on_card_matches_cpu(device, tmp_path):
+    """One train step of RegistrationTrainer at 32^3 (B = 2, latent 4,
+    2 views, f32) on the card against the same step on the CPU from the
+    same parameters: the losses atol 1e-5, the parameters after the step
+    atol 1e-5 (Adam's first step moves each weight by about lr = 1e-3, so
+    a gradient's f32 differences reach the weights only where it is near
+    0, and a gradient wrong in magnitude not at all), Adam's moments after
+    the step (mu = 0.1 g, nu = 0.001 g^2: the gradient itself) within 1e-2
+    of each leaf's largest value (the card's lift geometry rounds
+    otherwise, and the first convolution's gradient, whose sums cancel,
+    carries that further than the other leaves),
+    with the launches of one step: the lift,
+    the warp and its coordinate gradient once each, no PCA kernel (f32
+    basis)."""
+    import os
+    from liftreg_tpu_torch.train import RegistrationTrainer
+    from torch_train_data import setting, write_dataset
+    os.environ["LIFTREG_NO_TB"] = "1"
+    root = write_dataset(str(tmp_path / "data"), sz=32, n_train=2, n_val=1)
+    cpu = RegistrationTrainer(setting(str(root), str(tmp_path / "cpu"),
+                                      sz=32), device="cpu")
+    init = cpu.save_model("init", is_best=False)
+    card = RegistrationTrainer(setting(str(root), str(tmp_path / "card"),
+                                       sz=32, init_params_from=init))
+    kernels = (backproject_taps, warp_trilinear, warp_coord_grad,
+               pca_expand, pca_grad, project_taps)
+    results = {}
+    for name, tr in (("cpu", cpu), ("cuda", card)):
+        batch, names = next(iter(tr._iter_device("train", 0)))
+        before = [k.launches for k in kernels]
+        losses = tr._train_step(batch, tr.loss.factor(0), len(names))
+        torch.cuda.synchronize()
+        launches = [k.launches - b for k, b in zip(kernels, before)]
+        results[name] = ({k: float(v) for k, v in losses.items()},
+                         {k: p.detach().cpu() for k, p in tr.params.items()},
+                         {m: {k: v.cpu() for k, v in tr.opt_state[m].items()}
+                          for m in ("mu", "nu")})
+    assert launches == [1, 1, 1, 0, 0, 0]
+    for m, leaves in results["cpu"][2].items():
+        for k, want in leaves.items():
+            err = float((results["cuda"][2][m][k] - want).abs().max())
+            assert err <= 1e-2 * float(want.abs().max()), (m, k, err)
+    for k in ("total_loss", "sim_loss", "reg_loss"):
+        assert abs(results["cuda"][0][k] - results["cpu"][0][k]) <= 1e-5, k
+    for k, want in results["cpu"][1].items():
+        torch.testing.assert_close(results["cuda"][1][k], want, atol=1e-5,
+                                   rtol=0)
