@@ -27,7 +27,12 @@ line with its elapsed seconds:
    also with phi in its (B, 3, D, W, H) layout, as warp_image passes it
    (B = 1, 4 and 9 at the serving shape, M = 6001 points, phi and the
    cotangent off a 16-byte boundary, unit dims; both tap types, both
-   paddings, scale_intensity on and off);
+   paddings, scale_intensity on and off); the PCA backward, kernel and
+   plain version each, against the f64 product (half a bf16 step);
+   image_grad_check: the warp's image gradient (f32 taps) at C = 1 and 3,
+   160^3, B = 1 and 2, in both layouts, both paddings, scale_intensity on
+   and off, far outside, on integers and on the edges, unit dims, M = 6001,
+   phi off a 16-byte boundary, each called twice;
 4. main_path: RegistrationPipeline.register at 160^3, B=4, 4 views on a
    240^2 detector, latent 56, bf16 encoder, basis and taps, with random
    seeded weights; the kernels' launch counts are zeroed just before and
@@ -83,10 +88,33 @@ line with its elapsed seconds:
    on the same files listed 3 times, its batches read by the host
    DataLoader (cache_on_device false) and then from the card-resident
    cache, each under torch.profiler: ms a step and the device's idle share;
+   evaluate: a test split of 3 cases added to the train dataset (300
+   landmark pairs each in DIR-Lab's layout, lung segmentations, a
+   _prop.npy), and the port's eval CLI as a subprocess on the train
+   phase's experiment: one CSV row per case, every TRE finite, every Dice
+   in [0, 1], the one line about matplotlib where it is absent, the
+   identity map's TRE equal to the landmarks' initial distance, and the
+   Dice's nearest warp equal on the card and on the CPU;
    train_reference: 2 train steps at 32^3 on the card against the same
    steps on the CPU from the same parameters (losses, parameters and each
    step's Adam moments, which carry the gradients), then again with the
    card's warp coordinate gradient doubled, which the moments must catch;
+   regnet_reference: the same for RegNet2D3D, with the card's image
+   gradient doubled;
+   subspace_train: LiftRegSubspace at the reference config (B = 30)
+   through the CLI, one epoch of 2 steps (launch counts exact: no lift, no
+   image gradient), one step alone, 2 timed; its forward on the card
+   against the CPU at 32^3;
+   regnet_train: RegNet2D3D at the learned-basis workflow's stage-1
+   config (160^3, B = 1, 4 views on 240^2, full widths, 7 inverse steps,
+   f32, its projection loss, Adam at 5e-4) through the CLI, one epoch of
+   3 steps with validation and a checkpoint, then one step alone (lift 1,
+   projector 3, adjoint 2 and its plan 1, warp 9, coordinate gradient 8,
+   image gradient 8) and 5 timed after a warm-up;
+   regnet_check: the image and coordinate gradients at that step's own
+   shapes and values (disp and warped at idm + disp_inv, the attenuation
+   at phi), kernel against plain;
+   profile_regnet: one RegNet2D3D step under torch.profiler;
 9. times: each kernel, its plain version and one PyTorch library call of
    the same function, with CUDA events (the warp and its gradient in both
    layouts and with both tap types; the lift also as the serving path
@@ -94,20 +122,27 @@ line with its elapsed seconds:
    writes); the steady-state register time, with and without refinement
    (image domain with NCC and with LNCC, projection domain), and peak
    memory; the train step's median time and peak memory at the reference
-   config, and the bf16 step's (measured in train and train_bf16);
+   config, and the bf16 step's (measured in train and train_bf16); the
+   image gradient, its plain version and grid_sampler_3d_backward's input
+   gradient at C = 3, 160^3, B = 1; the RegNet2D3D and LiftRegSubspace
+   step times and peaks (measured in their phases);
 10. profile / profile_refine / profile_refine_projection: one register
    call, without refinement, with image-domain and with projection-domain
    refinement, under torch.profiler: device time by layer (from kernel
    names) and the device's idle share.
 
-Then the nvidia-smi line, one JSON line of per-kernel numbers
-(``launches`` and ``projection_launches`` from refine_projection's
-register, which runs all eight kernels; ``serving_launches`` from
-main_path's register, ``image_refine_launches`` from refine's,
-``train_launches`` and ``train_bf16_launches`` from one train step), and last
+Then the nvidia-smi line, one JSON line of per-kernel numbers for the
+nine kernels (``launches``: for the image gradient one RegNet2D3D step's,
+for the others refine_projection's register, which runs all eight;
+``projection_launches`` from that register, ``serving_launches`` from
+main_path's, ``image_refine_launches`` from refine's,
+``train_launches``, ``train_bf16_launches``, ``regnet_launches`` and
+``subspace_launches`` from one train step of each), and last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero; so does a
 missing card, and a watchdog after 15 minutes.
 """
+import csv
+import importlib.util
 import json
 import math
 import os
@@ -145,6 +180,11 @@ DRR_OPS_PER_TWO_TAPS = 4
 # one step of the adjoint plan's binary search: a subtraction, the sign's
 # multiply and a comparison
 PLAN_OPS_PER_STEP = 3
+# the warp's image gradient: per point the three axes' taps and weights
+# and the four (y, x) weight products, and per channel and tap two
+# products and the atomic add
+IMG_GRAD_OPS_PER_POINT = 30
+IMG_GRAD_OPS_PER_TERM = 3
 
 SZ = 160
 B = 4
@@ -157,11 +197,14 @@ WARP_TOL = 1e-6
 PROJ_REL_TOL = 1e-5
 LIFT_TOL = 1e-6
 # the coordinate gradient fuses multiply-adds that the plain version rounds
-# twice (relative to the largest component); the PCA backward rounds an f32
-# sum taken in another order to bf16 (one bf16 step, plus 1e-4 of the
-# largest value for sums that cancel to near zero)
+# twice (relative to the largest component)
 WARP_GRAD_REL_TOL = 1e-5
-PCA_GRAD_RTOL, PCA_GRAD_REL_ATOL = 2.0 ** -8, 1e-4
+# the warp's image gradient (f32 taps) adds each tap's terms with f32
+# atomics in an order that changes from call to call: against the plain
+# version, and a second call against the first, within 1e-5 of the largest
+# value plus 1e-6 of the sum of the tap's terms' magnitudes (a border tap
+# that takes a plane of points far outside sums ~25,600 terms)
+IMG_GRAD_REL_TOL, IMG_GRAD_MAG_TOL = 1e-5, 1e-6
 # the adjoint sums each view's tap pairs in another order than the plain
 # dense products (relative to the largest value)
 ADJ_REL_TOL = 1e-5
@@ -205,16 +248,41 @@ TRAIN_REF_TOL = 1e-5
 TRAIN_MOMENT_RTOL = 1e-2
 # train_check: the plain versions at B = 30 run this many rows at a time
 TRAIN_CHECK_ROWS = 10
-# the PCA backward at the train step's shapes (B = 30, L = 56, n = 3 *
-# 160^3) against the f64 product: within half a bf16 step of the exact sum,
-# plus 1e-5 of the largest value for the f32 sums' order. Against the plain
-# version (cuBLAS's f32 sum, rounded) PCA_GRAD_RTOL does not hold there:
-# where the exact sum lies at a bf16 rounding midpoint, the two f32 sums
-# round to neighbouring bf16 values, a full step apart, which is up to
-# 2^-7 of the value
+# the PCA backward, kernel and plain version each, against the f64 product:
+# within half a bf16 step of the exact sum, plus 1e-5 of the largest value
+# for the f32 sums' order. Held against each other, the two can be a full
+# bf16 step apart (up to 2^-7 of the value) where the exact sum lies at a
+# rounding midpoint and their f32 sums round to opposite neighbours
 PCA_GRAD_F64_REL_ATOL = 1e-5
 # train_host_loader / train_device_loader: steps of the one epoch timed
 TRAIN_LOADER_STEPS = 3
+# evaluate: the test split the phase adds to the train phase's dataset,
+# and the landmark pairs of each case (DIR-Lab's count)
+EVAL_CASES = 3
+EVAL_LANDMARKS = 300
+# subspace_train: LiftRegSubspace at the reference config, one epoch of 2
+# steps (the training files listed twice), then 2 timed steps
+SUBSPACE_STEPS = 2
+# RegNet2D3D at the stage-1 config of the learned-basis workflow
+# (tools/paper_workflow_160.py:160-174): B = 1, 4 views, 7 inverse steps,
+# lr 5e-4, the projection-loss dataset without the HU clip; one epoch of 3
+# steps, then one step alone and 5 timed after a warm-up
+REGNET_STEPS = 3
+REGNET_TIMED_STEPS = 5
+# one RegNet2D3D train step: the lift; the 7 inverse warps of disp, the warp
+# of the attenuation by phi and of the result by the inverse; their
+# coordinate gradients (not the first inverse warp's, at the identity) and
+# image gradients (the 7 of disp and the inverse warp's of warped); the
+# three re-projections, two of them differentiated through the adjoint and
+# its plan, built once
+REGNET_STEP_LAUNCHES = {"drr_backproject": 1, "warp_trilinear": 9,
+                        "warp_coord_grad": 8, "warp_image_grad": 8,
+                        "drr_project": 3, "drr_project_adjoint": 2,
+                        "drr_adjoint_plan": 1}
+# and each validation batch (no gradient): the lift, the warps, the
+# projections
+REGNET_VAL_LAUNCHES = {"drr_backproject": 1, "warp_trilinear": 9,
+                       "drr_project": 3}
 
 _state = {"phase": "start", "t0": time.perf_counter()}
 
@@ -264,6 +332,18 @@ def _max_err(a, b):
     return float((a - b).abs().max())
 
 
+def _f64_excess(torch, got, exact):
+    """The largest excess of ``|got - exact|`` over half a bf16 step at
+    each exact value plus PCA_GRAD_F64_REL_ATOL of the largest; <= 0 where
+    ``got`` (a bf16-valued result) is the exact f64 sum rounded, up to the
+    f32 sums' order."""
+    # half a bf16 step at each exact value: |x| = m 2^e, m in [0.5, 1)
+    half_step = torch.ldexp(torch.ones_like(exact),
+                            torch.frexp(exact).exponent - 9)
+    slack = PCA_GRAD_F64_REL_ATOL * float(exact.abs().max())
+    return float(((got.double() - exact).abs() - half_step - slack).max())
+
+
 def _layer(kernel_name):
     """Layer of a device kernel, from its name."""
     name = kernel_name.lower()
@@ -273,6 +353,7 @@ def _layer(kernel_name):
                         ("pca_grad", ("pca_grad",)),
                         ("pca_expand", ("pca_expand",)),
                         ("warp_coord_grad", ("warp_coord_grad",)),
+                        ("warp_image_grad", ("warp_image_grad",)),
                         ("warp_trilinear", ("warp_trilinear",)),
                         ("drr_project", ("drr_project",)),
                         ("drr_backproject", ("drr_backproject",)),
@@ -344,6 +425,123 @@ def warp_phi_cases(torch, F, g, device):
             torch.rand((2, 2) + spatial, generator=g, device=device), phi,
             torch.randn((2, 2) + out_shape, generator=g, device=device))
     return cases
+
+
+def image_grad_cases(torch, F, g, device):
+    """The image gradient's cases of image_grad_check: {name: (f32 taps
+    (B, C, D, W, H) (read for their shape), points, cotangent, phi
+    layout?)}: C = 1 and 3 at the serving shape with B = 1 and 2 in both
+    layouts (smooth fields with slabs far outside, a quarter of the points
+    on integers, planes on and just past the edges), phi and the cotangent
+    off a 16-byte boundary, M = 6001 points, and unit dims."""
+    cases = {}
+    for C in (1, 3):
+        for batch in (1, 2):
+            coords = _smooth_coords(torch, F, g, batch, SZ, 4.0, device)
+            coords[:, ::4] = torch.floor(coords[:, ::4])
+            planes = coords.view(batch, SZ, SZ, SZ, 3)
+            for k, v in enumerate((0.0, SZ - 1.0, -0.5, SZ - 0.5)):
+                planes[-1, 2 + k] = v
+            vol = torch.zeros((batch, C) + (SZ,) * 3, device=device)
+            cot = torch.randn((batch, C) + (SZ,) * 3, generator=g,
+                              device=device)
+            cases[f"phi/c{C}_b{batch}"] = (vol, _phi_of(coords, SZ), cot,
+                                           True)
+            cases[f"pixel/c{C}_b{batch}"] = (vol, coords,
+                                             cot.reshape(batch, C, -1), False)
+    vol, phi, cot, _ = cases["phi/c3_b1"]
+    cases["phi/unaligned"] = (vol, _unaligned(torch, phi),
+                              _unaligned(torch, cot), True)
+    shapes = {"ragged_m": ((37, 29, 41), (6001,)),
+              "unit_d": ((1, SZ, SZ),) * 2, "unit_w": ((SZ, 1, SZ),) * 2,
+              "unit_h": ((SZ, SZ, 1),) * 2}
+    for name, (spatial, out_shape) in shapes.items():
+        phi = torch.rand((2, 3) + out_shape, generator=g,
+                         device=device) * 2.6 - 1.3
+        cases[f"phi/{name}"] = (
+            torch.zeros((2, 2) + spatial, device=device), phi,
+            torch.randn((2, 2) + out_shape, generator=g, device=device), True)
+    return cases
+
+
+def image_grad_errs(fn, plain, vol, pts, cot, border, **flags):
+    """The image-gradient kernel ``fn`` against ``plain``, called twice:
+    {max abs error, that over the largest value, the largest excess over
+    the tolerance of the kernel and of its second call (<= 0 passes)}."""
+    got = fn(vol, pts, cot, border, **flags)
+    again = fn(vol, pts, cot, border, **flags)
+    want = plain(vol, pts, cot, border, **flags)
+    tol = IMG_GRAD_REL_TOL * float(want.abs().max()) + IMG_GRAD_MAG_TOL \
+        * plain(vol, pts, cot.abs(), border, **flags)
+    err = _max_err(got, want)
+    return {"max_abs_err": err, "rel_err": err / float(want.abs().max()),
+            "excess": float(((got - want).abs() - tol).max()),
+            "repeat_excess": float(((again - got).abs() - tol).max())}
+
+
+def split_root(root, src, splits):
+    """A dataset root over the files of the dataset at ``src`` whose
+    splits list the given case names ({phase: names})."""
+    import numpy as np
+    for phase, names in splits.items():
+        os.makedirs(os.path.join(root, phase))
+        np.save(os.path.join(root, phase, "data_id.npy"), np.array(names))
+    for d in ("preprocessed", "drr", "pca"):
+        os.symlink(os.path.join(src, d), os.path.join(root, d))
+    return root
+
+
+def write_eval_split(root, sz, n_cases, n_distinct, n_points, seed):
+    """A test split of ``n_cases`` cases in the train dataset at ``root``
+    (volumes of ``sz``^3)
+    (hard links to its ``n_distinct`` distinct cases' volumes,
+    segmentations and projections), each with a ``_prop.npy`` and
+    ``n_points`` landmark pairs in DIR-Lab's layout
+    (``landmarks/<case>_300_{iBH,eBH}_xyz_r1.txt``: 1-indexed x y z, tab
+    separated), the target points a seeded shift of the source points.
+    Returns the case names."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    pre = os.path.join(root, "preprocessed")
+    drr_dir = os.path.join(root, "drr", "drr", "drr")
+    lm_dir = os.path.join(root, "landmarks")
+    os.makedirs(lm_dir, exist_ok=True)
+    os.makedirs(os.path.join(root, "test"), exist_ok=True)
+    names = [f"te{i:02d}" for i in range(n_cases)]
+    for i, name in enumerate(names):
+        for f in ("source", "target", "source_seg", "target_seg"):
+            os.link(os.path.join(pre, f"d{i % n_distinct}_{f}.npy"),
+                    os.path.join(pre, f"{name}_{f}.npy"))
+        for f in ("source_proj", "target_proj"):
+            os.link(os.path.join(drr_dir, f"d{i % n_distinct}_{f}.npy"),
+                    os.path.join(drr_dir, f"{name}_{f}.npy"))
+        np.save(os.path.join(pre, f"{name}_prop.npy"),
+                {"origin": np.zeros(3), "spacing": np.full(3, 2.2)})
+        src = rng.uniform(sz / 8, sz * 7 / 8, (n_points, 3))
+        tgt = src + rng.normal(scale=1.5, size=src.shape)
+        for suffix, pts in (("iBH", src), ("eBH", tgt)):
+            with open(os.path.join(lm_dir, f"{name}_300_{suffix}_xyz_r1.txt"),
+                      "w") as f:
+                f.writelines(f"{p[0]:.4f}\t{p[1]:.4f}\t{p[2]:.4f}\n"
+                             for p in pts)
+    np.save(os.path.join(root, "test", "data_id.npy"), np.array(names))
+    return names
+
+
+def regnet_setting(root, out, **train):
+    """The setting of RegNet2D3D at the stage-1 config of the learned-basis
+    workflow (``tools/paper_workflow_160.py:160-174``) on the dataset under
+    ``root``: the reference config with the projection-loss dataset
+    without the HU clip, RegNet2D3D with 4 views and 7 inverse steps, its
+    loss, Adam at lr 5e-4, B = 1."""
+    cfg = train_setting(TRAIN_CONFIG, root, out, debug_on=False, **train)
+    cfg["dataset"].update(dataset_class="registration2d3d_projloss",
+                          apply_hu_clip=False)
+    cfg["train"].update(model_class="regnet2d3d", loss_class="regnet2d3d")
+    cfg["train"]["model"] = {"drr_feature_num": 4, "inverse_iters": 7}
+    cfg["train"]["optim"]["lr"] = 5e-4
+    cfg["train"]["dataloader"]["batch_size"] = 1
+    return cfg
 
 
 def _smooth_field(torch, F, g, shape, low, device):
@@ -600,6 +798,8 @@ def main():
                                                   pca_grad_plain)
     from liftreg_tpu_torch.ops.warp_kernel import (warp_coord_grad,
                                                    warp_coord_grad_plain,
+                                                   warp_image_grad,
+                                                   warp_image_grad_plain,
                                                    warp_trilinear,
                                                    warp_trilinear_plain)
     from liftreg_tpu_torch.pipeline import normalize_hu
@@ -608,6 +808,7 @@ def main():
     KERNELS = {"pca_expand": pca_expand, "pca_grad": pca_grad,
                "warp_trilinear": warp_trilinear,
                "warp_coord_grad": warp_coord_grad,
+               "warp_image_grad": warp_image_grad,
                "drr_project": project_taps,
                "drr_project_adjoint": project_adjoint_taps,
                "drr_adjoint_plan": project_adjoint_plan,
@@ -900,10 +1101,11 @@ def main():
                                     device=dev) * 0.01).bfloat16())}.items():
         want = pca_grad_plain(cg, vg)
         got = pca_grad(cg, vg)
-        excess = ((got - want).abs() - PCA_GRAD_RTOL * want.abs()
-                  - PCA_GRAD_REL_ATOL * float(want.abs().max())).max()
+        exact = cg.double() @ vg.double().T
         pca_grad_errs[key] = {"max_abs_err": _max_err(got, want),
-                              "excess_over_tol": float(excess),
+                              "f64_excess": _f64_excess(torch, got, exact),
+                              "plain_f64_excess": _f64_excess(torch, want,
+                                                              exact),
                               "bf16_values": bool(torch.equal(
                                   got, got.bfloat16().float())),
                               # no float atomics: a second call, same bits
@@ -913,13 +1115,36 @@ def main():
     _emit(warp_grad_abs_rel_err=grad_errs,
           warp_grad_rel_tol=WARP_GRAD_REL_TOL,
           pca_grad=pca_grad_errs,
-          pca_grad_tol={"rtol": PCA_GRAD_RTOL,
-                        "rel_atol": PCA_GRAD_REL_ATOL})
+          pca_grad_f64_tol={"half_bf16_step": True,
+                            "rel_atol": PCA_GRAD_F64_REL_ATOL})
     _require(grad_rel <= WARP_GRAD_REL_TOL,
              f"warp gradient kernel relative error {grad_rel}")
-    _require(all(e["excess_over_tol"] <= 0 and e["bf16_values"]
+    _require(all(e["f64_excess"] <= 0 and e["plain_f64_excess"] <= 0
+                 and e["bf16_values"]
                  and e["repeat_bit_equal"] for e in pca_grad_errs.values()),
              f"PCA backward kernel disagrees: {pca_grad_errs}")
+
+    _begin("image_grad_check")
+    # the warp's image gradient (f32 taps) against its plain version, both
+    # paddings, scale_intensity on and off in the phi layout, two calls
+    img_errs = {}
+    for name, (ivol, pts, icot, phi_layout) in image_grad_cases(
+            torch, F, g, dev).items():
+        for border in (False, True):
+            for rescale in ((False, True) if phi_layout else (False,)):
+                flags = ({"normalized": True, "scale_intensity": rescale}
+                         if phi_layout else {})
+                key = (f"{name}/{'border' if border else 'zeros'}"
+                       f"{'/scaled' if rescale else ''}")
+                img_errs[key] = image_grad_errs(
+                    warp_image_grad, warp_image_grad_plain, ivol, pts, icot,
+                    border, **flags)
+    errs["warp_image_grad"] = max(e["max_abs_err"] for e in img_errs.values())
+    _emit(max_err=img_errs, tol={"rel": IMG_GRAD_REL_TOL,
+                                 "of_terms_magnitude": IMG_GRAD_MAG_TOL})
+    _require(all(e["excess"] <= 0 and e["repeat_excess"] <= 0
+                 for e in img_errs.values()),
+             f"the image-gradient kernel disagrees: {img_errs}")
 
     # -- the main path -----------------------------------------------------
     _begin("main_path")
@@ -945,7 +1170,7 @@ def main():
     # this shape, runs as two passes (chunks, then their ordered sum) and
     # counts them as one launch, as the PCA backward does
     serving = {"pca_expand": 1, "pca_grad": 0, "warp_trilinear": 1,
-               "warp_coord_grad": 0, "drr_project": 1,
+               "warp_coord_grad": 0, "warp_image_grad": 0, "drr_project": 1,
                "drr_project_adjoint": 0, "drr_adjoint_plan": 0,
                "drr_backproject": 1}
     _require(launches == serving,
@@ -987,7 +1212,7 @@ def main():
                 "drr_backproject": 1, "pca_expand": REFINE_STEPS + 3,
                 "pca_grad": REFINE_STEPS + 1,
                 "warp_trilinear": REFINE_STEPS + 3,
-                "warp_coord_grad": REFINE_STEPS + 1}
+                "warp_coord_grad": REFINE_STEPS + 1, "warp_image_grad": 0}
     res_r = pipe_r.last_refine
     _require(bool(torch.isfinite(warped_r).all()
                   and torch.isfinite(phi_r).all()),
@@ -1051,7 +1276,7 @@ def main():
                   "drr_backproject": 1, "pca_expand": REFINE_STEPS + 3,
                   "pca_grad": REFINE_STEPS + 1,
                   "warp_trilinear": REFINE_STEPS + 4,
-                  "warp_coord_grad": REFINE_STEPS + 1}
+                  "warp_coord_grad": REFINE_STEPS + 1, "warp_image_grad": 0}
     _require(bool(torch.isfinite(warped_p).all()
                   and torch.isfinite(phi_p).all()),
              "non-finite projection-refined output")
@@ -1489,23 +1714,12 @@ def main():
     V64 = V_t.double()
     exact = by_rows(lambda c: c.double() @ V64.T, (cot_pca_t,))
     del V64
-    # half a bf16 step at each exact value: |x| = m 2^e, m in [0.5, 1)
-    half_step = torch.ldexp(torch.ones_like(exact),
-                            torch.frexp(exact).exponent - 9)
-    slack = PCA_GRAD_F64_REL_ATOL * float(exact.abs().max())
-
-    def f64_excess(t):
-        return float(((t.double() - exact).abs() - half_step - slack).max())
-
     pca_t["grad"] = _max_err(got, want)
     pca_t["grad_values_unequal_to_plain"] = int((got != want).sum())
-    pca_t["grad_f64_excess"] = f64_excess(got)
-    pca_t["plain_f64_excess"] = f64_excess(want)
-    pca_t["grad_excess_over_plain_tol"] = float(
-        ((got - want).abs() - PCA_GRAD_RTOL * want.abs()
-         - PCA_GRAD_REL_ATOL * float(want.abs().max())).max())
+    pca_t["grad_f64_excess"] = _f64_excess(torch, got, exact)
+    pca_t["plain_f64_excess"] = _f64_excess(torch, want, exact)
     pca_t["grad_bf16_values"] = bool(torch.equal(got, got.bfloat16().float()))
-    del coefs_t, cot_pca_t, want, got, exact, half_step
+    del coefs_t, cot_pca_t, want, got, exact
     errs["pca_expand"] = max(errs["pca_expand"], pca_t["expand"])
     errs["pca_grad"] = max(errs["pca_grad"], pca_t["grad"])
     _emit(launches_per_step=bf16_launches, step_ms=bf16_ms,
@@ -1537,15 +1751,14 @@ def main():
     # DataLoader (a thread stacks each batch, the step's thread copies it
     # to the card) and then from the card-resident cache
     import numpy as np
-    loader_root = os.path.join(train_root, "data_loader")
-    for split, reps in (("train", TRAIN_LOADER_STEPS), ("val", 1)):
-        os.makedirs(os.path.join(loader_root, split))
-        ids = np.load(os.path.join(train_root, "data", split, "data_id.npy"))
-        np.save(os.path.join(loader_root, split, "data_id.npy"),
-                np.tile(ids, reps))
-    for d in ("preprocessed", "drr", "pca"):
-        os.symlink(os.path.join(train_root, "data", d),
-                   os.path.join(loader_root, d))
+    data_root = os.path.join(train_root, "data")
+    train_ids = list(np.load(os.path.join(data_root, "train",
+                                          "data_id.npy")))
+    val_ids = list(np.load(os.path.join(data_root, "val", "data_id.npy")))
+    loader_root = split_root(os.path.join(train_root, "data_loader"),
+                             data_root,
+                             {"train": train_ids * TRAIN_LOADER_STEPS,
+                              "val": val_ids})
     loader_ms = {}
     for cache in (False, True):
         kind = "device" if cache else "host"
@@ -1579,19 +1792,81 @@ def main():
         del tl, epoch
         torch.cuda.empty_cache()
 
+    # -- evaluation of the train phase's experiment ------------------------
+    _begin("evaluate")
+    from liftreg_tpu_torch.utils import tre
+    eval_names = write_eval_split(data_root, SZ, EVAL_CASES, TRAIN_DISTINCT,
+                                  EVAL_LANDMARKS, 5)
+    # the port's eval CLI, as a user runs it, on the train phase's
+    # experiment: test mode from its best checkpoint, then the TRE
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "liftreg_tpu_torch.eval_cli", "-s",
+         os.path.join(exp, "cur_task_setting.json")], capture_output=True,
+        text=True, timeout=600, env=dict(os.environ, LIFTREG_NO_TB="1"))
+    cli_s = time.perf_counter() - t0
+    _require(proc.returncode == 0, f"the eval CLI exited {proc.returncode}: "
+             f"{proc.stdout[-2000:]}{proc.stderr[-3000:]}")
+    with open(os.path.join(exp, "evaluate_result.csv")) as f:
+        rows = list(csv.DictReader(f))
+    tres = [float(r["dist"]) for r in rows]
+    dices = [float(r["dice"]) for r in rows]
+    no_mpl = importlib.util.find_spec("matplotlib") is None
+    mpl_lines = [ln for ln in proc.stdout.splitlines() if "matplotlib" in ln]
+    # the identity map's TRE is the landmarks' initial mean distance
+    src_pts, tgt_pts = (tre.read_points(
+        os.path.join(data_root, "landmarks",
+                     f"{eval_names[0]}_300_{k}_xyz_r1.txt"),
+        expect_count=EVAL_LANDMARKS) for k in ("iBH", "eBH"))
+    spacing = np.full(3, 2.2)
+    identity_tre = tre.eval_with_data(
+        src_pts, tgt_pts, tre.create_identity((SZ,) * 3)[None],
+        np.full(3, float(SZ)), spacing, np.zeros(3), spacing)[0]
+    initial = float(np.mean(np.linalg.norm((tgt_pts - src_pts) * spacing,
+                                           axis=1)))
+    # the Dice's nearest warp on the card and on the CPU
+    phi01 = np.load(os.path.join(exp, "tests", f"{eval_names[0]}_phi.npy"))
+    segs = [np.load(os.path.join(data_root, "preprocessed",
+                                 f"{eval_names[0]}_{side}_seg.npy"))
+            for side in ("source", "target")]
+    dice_dev = {where: tre.warped_seg_dice(*segs, phi01, device=where)
+                for where in ("cuda", "cpu")}
+    _emit(cli_s=cli_s, cases=len(rows), tre_mm=tres, dice=dices,
+          matplotlib_absent=no_mpl, matplotlib_lines=mpl_lines,
+          identity_tre=identity_tre, initial_distance=initial,
+          dice_card_cpu=dice_dev, cli_stdout_tail=proc.stdout[-600:])
+    _require(sorted(r["id"] for r in rows) == eval_names,
+             f"evaluate_result.csv rows {[r['id'] for r in rows]}")
+    _require(all(math.isfinite(t) for t in tres)
+             and all(0.0 <= d <= 1.0 for d in dices),
+             f"TRE {tres} or Dice {dices} out of range")
+    _require(len(mpl_lines) == int(no_mpl),
+             f"the matplotlib line: {mpl_lines} (absent: {no_mpl})")
+    _require(abs(identity_tre - initial) <= 1e-5 * initial,
+             f"the identity's TRE {identity_tre} is not the initial "
+             f"distance {initial}")
+    _require(dice_dev["cuda"] == dice_dev["cpu"],
+             f"the Dice's warp differs between card and CPU: {dice_dev}")
+
+    # -- training against the CPU at 32^3 ----------------------------------
     _begin("train_reference")
+    from liftreg_tpu_torch.ops import warp_kernel
     ref_root = os.path.join(train_root, "small")
     write_train_dataset(torch, F, drr, project_taps,
                         os.path.join(ref_root, "data"), 32, 4, 1, 2, 8, 4,
                         torch.Generator(device=dev).manual_seed(4), dev)
 
-    def ref_trainer(where, out, init=None):
-        cfg = train_setting(TRAIN_CONFIG, os.path.join(ref_root, "data"),
-                            os.path.join(ref_root, out), epoch=0,
-                            debug_on=False)
+    def ref_trainer(where, out, init=None, regnet=False):
+        data = os.path.join(ref_root, "data")
+        if regnet:
+            cfg = regnet_setting(data, os.path.join(ref_root, out), epoch=0)
+        else:
+            cfg = train_setting(TRAIN_CONFIG, data,
+                                os.path.join(ref_root, out), epoch=0,
+                                debug_on=False)
+            cfg["train"]["dataloader"]["batch_size"] = 2
+            cfg["train"]["model"]["latent_dim"] = 8
         cfg["dataset"]["img_after_resize"] = [32, 32, 32]
-        cfg["train"]["dataloader"]["batch_size"] = 2
-        cfg["train"]["model"]["latent_dim"] = 8
         if init is not None:
             cfg["train"]["init_params_from"] = init
         return RegistrationTrainer(cfg, device=where)
@@ -1623,53 +1898,271 @@ def main():
                                    err / scale if scale > 0 else err)
         return worst
 
-    cpu_tr = ref_trainer("cpu", "cpu")
-    init_ckpt = cpu_tr.save_model("init", is_best=False)
-    ref_out = {"cpu": two_steps(cpu_tr)}
-    del cpu_tr
-    ref_out["cuda"] = two_steps(ref_trainer("cuda", "cuda", init_ckpt))
-    # the check's power: the same steps with the card's warp coordinate
-    # gradient doubled (the wrapper the warp's backward calls, replaced for
-    # this run only)
-    from liftreg_tpu_torch.ops import warp_kernel
+    def card_against_cpu(regnet, doubled_kernel):
+        """2 train steps on the card against the same steps on the CPU from
+        the same parameters, then again with the card's ``doubled_kernel``
+        (a wrapper of warp_kernel that the warp's backward calls, replaced
+        for that run only) doubled: the check's power. Returns the errors
+        of each run: losses, parameters, moments by leaf."""
+        tag = "regnet_" if regnet else ""
+        cpu_tr = ref_trainer("cpu", tag + "cpu", regnet=regnet)
+        init_ckpt = cpu_tr.save_model("init", is_best=False)
+        ref_out = {"cpu": two_steps(cpu_tr)}
+        del cpu_tr
+        ref_out["cuda"] = two_steps(ref_trainer("cuda", tag + "cuda",
+                                                init_ckpt, regnet))
+        kernel = getattr(warp_kernel, doubled_kernel)
 
-    def doubled(*args, **kwargs):
-        return warp_coord_grad(*args, **kwargs) * 2.0
+        def doubled(*args, **kwargs):
+            return kernel(*args, **kwargs) * 2.0
 
-    # the wrapper counts its launches on the module's name: here doubled's
-    doubled.launches = 0
-    warp_kernel.warp_coord_grad = doubled
-    try:
-        ref_out["cuda_doubled"] = two_steps(
-            ref_trainer("cuda", "cuda_doubled", init_ckpt))
-    finally:
-        warp_kernel.warp_coord_grad = warp_coord_grad
-    init_params = load_checkpoint(init_ckpt)["params"]
-    ref_errs = {}
-    for run in ("cuda", "cuda_doubled"):
-        losses_r, moments_r, params_r = ref_out[run]
-        ref_errs[run] = {
-            "losses": max(abs(a[k] - b[k])
-                          for a, b in zip(losses_r, ref_out["cpu"][0])
-                          for k in ("total_loss", "sim_loss", "reg_loss")),
-            "params": max(_max_err(params_r[k], p)
-                          for k, p in ref_out["cpu"][2].items()),
-            "moments_rel_by_leaf": moments_rel(moments_r, ref_out["cpu"][1])}
-        ref_errs[run]["moments_rel"] = max(
-            ref_errs[run]["moments_rel_by_leaf"].values())
-    ref_errs["params_moved"] = max(_max_err(ref_out["cpu"][2][k], v)
-                                   for k, v in init_params.items())
-    _emit(max_err=ref_errs, tol=TRAIN_REF_TOL,
-          moments_rtol=TRAIN_MOMENT_RTOL, losses_cpu=ref_out["cpu"][0])
-    ok = ref_errs["cuda"]
-    _require(ok["losses"] <= TRAIN_REF_TOL and ok["params"] <= TRAIN_REF_TOL
-             and ok["moments_rel"] <= TRAIN_MOMENT_RTOL
-             and ref_errs["params_moved"] > 10 * TRAIN_REF_TOL,
-             f"training on the card disagrees with the CPU: {ref_errs}")
-    _require(ref_errs["cuda_doubled"]["moments_rel"] > TRAIN_MOMENT_RTOL,
-             "the moments' check does not see a doubled coordinate "
-             f"gradient: {ref_errs}")
-    del ref_out
+        # the wrapper counts its launches on the module's name: here
+        # doubled's
+        doubled.launches = 0
+        setattr(warp_kernel, doubled_kernel, doubled)
+        try:
+            ref_out["cuda_doubled"] = two_steps(
+                ref_trainer("cuda", tag + "cuda_doubled", init_ckpt, regnet))
+        finally:
+            setattr(warp_kernel, doubled_kernel, kernel)
+        init_params = load_checkpoint(init_ckpt)["params"]
+        ref_errs = {}
+        for run in ("cuda", "cuda_doubled"):
+            losses_r, moments_r, params_r = ref_out[run]
+            ref_errs[run] = {
+                "losses": max(abs(a[k] - b[k])
+                              for a, b in zip(losses_r, ref_out["cpu"][0])
+                              for k in ("total_loss", "sim_loss",
+                                        "reg_loss")),
+                "params": max(_max_err(params_r[k], p)
+                              for k, p in ref_out["cpu"][2].items()),
+                "moments_rel_by_leaf": moments_rel(moments_r,
+                                                   ref_out["cpu"][1])}
+            ref_errs[run]["moments_rel"] = max(
+                ref_errs[run]["moments_rel_by_leaf"].values())
+        ref_errs["params_moved"] = max(_max_err(ref_out["cpu"][2][k], v)
+                                       for k, v in init_params.items())
+        _emit(max_err=ref_errs, tol=TRAIN_REF_TOL,
+              moments_rtol=TRAIN_MOMENT_RTOL, doubled=doubled_kernel,
+              losses_cpu=ref_out["cpu"][0])
+        ok = ref_errs["cuda"]
+        _require(ok["losses"] <= TRAIN_REF_TOL
+                 and ok["params"] <= TRAIN_REF_TOL
+                 and ok["moments_rel"] <= TRAIN_MOMENT_RTOL
+                 and ref_errs["params_moved"] > 10 * TRAIN_REF_TOL,
+                 f"training on the card disagrees with the CPU: {ref_errs}")
+        _require(ref_errs["cuda_doubled"]["moments_rel"] > TRAIN_MOMENT_RTOL,
+                 f"the moments' check does not see a doubled "
+                 f"{doubled_kernel}: {ref_errs}")
+
+    card_against_cpu(False, "warp_coord_grad")
+    _begin("regnet_reference")
+    card_against_cpu(True, "warp_image_grad")
+
+    # -- LiftRegSubspace at the reference config ---------------------------
+    _begin("subspace_train")
+    from liftreg_tpu_torch.models import LiftRegSubspace
+    sub_root = split_root(os.path.join(train_root, "data_subspace"),
+                          data_root, {"train": train_ids * SUBSPACE_STEPS,
+                                      "val": val_ids})
+    sub_dir = os.path.join(train_root, "setting_subspace")
+    os.makedirs(sub_dir)
+    with open(os.path.join(sub_dir, "cur_task_setting.json"), "w") as f:
+        json.dump(train_setting(TRAIN_CONFIG, sub_root, "[SET_BY_MAIN]",
+                                epoch=0, debug_on=False,
+                                model_class="subspace"), f)
+    torch.cuda.reset_peak_memory_stats()
+    _zero(KERNELS)
+    tr_sub = train_main(["-o", os.path.join(train_root, "out"), "-d",
+                         sub_root, "-e", "subspace", "-s", sub_dir])
+    torch.cuda.synchronize()
+    sub_run_launches = _counts(KERNELS)
+    sub_steps, sub_vals = tr_sub.global_step["train"], tr_sub.global_step["val"]
+    sub_totals = read_metrics(os.path.dirname(tr_sub.check_point_path))[
+        "Train/total_loss"]
+    _require(type(tr_sub.model).__name__ == "LiftRegSubspace"
+             and tr_sub.batch_size == TRAIN_B and sub_steps == SUBSPACE_STEPS
+             and len(sub_totals) == sub_steps
+             and all(math.isfinite(v) for v in sub_totals.values()),
+             f"LiftRegSubspace took {sub_steps} steps, losses {sub_totals}")
+    # each step warps and takes the coordinate gradient once, each
+    # validation batch warps once; no lift, no image gradient
+    expected_sub = dict({k: 0 for k in KERNELS},
+                        warp_trilinear=sub_steps + sub_vals,
+                        warp_coord_grad=sub_steps)
+    _require(sub_run_launches == expected_sub,
+             f"LiftRegSubspace's run launched {sub_run_launches}, expected "
+             f"{expected_sub}")
+    batch_s, names_s = next(iter(tr_sub._iter_device("train", 0)))
+    torch.cuda.synchronize()
+    _zero(KERNELS)
+    tr_sub.step(batch_s, names_s)
+    torch.cuda.synchronize()
+    subspace_launches = _counts(KERNELS)
+    _require(subspace_launches == dict({k: 0 for k in KERNELS},
+                                       warp_trilinear=1, warp_coord_grad=1),
+             f"one LiftRegSubspace step launched {subspace_launches}")
+    sub_ms = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        tr_sub.step(batch_s, names_s)
+        torch.cuda.synchronize()
+        sub_ms.append((time.perf_counter() - t0) * 1e3)
+    subspace_step_ms = statistics.median(sub_ms)
+    subspace_peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    _require(all(bool(l["finite"]) for _, l in tr_sub._pending_losses),
+             "a non-finite loss in the timed LiftRegSubspace steps")
+    tr_sub._pending_losses.clear()
+    del tr_sub, batch_s, names_s
+    torch.cuda.empty_cache()
+    # its forward on the card against the CPU at 32^3
+    gs = torch.Generator().manual_seed(6)
+    small_in = {"source": torch.rand((2, 1) + (32,) * 3, generator=gs) * 2 - 1,
+                "target": torch.rand((2, 1) + (32,) * 3, generator=gs) * 2 - 1,
+                "target_proj": torch.rand((2, 4, 48, 48), generator=gs) * 2
+                - 1}
+    small_in["source_label"] = (torch.rand(small_in["source"].shape,
+                                           generator=gs) > 0.3).float()
+    small_in["target_label"] = small_in["source_label"].flip(2)
+    small_pca = {"vectors": torch.randn((8, 3 * 32 ** 3), generator=gs)
+                 * 0.01, "mean": torch.zeros(3 * 32 ** 3)}
+    torch.manual_seed(6)
+    sub_cpu = LiftRegSubspace((32,) * 3, latent_dim=8)
+    sub_card = LiftRegSubspace((32,) * 3, latent_dim=8).to(dev)
+    sub_card.load_state_dict(sub_cpu.state_dict())
+    with torch.no_grad():
+        want_s = sub_cpu(small_in, small_pca)
+        got_s = sub_card({k: v.to(dev) for k, v in small_in.items()},
+                         {k: v.to(dev) for k, v in small_pca.items()})
+    sub_ref = {k: _max_err(got_s[k].cpu(), want_s[k])
+               for k in ("phi", "warped")}
+    _emit(run_launches=sub_run_launches, step_launches=subspace_launches,
+          total_loss_per_step=list(sub_totals.values()), step_ms=sub_ms,
+          step_ms_median=subspace_step_ms, peak_memory_gib=subspace_peak_gib,
+          batch=TRAIN_B, card_vs_cpu_32=sub_ref, tol=REF_F32_TOL)
+    _require(sub_ref["phi"] <= REF_F32_TOL[0]
+             and sub_ref["warped"] <= REF_F32_TOL[1],
+             f"LiftRegSubspace on the card disagrees with the CPU: {sub_ref}")
+    del sub_cpu, sub_card, got_s, want_s
+
+    # -- RegNet2D3D at the learned-basis workflow's stage-1 config ---------
+    _begin("regnet_train")
+    rn_root = split_root(os.path.join(train_root, "data_regnet"), data_root,
+                         {"train": train_ids[:REGNET_STEPS],
+                          "val": val_ids[:1]})
+    rn_dir = os.path.join(train_root, "setting_regnet")
+    os.makedirs(rn_dir)
+    with open(os.path.join(rn_dir, "cur_task_setting.json"), "w") as f:
+        json.dump(regnet_setting(rn_root, "[SET_BY_MAIN]", epoch=0), f)
+    torch.cuda.reset_peak_memory_stats()
+    _zero(KERNELS)
+    t0 = time.perf_counter()
+    tr_rn = train_main(["-o", os.path.join(train_root, "out"), "-d", rn_root,
+                        "-e", "regnet", "-s", rn_dir])
+    torch.cuda.synchronize()
+    rn_run_s = time.perf_counter() - t0
+    rn_run_launches = _counts(KERNELS)
+    rn_steps, rn_vals = tr_rn.global_step["train"], tr_rn.global_step["val"]
+    rn_exp = os.path.dirname(tr_rn.check_point_path)
+    rn_metrics = read_metrics(rn_exp)
+    rn_totals = [rn_metrics["Train/total_loss"][k]
+                 for k in sorted(rn_metrics["Train/total_loss"])]
+    _require(type(tr_rn.model).__name__ == "RegNet2D3D"
+             and tr_rn.img_sz == (SZ,) * 3 and tr_rn.batch_size == 1
+             and rn_steps == REGNET_STEPS and len(rn_totals) == rn_steps
+             and rn_vals == 1,
+             f"RegNet2D3D took {rn_steps} steps and {rn_vals} validations")
+    _require(all(math.isfinite(v) for tag, vs in rn_metrics.items()
+                 if tag.startswith(("Train/", "Val_")) for v in vs.values()),
+             "a non-finite loss or metric in RegNet2D3D's run")
+    _require(all(os.path.isfile(os.path.join(tr_rn.check_point_path, c))
+                 for c in ("model_best.ckpt", "latest_checkpoint.ckpt")),
+             "RegNet2D3D's run wrote no checkpoint")
+    expected_rn = {k: rn_steps * REGNET_STEP_LAUNCHES.get(k, 0)
+                   + rn_vals * REGNET_VAL_LAUNCHES.get(k, 0) for k in KERNELS}
+    _require(rn_run_launches == expected_rn,
+             f"RegNet2D3D's run launched {rn_run_launches}, expected "
+             f"{expected_rn}")
+    batch_rn, names_rn = next(iter(tr_rn._iter_device("train",
+                                                      tr_rn.cur_epoch)))
+    torch.cuda.synchronize()
+    _zero(KERNELS)
+    tr_rn.step(batch_rn, names_rn)
+    torch.cuda.synchronize()
+    regnet_launches = _counts(KERNELS)
+    _require(regnet_launches == dict({k: 0 for k in KERNELS},
+                                     **REGNET_STEP_LAUNCHES),
+             f"one RegNet2D3D step launched {regnet_launches}, expected "
+             f"{REGNET_STEP_LAUNCHES}")
+    tr_rn.step(batch_rn, names_rn)          # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rn_ms = []
+    for _ in range(REGNET_TIMED_STEPS):
+        t0 = time.perf_counter()
+        tr_rn.step(batch_rn, names_rn)
+        torch.cuda.synchronize()
+        rn_ms.append((time.perf_counter() - t0) * 1e3)
+    regnet_step_ms = statistics.median(rn_ms)
+    regnet_peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    _require(all(bool(l["finite"]) for _, l in tr_rn._pending_losses),
+             "a non-finite loss in the timed RegNet2D3D steps")
+    tr_rn._pending_losses.clear()
+    _emit(run_s=rn_run_s, steps=rn_steps, val_batches=rn_vals,
+          total_loss_per_step=rn_totals, launches=rn_run_launches,
+          step_launches=regnet_launches, step_ms=rn_ms,
+          step_ms_median=regnet_step_ms, peak_memory_gib=regnet_peak_gib)
+
+    _begin("regnet_check")
+    # the image and coordinate gradients at the step's own shapes and
+    # values: the model's disp and warped at idm + disp_inv, and the
+    # attenuation at phi
+    from liftreg_tpu_torch.coords import identity_map
+    with torch.no_grad():
+        out_rn = tr_rn.model(batch_rn)
+    disp_rn, disp_inv_rn = out_rn["params"]
+    inv_pts = (identity_map((SZ,) * 3, device=dev)[None]
+               + disp_inv_rn).contiguous()
+    flags_rn = {"normalized": True, "scale_intensity": False}
+    rn_errs = {}
+    for name, taps_rn, pts_rn in (
+            ("disp", disp_rn, inv_pts), ("warped", out_rn["warped"], inv_pts),
+            ("attenuation", batch_rn["original_source"], out_rn["phi"])):
+        taps_rn, pts_rn = taps_rn.contiguous(), pts_rn.contiguous()
+        cot_rn = torch.randn(taps_rn.shape, generator=g, device=dev)
+        if name != "attenuation":
+            rn_errs[f"image_grad/{name}"] = image_grad_errs(
+                warp_image_grad, warp_image_grad_plain, taps_rn, pts_rn,
+                cot_rn, False, **flags_rn)
+        want = warp_coord_grad_plain(taps_rn, pts_rn, cot_rn, False,
+                                     **flags_rn)
+        err = _max_err(warp_coord_grad(taps_rn, pts_rn, cot_rn, False,
+                                       **flags_rn), want)
+        rn_errs[f"coord_grad/{name}"] = [err, err / float(want.abs().max())]
+        del want
+    img_keys = [k for k in rn_errs if k.startswith("image_grad")]
+    crd_keys = [k for k in rn_errs if k.startswith("coord_grad")]
+    errs["warp_image_grad"] = max(errs["warp_image_grad"],
+                                  *(rn_errs[k]["max_abs_err"]
+                                    for k in img_keys))
+    errs["warp_coord_grad"] = max(errs["warp_coord_grad"],
+                                  *(rn_errs[k][0] for k in crd_keys))
+    _emit(max_err=rn_errs, tol={"image_grad_rel": IMG_GRAD_REL_TOL,
+                                "image_grad_of_terms": IMG_GRAD_MAG_TOL,
+                                "coord_grad_rel": WARP_GRAD_REL_TOL},
+          disp_max=float(disp_rn.abs().max()),
+          disp_inv_max=float(disp_inv_rn.abs().max()))
+    _require(all(rn_errs[k]["excess"] <= 0 and rn_errs[k]["repeat_excess"]
+                 <= 0 for k in img_keys)
+             and all(rn_errs[k][1] <= WARP_GRAD_REL_TOL for k in crd_keys),
+             f"the warp's gradients at RegNet2D3D's step disagree: {rn_errs}")
+    del out_rn, disp_rn, disp_inv_rn, inv_pts
+
+    _begin("profile_regnet")
+    profile_call(lambda: tr_rn.step(batch_rn, names_rn), steps=1)
+    tr_rn._pending_losses.clear()
+    del tr_rn, batch_rn, names_rn
+    torch.cuda.empty_cache()
     shutil.rmtree(train_root, ignore_errors=True)
 
     # -- times -------------------------------------------------------------
@@ -1730,6 +2223,28 @@ def main():
         lambda: torch.ops.aten.grid_sampler_3d_backward(
             cot5, t32, grid, 0, 0, True, [False, True]), 10)
 
+    # the image gradient at RegNet2D3D's shape (C = 3, 160^3, B = 1; phi
+    # layout, zeros padding, no rescale); its library call is the input
+    # gradient of grid_sampler_3d_backward on f32 taps, its grid in torch's
+    # (x, y, z) order built outside the timed calls
+    ig_vol = torch.zeros((1, 3) + (SZ,) * 3, device=dev)
+    ig_phi = _phi_of(_smooth_coords(torch, F, g, 1, SZ, 4.0, dev), SZ)
+    ig_cot = torch.randn((1, 3) + (SZ,) * 3, generator=g, device=dev)
+    ig_flags = {"normalized": True, "scale_intensity": False}
+    ms["warp_image_grad"] = _cuda_ms(lambda: warp_image_grad(
+        ig_vol, ig_phi, ig_cot, False, **ig_flags), 20)
+    plain_ms["warp_image_grad"] = _cuda_ms(lambda: warp_image_grad_plain(
+        ig_vol, ig_phi, ig_cot, False, **ig_flags), 3)
+    ig_grid = ig_phi.movedim(1, -1).flip(-1).contiguous()
+    lib_ms["warp_image_grad"] = _cuda_ms(
+        lambda: torch.ops.aten.grid_sampler_3d_backward(
+            ig_cot, ig_vol, ig_grid, 0, 0, True, [True, False]), 10)
+    ig_points = ig_phi.numel() // 3
+    ig_bytes = (ig_phi.numel() + ig_cot.numel() + ig_vol.numel()) * 4
+    ig_ops = (IMG_GRAD_OPS_PER_POINT + WARP_PHI_OPS
+              + IMG_GRAD_OPS_PER_TERM * 8 * 3) * ig_points
+    del ig_vol, ig_phi, ig_cot, ig_grid
+
     ms["drr_project"] = _cuda_ms(lambda: project_taps(att, *fwd_geom), 20)
     plain_ms["drr_project"] = _cuda_ms(
         lambda: project_taps_plain(att, *fwd_geom), 5)
@@ -1787,6 +2302,8 @@ def main():
         + adj_plan.numel() * 4,
         "drr_backproject": proj_in.numel() * 4
         + sum(t.numel() * 4 for t in bwd_geom) + B * 4 * SZ ** 3 * 4,
+        # phi, the cotangent and dtaps (the wrapper's zero fill is beyond)
+        "warp_image_grad": ig_bytes,
     }
     ops = {
         "pca_expand": (2 * B * LATENT * n, PEAK_BF16_FLOPS),
@@ -1810,6 +2327,7 @@ def main():
             + PLAN_OPS_PER_STEP * 2 * 4 * SZ
             * (SZ * math.ceil(math.log2(res[0] + 1))
                + SZ * math.ceil(math.log2(res[1] + 1))), PEAK_F32_FLOPS),
+        "warp_image_grad": (ig_ops, PEAK_F32_FLOPS),
     }
     # the bound of each layout and tap type: the f32 taps move 33 MB more
     layout_times = {
@@ -1876,7 +2394,11 @@ def main():
           train_step_ms=train_step_ms, train_batch=TRAIN_B,
           train_cases_per_s=TRAIN_B * 1e3 / train_step_ms,
           train_peak_memory_gib=train_peak_gib,
-          train_bf16_step_ms=statistics.median(bf16_ms[1:]))
+          train_bf16_step_ms=statistics.median(bf16_ms[1:]),
+          regnet_step_ms=regnet_step_ms, regnet_batch=1,
+          regnet_peak_memory_gib=regnet_peak_gib,
+          subspace_step_ms=subspace_step_ms, subspace_batch=TRAIN_B,
+          subspace_peak_memory_gib=subspace_peak_gib)
 
     _begin("profile")
     profile_call(lambda: pipe.register(pca, src_hu, tgt_hu, seg, seg))
@@ -1889,6 +2411,9 @@ def main():
         "pca_grad": "liftreg_tpu/ops/pallas_pca.py:78",
         "warp_trilinear": "liftreg_tpu/ops/pallas_warp.py:61",
         "warp_coord_grad": "liftreg_tpu/ops/pallas_warp.py:61",
+        # no TPU kernel (the Pallas warp returns NaN for the image): XLA's
+        # scatter-add in the autodiff of resample._quad_plain
+        "warp_image_grad": "liftreg_tpu/ops/resample.py:91",
         "drr_project": "liftreg_tpu/ops/pallas_drr.py:27",
         # no TPU kernel: XLA's autodiff of project_with_mats (:184-218)
         "drr_project_adjoint": "liftreg_tpu/ops/drr.py:184",
@@ -1902,6 +2427,7 @@ def main():
         "pca_grad": "liftreg_tpu_torch/csrc/pca_expand.cu",
         "warp_trilinear": "liftreg_tpu_torch/csrc/warp_trilinear.cu",
         "warp_coord_grad": "liftreg_tpu_torch/csrc/warp_trilinear.cu",
+        "warp_image_grad": "liftreg_tpu_torch/csrc/warp_trilinear.cu",
         "drr_project": "liftreg_tpu_torch/csrc/drr_project.cu",
         "drr_project_adjoint": "liftreg_tpu_torch/csrc/drr_project_adjoint.cu",
         "drr_adjoint_plan": "liftreg_tpu_torch/csrc/drr_project_adjoint.cu",
@@ -1911,10 +2437,15 @@ def main():
     for name in KERNELS:
         t_bytes = nbytes[name] / HBM_BYTES_PER_S * 1e3
         t_ops = ops[name][0] / ops[name][1] * 1e3
+        # launches on the main path that runs the kernel: RegNet2D3D's
+        # train step for the image gradient, projection-refined register
+        # (which runs the other eight) for the rest
+        main_launches = (regnet_launches if name == "warp_image_grad"
+                         else projection_launches)
         kernels.append({
             "name": name, "route": "cuda", "source": sources[name],
             "replaces": replaces[name],
-            "launches": projection_launches[name],
+            "launches": main_launches[name],
             "max_abs_err": errs[name],
             "ms": ms[name], "plain_ms": plain_ms[name],
             "bound_ms": max(t_bytes, t_ops),
@@ -1924,7 +2455,9 @@ def main():
                            image_refine_launches=refine_launches[name],
                            serving_launches=launches[name],
                            train_launches=train_launches[name],
-                           train_bf16_launches=bf16_launches[0][name])
+                           train_bf16_launches=bf16_launches[0][name],
+                           regnet_launches=regnet_launches[name],
+                           subspace_launches=subspace_launches[name])
     next(k for k in kernels if k["name"] == "drr_backproject").update(
         bf16_buffer_ms=lift_bf16["ms"],
         bf16_buffer_bound_ms=lift_bf16["bound_ms"])

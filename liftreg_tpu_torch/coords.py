@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import functools
 
+import numpy as np
 import torch
 
 
@@ -88,3 +89,23 @@ def norm_to_pixel(coord, n):
 def pixel_to_norm(pix, n):
     """Pixel coordinate -> [-1, 1] normalized, align_corners=True."""
     return pix / (n - 1.0) * 2.0 - 1.0
+
+
+def phi_to_01(phi):
+    """Map in [-1, 1] -> its stored form in [0, 1], ``(phi + 1) / 2``
+    (``liftreg_tpu/coords.py:phi_to_01``); a tensor or a numpy array."""
+    return (phi + 1.0) / 2.0
+
+
+def phi_from_01(phi01):
+    """Stored [0, 1] map -> [-1, 1], ``phi01 * 2 - 1``; a tensor or a numpy
+    array."""
+    return phi01 * 2.0 - 1.0
+
+
+def flip_sar_to_spr(vol):
+    """Flip axis 1 (anterior/posterior), SAR -> SPR orientation: a numpy
+    view as ``np.flip`` gives it, or a flipped copy of a tensor."""
+    if isinstance(vol, torch.Tensor):
+        return torch.flip(vol, dims=(1,))
+    return np.flip(vol, axis=1)

@@ -79,6 +79,28 @@
 //   coordinate outside [0, n-1] gets two equal indices, so its terms cancel.
 // Bound: bytes, as the forward plus the cotangent and dcoords (~0.46 GB at
 // the serving shape, ~0.14 ms).
+//
+// The third entry, liftreg_warp_image_grad (pixel layout) and
+// liftreg_warp_image_grad_phi (phi layout), is the gradient with respect to
+// the taps, for f32 taps: dtaps (B, C, D, W, H) += g[b,c,m] * w_k(m) at the
+// 8 taps tap_k(m) of each point, with the forward's taps and weights (the
+// same per-axis modes, clips and zeros padding masks; the phi layout makes
+// the pixel coordinates in registers and doubles g under rescale, as the
+// coordinate gradient does). The TPU kernel has no counterpart: its
+// with_grad variant returns NaN for the image (pallas_warp.py:305-311). It
+// ports XLA's scatter-add in the autodiff of resample._quad_plain
+// (resample.py:91-145), the path that RegNet2D3D differentiates, and sums
+// each tap's term as (g * w_z) * (w_y * w_x), as that autodiff rounds it.
+// The wrapper zero-fills dtaps; one thread takes one point of one batch
+// element (blockIdx.y) and adds its terms of nonzero weight, up to 8 per
+// channel, with f32 atomics (red.global.add.f32), so the order of a tap's
+// sum changes from run to run (and a tap of weight 0 takes no term, where
+// XLA's scatter adds g * 0: the two differ only for a non-finite g).
+// Bound: bytes, phi, the cotangent and dtaps (~0.15 GB at C = 3, 160^3,
+// B = 1, ~0.044 ms); the atomics set the time instead: 0.405 ms there on an
+// H100 80GB HBM3 at 700 W, against 0.453 for grid_sampler_3d_backward's
+// input gradient (chip_smoke.py times). Hopper's vector
+// red.global.add.v2/v4.f32 and a deterministic gather design are untried.
 #include <cstdint>
 #include <type_traits>
 
@@ -310,6 +332,29 @@ __device__ __forceinline__ int axis_mode(int modes, int d) {
 constexpr int kAllOct = 0;
 constexpr int kQuadZ = 1;
 
+// The offsets of a point's 8 taps in (dz, dy, dx) order inside one (b, c)
+// volume: oct taps are neighbours (one base and constant offsets), the
+// other modes add per-axis offsets
+template <int MODES>
+__device__ __forceinline__ void tap_offsets(const Axis& z, const Axis& y,
+                                            const Axis& x, int W, int H,
+                                            int* at) {
+  const int WH = W * H;
+  if constexpr (MODES == kAllOct) {
+    const int base = (z.i0 * W + y.i0) * H + x.i0;
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      at[k] = base + (k >> 2) * WH + ((k >> 1) & 1) * H + (k & 1);
+  } else {
+    const int zo[2] = {z.i0 * WH, z.i1 * WH};
+    const int yo[2] = {y.i0 * H, y.i1 * H};
+    const int xo[2] = {x.i0, x.i1};
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      at[k] = zo[k >> 2] + yo[(k >> 1) & 1] + xo[k & 1];
+  }
+}
+
 // The 8 taps of a point in (dz, dy, dx) order: oct taps are neighbours, read
 // as 4 x pairs from row pointers off one base (8 index sums and their
 // 64-bit addresses instead measured 10-40% slower on the H100); the other
@@ -460,7 +505,6 @@ warp_coord_grad_kernel(const T* __restrict__ taps,
   if (m0 >= M) return;
   const int valid = M - m0 < kGradPts ? M - m0 : kGradPts;
   const int S = D * W * H;
-  const int WH = W * H;
   const float scale[3] = {0.5f * static_cast<float>(D - 1),
                           0.5f * static_cast<float>(W - 1),
                           0.5f * static_cast<float>(H - 1)};
@@ -491,20 +535,7 @@ warp_coord_grad_kernel(const T* __restrict__ taps,
       const Axis x =
           axis_taps(c[3 * p + 2], H, border, axis_mode<MODES>(modes, 2));
       int at[8];
-      if constexpr (MODES == kAllOct) {
-        // oct taps are neighbours: one base and constant offsets
-        const int base = (z.i0 * W + y.i0) * H + x.i0;
-#pragma unroll
-        for (int k = 0; k < 8; ++k)
-          at[k] = base + (k >> 2) * WH + ((k >> 1) & 1) * H + (k & 1);
-      } else {
-        const int zo[2] = {z.i0 * WH, z.i1 * WH};
-        const int yo[2] = {y.i0 * H, y.i1 * H};
-        const int xo[2] = {x.i0, x.i1};
-#pragma unroll
-        for (int k = 0; k < 8; ++k)
-          at[k] = zo[k >> 2] + yo[(k >> 1) & 1] + xo[k & 1];
-      }
+      tap_offsets<MODES>(z, y, x, W, H, at);
       float t[8];
 #pragma unroll
       for (int k = 0; k < 8; ++k) t[k] = load_tap(v, at[k]);
@@ -562,6 +593,76 @@ cudaError_t launch_grad(const void* taps, const float* pts, const float* g,
     warp_coord_grad_kernel<T, -1, LAYOUT><<<grid, kGradThreads, 0, stream>>>(
         t, pts, g, dpts, c, d, w, h, m, border, modes, rescale, vec);
   return cudaGetLastError();
+}
+
+// The image gradient's design (see the note at the top): one thread a
+// point, the channels in a loop, up to 8 f32 atomics a channel.
+constexpr int kImgThreads = 256;
+
+template <int MODES, int LAYOUT>
+__global__ void __launch_bounds__(kImgThreads)
+warp_image_grad_kernel(const float* __restrict__ pts,
+                       const float* __restrict__ g,
+                       float* __restrict__ dtaps, int C, int D, int W, int H,
+                       int M, int border, int modes, int rescale) {
+  const int b = blockIdx.y;
+  const int m = blockIdx.x * kImgThreads + threadIdx.x;
+  if (m >= M) return;
+  const int S = D * W * H;
+  const float scale[3] = {0.5f * static_cast<float>(D - 1),
+                          0.5f * static_cast<float>(W - 1),
+                          0.5f * static_cast<float>(H - 1)};
+  float c[3];
+  load_points_strided<LAYOUT, 1>(pts, b, m, M, scale, c);
+  const Axis z = axis_taps(c[0], D, border, axis_mode<MODES>(modes, 0));
+  const Axis y = axis_taps(c[1], W, border, axis_mode<MODES>(modes, 1));
+  const Axis x = axis_taps(c[2], H, border, axis_mode<MODES>(modes, 2));
+  int at[8];
+  tap_offsets<MODES>(z, y, x, W, H, at);
+  const float wz[2] = {z.w0, z.w1};
+  const float wyx[4] = {__fmul_rn(y.w0, x.w0), __fmul_rn(y.w0, x.w1),
+                        __fmul_rn(y.w1, x.w0), __fmul_rn(y.w1, x.w1)};
+  // a tap of weight 0 (masked, clipped, or t on an integer) adds nothing:
+  // skipping its atomic changes no finite sum, and keeps the points
+  // outside a zeros-padded volume off the taps they are clipped to
+  bool live[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) live[k] = wz[k >> 2] != 0.f && wyx[k & 3] != 0.f;
+  for (int ch = 0; ch < C; ++ch) {
+    const int64_t vc = static_cast<int64_t>(b) * C + ch;
+    float gv = __ldg(g + vc * M + m);
+    // d(out * 2 - 1)/d out, exact
+    if (rescale) gv *= 2.f;
+    float* d = dtaps + vc * S;
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      if (live[k])
+        atomicAdd(d + at[k],
+                  __fmul_rn(__fmul_rn(gv, wz[k >> 2]), wyx[k & 3]));
+  }
+}
+
+template <int LAYOUT>
+int image_grad(const float* pts, const float* g, float* dtaps, int64_t B,
+               int64_t C, int64_t D, int64_t W, int64_t H, int64_t M,
+               int border, int modes, int rescale, void* stream) {
+  if (B * M == 0) return static_cast<int>(cudaSuccess);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid(static_cast<unsigned>((M + kImgThreads - 1) / kImgThreads),
+                  static_cast<unsigned>(B));
+  const int c = static_cast<int>(C), d = static_cast<int>(D),
+            w = static_cast<int>(W), h = static_cast<int>(H),
+            m = static_cast<int>(M);
+  if (modes == kAllOct)
+    warp_image_grad_kernel<kAllOct, LAYOUT><<<grid, kImgThreads, 0, s>>>(
+        pts, g, dtaps, c, d, w, h, m, border, modes, rescale);
+  else if (modes == kQuadZ)
+    warp_image_grad_kernel<kQuadZ, LAYOUT><<<grid, kImgThreads, 0, s>>>(
+        pts, g, dtaps, c, d, w, h, m, border, modes, rescale);
+  else
+    warp_image_grad_kernel<-1, LAYOUT><<<grid, kImgThreads, 0, s>>>(
+        pts, g, dtaps, c, d, w, h, m, border, modes, rescale);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <int LAYOUT>
@@ -640,4 +741,26 @@ extern "C" int liftreg_warp_coord_grad_phi(const void* taps, int taps_bf16,
                                            int rescale, void* stream) {
   return coord_grad<kPhi>(taps, taps_bf16, phi, g, dphi, B, C, D, W, H, M,
                           border, modes, rescale, stream);
+}
+
+// The gradient with respect to f32 taps: dtaps (B, C, D, W, H), zero-filled
+// by the caller, receives sum over points of g (B, C, M) times each tap's
+// weight at coords (B, M, 3)
+extern "C" int liftreg_warp_image_grad(const float* coords, const float* g,
+                                       float* dtaps, int64_t B, int64_t C,
+                                       int64_t D, int64_t W, int64_t H,
+                                       int64_t M, int border, int modes,
+                                       void* stream) {
+  return image_grad<kPixel>(coords, g, dtaps, B, C, D, W, H, M, border,
+                            modes, 0, stream);
+}
+
+// the same for phi (B, 3, M), g doubled under rescale
+extern "C" int liftreg_warp_image_grad_phi(const float* phi, const float* g,
+                                           float* dtaps, int64_t B, int64_t C,
+                                           int64_t D, int64_t W, int64_t H,
+                                           int64_t M, int border, int modes,
+                                           int rescale, void* stream) {
+  return image_grad<kPhi>(phi, g, dtaps, B, C, D, W, H, M, border, modes,
+                          rescale, stream);
 }

@@ -12,13 +12,18 @@ warps one image many times (the refinement) builds once and passes to
 :func:`warp_with_taps`. :func:`grid_sample` takes pixel coordinates
 (B, *out_shape, 3). The sampling is differentiable with respect to the
 coordinates (and so to ``phi``), through the kernel's coordinate-gradient
-entry; not with respect to the image. ``warp_image(..., mode="nearest")``
-(the trainer's warp of label maps) is a plain gather,
-:func:`grid_sample_nearest`, on either device.
+entry, and with f32 taps with respect to the image, through its
+image-gradient entry (bf16 taps take no image gradient).
+``warp_image(..., mode="nearest")`` (the trainer's warp of label maps) is a
+plain gather, :func:`grid_sample_nearest`, on either device.
+:func:`resize_nearest_2d` and :func:`resize_trilinear` are the JAX
+package's resizes, for the lift of ``LiftRegSubspace`` and the decoder of
+``RegNet2D3D``.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from ..device import resolve_dtype
 from .warp_kernel import warp_trilinear_ad
@@ -136,3 +141,33 @@ def warp_image(image, phi, zero_boundary=True, scale_intensity=True,
         raise ValueError(f"mode {mode!r} not in ('bilinear', 'nearest')")
     return warp_with_taps(warp_taps(image, scale_intensity, taps_dtype), phi,
                           zero_boundary, scale_intensity)
+
+
+def resize_nearest_2d(img, out_hw):
+    """``img`` (B, C, H, W) -> (B, C, *out_hw), the source index of output
+    row i ``floor(i * (H / out_h))`` with the product in f32, as
+    ``liftreg_tpu.ops.resample.resize_nearest_2d`` computes it (torch's
+    ``F.interpolate(mode="nearest")`` rounds its index arithmetic
+    otherwise)."""
+    H, W = img.shape[2:]
+    oh, ow = (int(n) for n in out_hw)
+
+    def src(n_out, n_in):
+        i = torch.arange(n_out, dtype=torch.float32, device=img.device)
+        # the scalar is rounded to f32 first, as JAX's weak type is
+        return torch.floor(i * (n_in / n_out)).long()
+
+    return img[:, :, src(oh, H)[:, None], src(ow, W)[None, :]]
+
+
+def resize_trilinear(vol, out_shape):
+    """Trilinear resize of ``vol`` (B, C, D, W, H) to ``out_shape`` with
+    ``align_corners=True``: ``F.interpolate(mode="trilinear")``, one pass.
+    ``liftreg_tpu.ops.resample.resize_trilinear`` takes the same 2-tap
+    weights per axis as three matrix products, so the two round
+    differently, by about an ulp (tests/test_torch_regnet.py)."""
+    out_shape = tuple(int(n) for n in out_shape)
+    if out_shape == tuple(vol.shape[2:]):
+        return vol
+    return F.interpolate(vol, size=out_shape, mode="trilinear",
+                         align_corners=True)

@@ -33,6 +33,18 @@ z axis of f32 taps (``_trilinear_quad``) differentiates ``floor``-based
 weights. Plain autograd of :func:`warp_trilinear_plain` uses other
 conventions and is not the reference.
 
+The gradient with respect to f32 taps (no TPU kernel computes it: the
+TPU kernel's ``with_grad`` returns NaN for the image) is the kernel's third
+entry, :func:`warp_image_grad`, in the same two layouts, with the plain
+version :func:`warp_image_grad_plain`: the scatter-add of ``g * w`` into
+the 8 taps of each point, with the forward's taps and weights and the z
+axis of ``_trilinear_quad``, as XLA's autodiff of
+``liftreg_tpu/ops/resample.py:_quad_plain`` gives it. The kernel adds with
+f32 atomics, so its sums' order, and their last bits, change from call to
+call. bf16 taps take no image gradient (``NotImplementedError``, ROADMAP
+B2): no path of the JAX package differentiates a bf16-tap warp with
+respect to the image.
+
 Each axis samples in one of three modes (:func:`axis_modes`), chosen from
 the volume's shape as ``liftreg_tpu/ops/resample.py:grid_sample`` routes
 it, so that a spatial dim of 1 is sampled and differentiated as in JAX:
@@ -125,11 +137,11 @@ def _axis(c, n, border, mode, grad):
     return idx, ((1.0 - f) * m0, f * m1), grads
 
 
-def _axes(taps, coords, border, quad_z, grad):
+def _axes(spatial, coords, border, quad_z, grad):
     c = coords.float()
-    modes = axis_modes(taps.shape[2:], quad_z)
+    modes = axis_modes(spatial, quad_z)
     return [_axis(c[..., d], n, border, mode, grad)
-            for d, (n, mode) in enumerate(zip(taps.shape[2:], modes))]
+            for d, (n, mode) in enumerate(zip(spatial, modes))]
 
 
 def _scale(taps, like):
@@ -150,8 +162,9 @@ def _pixel_coords(taps, phi):
 def _gather_sum(taps, coords, border):
     B, C, D, W, H = taps.shape
     M = coords.shape[1]
-    (iz, wz, _), (iy, wy, _), (ix, wx, _) = _axes(taps, coords, border,
-                                                  quad_z=False, grad=False)
+    (iz, wz, _), (iy, wy, _), (ix, wx, _) = _axes(taps.shape[2:], coords,
+                                                  border, quad_z=False,
+                                                  grad=False)
     v = taps.reshape(B, C, D * W * H)
     out = torch.zeros((B, C, M), dtype=torch.float32, device=taps.device)
     for dz in (0, 1):
@@ -261,8 +274,8 @@ warp_trilinear.launches = 0
 def _coord_grad_sum(taps, coords, g, border):
     B, C, D, W, H = taps.shape
     M = coords.shape[1]
-    axes = _axes(taps, coords, border, quad_z=taps.dtype == torch.float32,
-                 grad=True)
+    axes = _axes(taps.shape[2:], coords, border,
+                 quad_z=taps.dtype == torch.float32, grad=True)
     v = taps.reshape(B, C, D * W * H)
     grad = [torch.zeros((B, M), dtype=torch.float32, device=taps.device)
             for _ in range(3)]
@@ -339,9 +352,86 @@ def warp_coord_grad(taps, coords, g, border, normalized=False,
 warp_coord_grad.launches = 0
 
 
+def _image_grad_sum(taps, coords, g, border):
+    B, C, D, W, H = taps.shape
+    M = coords.shape[1]
+    (iz, wz, _), (iy, wy, _), (ix, wx, _) = _axes(taps.shape[2:], coords,
+                                                  border, quad_z=True,
+                                                  grad=False)
+    dtaps = torch.zeros((B, C, D * W * H), dtype=torch.float32,
+                        device=g.device)
+    for dz in (0, 1):
+        gz = g * wz[dz][:, None, :]
+        for dy in (0, 1):
+            for dx in (0, 1):
+                idx = ((iz[dz] * W + iy[dy]) * H + ix[dx])[:, None, :]
+                dtaps.scatter_add_(2, idx.expand(B, C, M),
+                                   gz * (wy[dy] * wx[dx])[:, None, :])
+    return dtaps.reshape(taps.shape)
+
+
+def warp_image_grad_plain(taps, coords, g, border, normalized=False,
+                          scale_intensity=False):
+    """taps (B, C, D, W, H) f32 (read for its shape only), coords (B, M, 3)
+    f32 and a cotangent g (B, C, M) f32 -> dtaps (B, C, D, W, H) f32, the
+    gradient of ``sum(g * warp_trilinear(taps, coords, border))`` with
+    respect to the taps: each point adds ``(g * w_z) * (w_y * w_x)`` to each
+    of its 8 taps, with the z axis of ``_trilinear_quad`` (the f32 taps'
+    path in JAX). With ``normalized``, phi (B, 3, *out_shape) and g
+    (B, C, *out_shape), through the glue of :func:`warp_trilinear_plain`
+    (g doubled under ``scale_intensity``)."""
+    B, C = taps.shape[:2]
+    g = g.float().reshape(B, C, -1)
+    if normalized:
+        coords = _pixel_coords(taps, coords)
+        if scale_intensity:
+            g = g * 2.0
+    return _image_grad_sum(taps, coords, g, border)
+
+
+def warp_image_grad(taps, coords, g, border, normalized=False,
+                    scale_intensity=False):
+    """The image-gradient kernel on CUDA tensors, the plain version on CPU
+    tensors; f32 taps only. ``warp_image_grad.launches`` counts kernel
+    launches."""
+    M = _check(taps, coords, "warp_image_grad", normalized, scale_intensity,
+               g=g)
+    B, C, D, W, H = taps.shape
+    if taps.dtype != torch.float32:
+        raise NotImplementedError(
+            "warp_image_grad: the gradient with respect to bf16 taps is not "
+            "ported (ROADMAP B2)")
+    g_shape = (B, C) + (tuple(coords.shape[2:]) if normalized else (M,))
+    if g.shape != g_shape or g.dtype != torch.float32:
+        raise ValueError(f"warp_image_grad: want an f32 cotangent of shape "
+                         f"{g_shape}; got {tuple(g.shape)} {g.dtype}")
+    if taps.device.type == "cpu":
+        return warp_image_grad_plain(taps, coords, g, border, normalized,
+                                     scale_intensity)
+    check_offsets(taps.shape, M)
+    dtaps = torch.zeros_like(taps)
+    lib = _build.library()
+    args = (coords.data_ptr(), g.data_ptr(), dtaps.data_ptr(), B, C, D, W, H,
+            M, int(border), _packed(axis_modes((D, W, H), quad_z=True)))
+    with torch.cuda.device(taps.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        if normalized:
+            rc = lib.liftreg_warp_image_grad_phi(*args, int(scale_intensity),
+                                                 stream)
+        else:
+            rc = lib.liftreg_warp_image_grad(*args, stream)
+    _build.check(rc, "warp_image_grad")
+    warp_image_grad.launches += 1
+    return dtaps
+
+
+warp_image_grad.launches = 0
+
+
 class _WarpTrilinear(torch.autograd.Function):
-    """Forward :func:`warp_trilinear`, backward :func:`warp_coord_grad`;
-    differentiable in the coordinates only."""
+    """Forward :func:`warp_trilinear`; backward :func:`warp_image_grad` for
+    the taps and :func:`warp_coord_grad` for the coordinates, each only
+    where its input needs it."""
 
     @staticmethod
     def forward(ctx, taps, coords, border, normalized, scale_intensity):
@@ -352,23 +442,27 @@ class _WarpTrilinear(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         taps, coords = ctx.saved_tensors
-        dcoords = None
+        g = g.contiguous()
+        dtaps = dcoords = None
+        if ctx.needs_input_grad[0]:
+            dtaps = warp_image_grad(taps, coords, g, *ctx.flags)
         if ctx.needs_input_grad[1]:
-            dcoords = warp_coord_grad(taps, coords, g.contiguous(),
-                                      *ctx.flags)
-        return None, dcoords, None, None, None
+            dcoords = warp_coord_grad(taps, coords, g, *ctx.flags)
+        return dtaps, dcoords, None, None, None
 
 
 def warp_trilinear_ad(taps, coords, border, normalized=False,
                       scale_intensity=False):
     """:func:`warp_trilinear`, differentiable with respect to ``coords``
-    (or phi). Raises if ``taps`` requires grad: the image gradient is not
-    ported (the TPU kernel returns NaN for it)."""
-    if taps.requires_grad and torch.is_grad_enabled():
+    (or phi) and, for f32 taps, with respect to ``taps``. bf16 taps that
+    require grad raise: their image gradient is not ported."""
+    if not torch.is_grad_enabled() or not (taps.requires_grad
+                                           or coords.requires_grad):
+        return warp_trilinear(taps, coords, border, normalized,
+                              scale_intensity)
+    if taps.requires_grad and taps.dtype != torch.float32:
         raise NotImplementedError(
-            "warp_trilinear_ad: the gradient with respect to the image is "
-            "not ported (ROADMAP B2); detach the image")
-    if coords.requires_grad and torch.is_grad_enabled():
-        return _WarpTrilinear.apply(taps, coords, border, normalized,
-                                    scale_intensity)
-    return warp_trilinear(taps, coords, border, normalized, scale_intensity)
+            "warp_trilinear_ad: the gradient with respect to bf16 taps is "
+            "not ported (ROADMAP B2); detach the image or use f32 taps")
+    return _WarpTrilinear.apply(taps, coords, border, normalized,
+                                scale_intensity)

@@ -6,9 +6,13 @@ segmentation metrics, the NCC score and folding, the epoch loop with
 validation first and the best checkpoint saved on score, and the test
 loop.
 
-On the card the step runs the port's kernels: the lift into the encoder's
-input, the warp and its coordinate gradient, and with a bf16 basis the PCA
-expansion and its backward. Each step runs eagerly under
+On the card the step runs the port's kernels. For the subspace models:
+the lift into the encoder's input (``LiftRegSubspaceBackproj``; the model
+without it resizes the projections), the warp and its coordinate gradient,
+and with a bf16 basis the PCA expansion and its backward. For
+``RegNet2D3D``: the lift, the warps of its inverse iteration and of the
+attenuation volume with their coordinate and image gradients, and the
+projector with its adjoint. Each step runs eagerly under
 :func:`..device.f32_precision` (its f32 convolutions and products keep
 f32 whatever the caller's TF32 flags). As in the JAX trainer:
 
@@ -21,6 +25,10 @@ f32 whatever the caller's TF32 flags). As in the JAX trainer:
   ``os._exit(42)`` when a step blocks longer;
 * training drops the last partial batch; evaluation pads it to the batch
   size (pad rows repeat the last sample and are dropped from the metrics).
+
+Test mode draws 2D figures with matplotlib where it imports; where it does
+not, it prints one line saying so and writes every other output: the
+maps, the 3D volumes, the metrics.
 
 It runs on the CUDA card unless the caller passes ``device="cpu"``;
 without a card and without that it raises. Batches are not sharded: one
@@ -115,7 +123,7 @@ CONDITIONAL_KEYS = {
     "train.init_params_from",
     "train.model.latent_dim", "train.model.drr_feature_num",
     "train.model.mask_ct", "train.model.warp_taps_dtype",
-    "train.model.pca_path",
+    "train.model.pca_path", "train.model.inverse_iters",
     "train.network_class",
 }
 
@@ -236,21 +244,28 @@ class RegistrationTrainer(TrainerBase):
         self.save_fig = get(train_setting, "save_fig", True)
         self.save_fig_frequency = get(train_setting, "save_fig_frequency", 2)
         self.debug_on = get(train_setting, "debug_on", False)
+        self._no_fig_noted = False
 
         # Model + PCA
         model_cfg = train_setting["model"]
         model_cls = get_model(train_setting["model_class"])
+        # the keyword arguments as the JAX trainer builds them: RegNet2D3D
+        # takes no latent_dim, warp_taps_dtype or mask_ct, and only it
+        # takes inverse_iters
+        regnet = model_cls.__name__ == "RegNet2D3D"
         model_kwargs = {"img_sz": self.img_sz}
-        if "latent_dim" in model_cfg:
+        if "latent_dim" in model_cfg and not regnet:
             model_kwargs["latent_dim"] = int(model_cfg["latent_dim"])
         if "drr_feature_num" in model_cfg:
             model_kwargs["drr_feature_num"] = int(model_cfg["drr_feature_num"])
         if model_cfg.get("compute_dtype") == "bfloat16":
             model_kwargs["compute_dtype"] = torch.bfloat16
-        if model_cfg.get("warp_taps_dtype") == "bfloat16":
+        if not regnet and model_cfg.get("warp_taps_dtype") == "bfloat16":
             model_kwargs["warp_taps_dtype"] = torch.bfloat16
-        if "mask_ct" in model_cfg:
+        if "mask_ct" in model_cfg and not regnet:
             model_kwargs["mask_ct"] = parse_bool(model_cfg["mask_ct"])
+        if "inverse_iters" in model_cfg and regnet:
+            model_kwargs["inverse_iters"] = int(model_cfg["inverse_iters"])
         for key in ("s2d_encoder", "fast_vjp"):
             if key in model_cfg:
                 model_kwargs[key] = parse_bool(model_cfg[key])
@@ -617,6 +632,15 @@ class RegistrationTrainer(TrainerBase):
         return losses, metrics
 
     def _save_fig(self, eval_out, batch, names, phase):
+        try:
+            import matplotlib  # noqa: F401
+        except ImportError:
+            if not self._no_fig_noted:
+                print("matplotlib is not installed: no 2D figures (PNG) are "
+                      "written; the maps, 3D volumes and metrics are",
+                      flush=True)
+                self._no_fig_noted = True
+            return
         base = self.test_path if phase == "test" else self.record_path
         visual_param = {
             "save_fig": True,

@@ -167,11 +167,15 @@ def test_get_model_s2d_against_jax(jax_params, s2d):
 
 
 def test_get_model_registry():
+    """Every name of the JAX registry resolves to the port's class of the
+    same name (A4 ported the subspace model and RegNet2D3D)."""
+    from liftreg_tpu.models import MODEL_REGISTRY as JAX_REGISTRY
     assert get_model("subspace_backproj").__name__ == \
         "LiftRegSubspaceBackproj"
+    for name, cls in JAX_REGISTRY.items():
+        assert get_model(name).__name__ == cls.__name__, name
     for name in ("subspace", "regnet2d3d",
                  "liftreg.models.previous.RegNet2D3D.model"):
-        with pytest.raises(NotImplementedError, match="A4"):
-            get_model(name)
+        assert get_model(name).__module__.startswith("liftreg_tpu_torch.")
     with pytest.raises(KeyError):
         get_model("nope")

@@ -14,9 +14,17 @@ rounded to bf16, bit for bit. The warp's coordinate gradient uses fused multiply
 the plain version rounds twice: atol 1e-5 * max|plain|. The phi-layout
 entries of both warp kernels hold the same tolerances: the forward makes
 the pixel coordinates and the ``* 2 - 1`` rescale with the plain glue's
-f32 roundings. The PCA backward
-rounds an f32 sum taken in another order to bf16: one bf16 step, rtol
-2^-8, plus atol 1e-4 * max|plain| for sums that cancel to near zero. The
+f32 roundings. The warp's image gradient (f32 taps) adds each tap's terms
+with f32 atomics in an order that changes from call to call: against the
+plain version, and between two calls, atol 1e-5 * max|plain| plus 1e-6 of
+the sum of the tap's terms' magnitudes (a border tap that takes a whole
+plane of points far outside sums ~25,600 terms, and the order of such a
+sum moves it by ~1e-5 of its value). The PCA
+backward rounds an f32 sum taken in another order to bf16: the kernel and
+the plain version are each held against the f64 product, within half a
+bf16 step of the exact sum plus 1e-5 of its largest value (held against
+each other, a correct kernel can differ by a full step where the exact
+sum lies at a rounding midpoint). The
 projector's adjoint sums each view's tap pairs in another order than the
 plain dense products: atol 1e-5 * max|plain|, rtol 1e-5, and a second call
 gives the same bits (no float atomics); its plan equals the plain plan,
@@ -42,6 +50,8 @@ from liftreg_tpu_torch.ops.pca_kernel import (MAX_CHUNK, pca_expand,
                                               pca_grad_plain)
 from liftreg_tpu_torch.ops.warp_kernel import (warp_coord_grad,
                                                warp_coord_grad_plain,
+                                               warp_image_grad,
+                                               warp_image_grad_plain,
                                                warp_trilinear,
                                                warp_trilinear_plain)
 
@@ -436,8 +446,14 @@ def test_pca_grad_kernel_matches_plain(device, B, L, n, layout):
     assert pca_grad.launches == before + -(-B // MAX_CHUNK)
     want = pca_grad_plain(cot, V)
     assert torch.equal(got, got.bfloat16().float())
-    torch.testing.assert_close(got, want, rtol=2.0 ** -8,
-                               atol=1e-4 * float(want.abs().max()))
+    exact = cot.double() @ V.double().T
+    # half a bf16 step at each exact value: |x| = m 2^e, m in [0.5, 1)
+    half_step = torch.ldexp(torch.ones_like(exact),
+                            torch.frexp(exact).exponent - 9)
+    slack = 1e-5 * float(exact.abs().max())
+    for name, t in (("kernel", got), ("plain", want)):
+        excess = float(((t.double() - exact).abs() - half_step - slack).max())
+        assert excess <= 0, (name, excess)
 
 
 @pytest.mark.parametrize("B,L,n", [(4, 56, 3 * 40 ** 3), (9, 57, 1001)])
@@ -624,3 +640,72 @@ def test_train_step_on_card_matches_cpu(device, tmp_path):
     for k, want in results["cpu"][1].items():
         torch.testing.assert_close(results["cuda"][1][k], want, atol=1e-5,
                                    rtol=0)
+
+
+IMAGE_GRAD_CASES = ("serving_c1_b1", "serving_c3_b1", "serving_c1_b2",
+                    "serving_c3_b2", "ragged_m", "unaligned", "unit_d",
+                    "unit_w", "unit_h", "pixel")
+
+
+@pytest.mark.parametrize("case,border,scale_intensity", [
+    (case, border, scale) for case in IMAGE_GRAD_CASES
+    for border in (False, True) for scale in (False, True)
+    # the pixel layout has no scale_intensity
+    if not (case == "pixel" and scale)])
+def test_warp_image_grad_kernel_matches_plain(device, case, border,
+                                              scale_intensity):
+    """The image gradient (f32 taps) against its plain version: C = 1 and 3
+    at 160^3 with B = 1 and 2 in the phi layout; M = 6001 points, which no
+    block divides; phi and the cotangent off a 16-byte boundary; spatial
+    dims of 1 (the quad and generic modes); the pixel layout (no rescale
+    there). Coordinates far outside, on integers and on the edges. Two
+    calls agree within the same tolerance (see the module docstring)."""
+    g = torch.Generator(device=device).manual_seed(9)
+    B, C, spatial, out_shape = 2, 2, (9, 12, 10), (9, 12, 10)
+    if case.startswith("serving"):
+        C, B = int(case[len("serving_c")]), int(case[-1])
+        spatial = out_shape = (160, 160, 160)
+    elif case == "ragged_m":
+        out_shape = (6001,)
+    elif case.startswith("unit"):
+        axis = "dwh".index(case[-1])
+        spatial = out_shape = tuple(1 if i == axis else n
+                                    for i, n in enumerate(spatial))
+    vol = torch.zeros((B, C) + spatial, device=device)
+    if case == "ragged_m":
+        phi = torch.rand((B, 3) + out_shape, generator=g,
+                         device=device) * 2.6 - 1.3
+    else:
+        phi = _phi(g, B, out_shape, device)
+    cot = torch.randn((B, C) + out_shape, generator=g, device=device)
+    if case == "unaligned":
+        phi, cot = _unaligned(phi), _unaligned(cot)
+    flags = {"normalized": True, "scale_intensity": scale_intensity}
+    if case == "pixel":
+        n = torch.tensor(spatial, dtype=torch.float32, device=device)
+        phi = ((phi.movedim(1, -1) + 1.0) * (n - 1) * 0.5).reshape(
+            B, -1, 3).contiguous()
+        cot = cot.reshape(B, C, -1).contiguous()
+        flags = {}
+    before = warp_image_grad.launches
+    got = warp_image_grad(vol, phi, cot, border, **flags)
+    again = warp_image_grad(vol, phi, cot, border, **flags)
+    torch.cuda.synchronize()
+    assert warp_image_grad.launches == before + 2
+    assert got.shape == vol.shape
+    want = warp_image_grad_plain(vol, phi, cot, border, **flags)
+    mag = warp_image_grad_plain(vol, phi, cot.abs(), border, **flags)
+    tol = 1e-5 * float(want.abs().max()) + 1e-6 * mag
+    assert bool(((got - want).abs() <= tol).all())
+    assert bool(((again - got).abs() <= tol).all())
+
+
+def test_warp_image_grad_zero_padding_adds_nothing(device):
+    """Points far outside under zeros padding reach no tap: exactly 0."""
+    vol = torch.zeros((1, 3, 8, 9, 10), device=device)
+    pix = torch.tensor([[[40.0, 50.0, -30.0], [-9.0, 8.0, 4.0],
+                         [4.0, -1.0, 100.0], [8.5, 4.0, 4.0]]],
+                       device=device)
+    got = warp_image_grad(vol, pix, torch.ones((1, 3, 4), device=device),
+                          False)
+    assert int(torch.count_nonzero(got)) == 0

@@ -191,10 +191,15 @@ def test_warp_coord_grad_matches_pallas_with_grad(taps):
 
 
 def test_warp_rejects_image_gradient():
-    img = torch.zeros((1, 1, 4, 4, 4), requires_grad=True)
-    coords = torch.zeros((1, 8, 3), requires_grad=True)
+    """f32 taps take an image gradient (ROADMAP B2, ported); bf16 taps
+    still raise, naming B2."""
+    img = torch.ones((1, 1, 4, 4, 4), requires_grad=True)
+    coords = torch.full((1, 8, 3), 1.5, requires_grad=True)
+    warp_trilinear_ad(img, coords, False).sum().backward()
+    assert float(img.grad.sum()) == pytest.approx(8.0)
     with pytest.raises(NotImplementedError, match="B2"):
-        warp_trilinear_ad(img, coords, False)
+        warp_trilinear_ad(img.detach().bfloat16().requires_grad_(True),
+                          coords, False)
     with pytest.raises(ValueError):
         warp_coord_grad(img.detach(), coords.detach(),
                         torch.zeros((1, 1, 7)), False)
