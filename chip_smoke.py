@@ -32,7 +32,10 @@ line with its elapsed seconds:
    image_grad_check: the warp's image gradient (f32 taps) at C = 1 and 3,
    160^3, B = 1 and 2, in both layouts, both paddings, scale_intensity on
    and off, far outside, on integers and on the edges, unit dims, M = 6001,
-   phi off a 16-byte boundary, each called twice;
+   phi off a 16-byte boundary, and at 64^3 a rough field, a slab far
+   outside along y and a field clamped onto the faces, each called twice,
+   with the share of points that took the kernel's overflow path (which
+   the rough field, and the slab under border padding, must take);
 4. main_path: RegistrationPipeline.register at 160^3, B=4, 4 views on a
    240^2 detector, latent 56, bf16 encoder, basis and taps, with random
    seeded weights; the kernels' launch counts are zeroed just before and
@@ -57,7 +60,12 @@ line with its elapsed seconds:
 7. reference / refine_reference: the pipeline on the card against the same
    pipeline on the CPU (the kernels' plain versions) at 32^3, without and
    with 5 refinement steps (image domain with NCC and with LNCC, projection
-   domain with NCC and with NGF);
+   domain with NCC and with NGF): with refinement, the card's phi, warped
+   CT and objective history against the CPU run's; for NGF, whose Adam
+   iterates are ill-conditioned there (see REFINE_REF_TOL), its phi and
+   warped CT against the CPU's outputs at the card's refined coefficients,
+   and its history again with the card's coordinate gradient wrong in one
+   axis's sign, which the history must catch;
 8. train: training at the reference config (configs/cur_task_setting.json:
    160^3, B = 30, 4 views on a 240^2 detector, latent 56, f32, NCC, the
    subspace loss, Adam at lr 1e-3, StepLR) through the port's CLI
@@ -113,8 +121,10 @@ line with its elapsed seconds:
    image gradient 8) and 5 timed after a warm-up;
    regnet_check: the image and coordinate gradients at that step's own
    shapes and values (disp and warped at idm + disp_inv, the attenuation
-   at phi), kernel against plain;
-   profile_regnet: one RegNet2D3D step under torch.profiler;
+   at phi), kernel against plain, and the image gradient's overflow share
+   there;
+   profile_regnet: one RegNet2D3D step under torch.profiler, with the
+   image gradient's device ms and launches;
 9. times: each kernel, its plain version and one PyTorch library call of
    the same function, with CUDA events (the warp and its gradient in both
    layouts and with both tap types; the lift also as the serving path
@@ -124,8 +134,13 @@ line with its elapsed seconds:
    memory; the train step's median time and peak memory at the reference
    config, and the bf16 step's (measured in train and train_bf16); the
    image gradient, its plain version and grid_sampler_3d_backward's input
-   gradient at C = 3, 160^3, B = 1; the RegNet2D3D and LiftRegSubspace
+   gradient at C = 3, 160^3, B = 1 (and the kernel and the library call
+   on the identity and on a 0.9-voxel field, as RegNet2D3D's inverse
+   iteration warps); the RegNet2D3D and LiftRegSubspace
    step times and peaks (measured in their phases);
+   image_grad_overflow: the share of the image gradient's points that
+   took its overflow path, at the timed shape and fields and at
+   regnet_check's;
 10. profile / profile_refine / profile_refine_projection: one register
    call, without refinement, with image-domain and with projection-domain
    refinement, under torch.profiler: device time by layer (from kernel
@@ -146,6 +161,7 @@ import importlib.util
 import json
 import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -185,6 +201,8 @@ PLAN_OPS_PER_STEP = 3
 # products and the atomic add
 IMG_GRAD_OPS_PER_POINT = 30
 IMG_GRAD_OPS_PER_TERM = 3
+# image_grad_check's rough, slab and faces fields: ROUGH_SZ^3 volumes
+ROUGH_SZ = 64
 
 SZ = 160
 B = 4
@@ -209,9 +227,19 @@ IMG_GRAD_REL_TOL, IMG_GRAD_MAG_TOL = 1e-5, 1e-6
 # dense products (relative to the largest value)
 ADJ_REL_TOL = 1e-5
 # refinement on the card against the CPU at 32^3 over 5 steps, f32 encoder
-# and taps, bf16 basis: the f32 differences of the encoder and the kernels
-# reach the Adam updates, and dcoefs can round to the neighbouring bf16
+# and taps, bf16 basis: (phi, warped) of the card's run against the CPU's,
+# and the objective history. With NGF (eps 1e-10 as in JAX, which weighs
+# near-flat projection gradients fully) Adam's iterates are ill-conditioned
+# there: a coefficient that reaches its optimum steps by the sign of a
+# gradient that the two devices' f32 differences decide, and the CPU alone
+# moves its (phi, warped) past REFINE_REF_TOL when its identity map moves by
+# one ulp (tools/torch_refine_conditioning.py). So for NGF the card's (phi,
+# warped) are held to the CPU's outputs at the card's own refined
+# coefficients, its history to the CPU run's, and a run with a wrong
+# coordinate gradient must break the history's limit
 REFINE_REF_TOL = (1e-4, 1e-3)
+REFINE_HISTORY_TOL = 1e-5
+REFINE_AT_CARD_COEFS = ("projection_ngf",)
 # the LNCC refinement's options in times (configs/lncc_v5e8)
 LNCC_OPTS = {"smooth": 3}
 # card against CPU at 32^3, (phi, warped): the two round the f32 HU
@@ -380,6 +408,18 @@ def _smooth_coords(torch, F, g, batch, sz, amp, device):
     return coords.reshape(batch, -1, 3)
 
 
+def _near_identity_phi(torch, F, g, batch, sz, amp, device):
+    """phi (batch, 3, sz, sz, sz) of the identity plus a smooth displacement
+    of up to ``amp`` voxels (amp 0: the identity, every point on its
+    voxel), the kind of field RegNet2D3D's inverse iteration warps its
+    displacement with."""
+    ax = torch.arange(sz, dtype=torch.float32, device=device)
+    ident = torch.stack(torch.meshgrid(ax, ax, ax, indexing="ij"))[None]
+    disp = _smooth_field(torch, F, g, (batch, 3) + (sz,) * 3, 5, device)
+    coords = (ident + disp * amp).movedim(1, -1).reshape(batch, -1, 3)
+    return _phi_of(coords.contiguous(), sz)
+
+
 def _phi_of(coords, sz):
     """The normalized map (batch, 3, sz, sz, sz) whose pixel coordinates
     are ``coords`` (batch, sz^3, 3)."""
@@ -433,7 +473,9 @@ def image_grad_cases(torch, F, g, device):
     layout?)}: C = 1 and 3 at the serving shape with B = 1 and 2 in both
     layouts (smooth fields with slabs far outside, a quarter of the points
     on integers, planes on and just past the edges), phi and the cotangent
-    off a 16-byte boundary, M = 6001 points, and unit dims."""
+    off a 16-byte boundary, M = 6001 points, and unit dims; at ROUGH_SZ^3
+    with B = 2, C = 1 and 3, both layouts: a rough field, a slab far
+    outside along y and a field clamped onto the faces."""
     cases = {}
     for C in (1, 3):
         for batch in (1, 2):
@@ -449,6 +491,31 @@ def image_grad_cases(torch, F, g, device):
                                            True)
             cases[f"pixel/c{C}_b{batch}"] = (vol, coords,
                                              cot.reshape(batch, C, -1), False)
+    # fields whose tiles' boxes overflow the kernel's shared memory (a rough
+    # field; under border padding a slab of 3 y rows far outside, which
+    # clips onto the far face while its tiles' other points do not) or end
+    # exactly at the volume's faces (a field clamped onto them)
+    ax = torch.arange(ROUGH_SZ, dtype=torch.float32, device=device)
+    ident = torch.stack(torch.meshgrid(ax, ax, ax, indexing="ij"))[None]
+    for C in (1, 3):
+        smooth = ident + _smooth_field(torch, F, g, (2, 3) + (ROUGH_SZ,) * 3,
+                                       5, device) * 4.0
+        fields = {
+            "rough": ident + torch.rand((2, 3) + (ROUGH_SZ,) * 3,
+                                        generator=g, device=device)
+            * 24.0 - 12.0,
+            "slab": smooth.clone(),
+            "faces": smooth.clamp(0.0, ROUGH_SZ - 1.0)}
+        fields["slab"][:, 1, :, 5:8] = 4.0 * ROUGH_SZ
+        for name, pix in fields.items():
+            coords = pix.movedim(1, -1).reshape(2, -1, 3).contiguous()
+            vol = torch.zeros((2, C) + (ROUGH_SZ,) * 3, device=device)
+            cot = torch.randn((2, C) + (ROUGH_SZ,) * 3, generator=g,
+                              device=device)
+            cases[f"phi/{name}_c{C}"] = (vol, _phi_of(coords, ROUGH_SZ), cot,
+                                         True)
+            cases[f"pixel/{name}_c{C}"] = (vol, coords, cot.reshape(2, C, -1),
+                                           False)
     vol, phi, cot, _ = cases["phi/c3_b1"]
     cases["phi/unaligned"] = (vol, _unaligned(torch, phi),
                               _unaligned(torch, cot), True)
@@ -788,7 +855,7 @@ def main():
     from liftreg_tpu_torch import RegistrationPipeline
     from liftreg_tpu_torch.models.subspace_backproj import mask_lung
     from liftreg_tpu_torch.ops import resample
-    from liftreg_tpu_torch.ops import _build, drr
+    from liftreg_tpu_torch.ops import _build, drr, warp_kernel
     from liftreg_tpu_torch.ops.drr_kernel import (
         backproject_taps, backproject_taps_plain, project,
         project_adjoint_plan, project_adjoint_plan_plain, project_adjoint_taps,
@@ -796,7 +863,8 @@ def main():
     from liftreg_tpu_torch.ops.pca_kernel import (MAX_CHUNK, pca_expand,
                                                   pca_expand_plain, pca_grad,
                                                   pca_grad_plain)
-    from liftreg_tpu_torch.ops.warp_kernel import (warp_coord_grad,
+    from liftreg_tpu_torch.ops.warp_kernel import (image_grad_overflow,
+                                                   warp_coord_grad,
                                                    warp_coord_grad_plain,
                                                    warp_image_grad,
                                                    warp_image_grad_plain,
@@ -1126,8 +1194,10 @@ def main():
 
     _begin("image_grad_check")
     # the warp's image gradient (f32 taps) against its plain version, both
-    # paddings, scale_intensity on and off in the phi layout, two calls
-    img_errs = {}
+    # paddings, scale_intensity on and off in the phi layout, two calls;
+    # the share of each call's points that took the overflow path
+    overflow = image_grad_overflow(dev)
+    img_errs, img_overflow = {}, {}
     for name, (ivol, pts, icot, phi_layout) in image_grad_cases(
             torch, F, g, dev).items():
         for border in (False, True):
@@ -1136,15 +1206,29 @@ def main():
                          if phi_layout else {})
                 key = (f"{name}/{'border' if border else 'zeros'}"
                        f"{'/scaled' if rescale else ''}")
+                overflow.zero_()
                 img_errs[key] = image_grad_errs(
                     warp_image_grad, warp_image_grad_plain, ivol, pts, icot,
                     border, **flags)
+                img_overflow[key] = int(overflow) / (2 * icot.numel()
+                                                     / icot.shape[1])
     errs["warp_image_grad"] = max(e["max_abs_err"] for e in img_errs.values())
-    _emit(max_err=img_errs, tol={"rel": IMG_GRAD_REL_TOL,
-                                 "of_terms_magnitude": IMG_GRAD_MAG_TOL})
+    _emit(max_err=img_errs, overflow_share=img_overflow,
+          tol={"rel": IMG_GRAD_REL_TOL,
+               "of_terms_magnitude": IMG_GRAD_MAG_TOL})
     _require(all(e["excess"] <= 0 and e["repeat_excess"] <= 0
                  for e in img_errs.values()),
              f"the image-gradient kernel disagrees: {img_errs}")
+    # both sides of the choice ran: the rough field, and the slab under
+    # border padding, drove the overflow path; the smooth fields at SZ^3
+    # in 3-D tiles the box (flat tiles of the pixel layout mostly overflow
+    # there)
+    _require(all(share > 0 for key, share in img_overflow.items()
+                 if "/rough" in key or ("/slab" in key and "/border" in key)),
+             f"no overflow where the boxes cannot fit: {img_overflow}")
+    _require(all(share < 0.5 for key, share in img_overflow.items()
+                 if re.match(r"phi/c\d_b\d/", key)),
+             f"the smooth fields did not take the box: {img_overflow}")
 
     # -- the main path -----------------------------------------------------
     _begin("main_path")
@@ -1416,34 +1500,84 @@ def main():
                "projection_ncc": {"refine_domain": "projection"},
                "projection_ngf": {"refine_domain": "projection",
                                   "refine_sim": "ngf"}}
-    refine_ref = {}
+    def refined(where, opts, steps=5, lr=0.02, coefs=None):
+        """register with refinement on ``where``: (warped, phi, objective
+        history, refined coefficients); with ``coefs`` the encoder's output
+        is replaced by them (lr 0 then keeps them: the outputs at those
+        coefficients)."""
+        p = RegistrationPipeline(small, latent_dim=L_small,
+                                 warp_taps_dtype=torch.float32,
+                                 refine_steps=steps, refine_lr=lr,
+                                 device=where, **opts)
+        p.model.load_state_dict(state)
+        if coefs is not None:
+            p.model.encoder.register_forward_hook(
+                lambda m, i, o: coefs.to(device=o.device, dtype=o.dtype))
+        pc = {k: v.to(where) for k, v in small_pca.items()}
+        out = [t.cpu() for t in p.register(pc, *(a.to(where)
+                                                 for a in s_args))]
+        return out + [p.last_refine["total_history"].cpu(),
+                      p.last_refine["coefs"].cpu()]
+
+    def flipped_coord_grad():
+        """refined on the card with the warp's coordinate gradient negated
+        along its first axis, for that run only: a wrong refinement
+        gradient (not a scaled one, which Adam's steps would not see)."""
+        kernel = warp_kernel.warp_coord_grad
+
+        def flipped(*args, **kwargs):
+            out = kernel(*args, **kwargs).clone()
+            phi_layout = kwargs.get("normalized",
+                                    len(args) > 4 and bool(args[4]))
+            out.select(1 if phi_layout else -1, 0).neg_()
+            return out
+
+        flipped.launches = 0
+        warp_kernel.warp_coord_grad = flipped
+        try:
+            return refined("cuda", configs["projection_ngf"])
+        finally:
+            warp_kernel.warp_coord_grad = kernel
+
+    refine_ref, cpu_runs = {}, {}
     for cfg, opts in configs.items():
-        outs = {}
-        for where in ("cpu", "cuda"):
-            p = RegistrationPipeline(small, latent_dim=L_small,
-                                     warp_taps_dtype=torch.float32,
-                                     refine_steps=5, refine_lr=0.02,
-                                     device=where, **opts)
-            p.model.load_state_dict(state)
-            pc = {k: v.to(where) for k, v in small_pca.items()}
-            outs[where] = [t.cpu() for t in
-                           p.register(pc, *(a.to(where) for a in s_args))]
-            outs[where].append(p.last_refine["total_history"].cpu())
+        cpu, card = refined("cpu", opts), refined("cuda", opts)
+        cpu_runs[cfg] = cpu
+        # the outputs held: the CPU run's, or for the ill-conditioned case
+        # the CPU's at the card's refined coefficients
+        held = (refined("cpu", opts, steps=1, lr=0.0, coefs=card[3])
+                if cfg in REFINE_AT_CARD_COEFS else cpu)
         refine_ref[cfg] = {
-            "phi": _max_err(outs["cuda"][1], outs["cpu"][1]),
-            "warped": _max_err(outs["cuda"][0], outs["cpu"][0]),
-            "total_history": _max_err(outs["cuda"][2], outs["cpu"][2]),
-            "history_cpu": [float(x) for x in outs["cpu"][2]]}
-    _emit(max_abs_err=refine_ref, tol=REFINE_REF_TOL)
+            "held_to": ("cpu_at_card_coefs" if cfg in REFINE_AT_CARD_COEFS
+                        else "cpu_run"),
+            "phi": _max_err(card[1], held[1]),
+            "warped": _max_err(card[0], held[0]),
+            "total_history": _max_err(card[2], cpu[2]),
+            "coefs_vs_cpu_run": _max_err(card[3], cpu[3]),
+            "phi_vs_cpu_run": _max_err(card[1], cpu[1]),
+            "warped_vs_cpu_run": _max_err(card[0], cpu[0]),
+            "history_cpu": [float(x) for x in cpu[2]]}
+    # the negative control: the history must see a wrong coordinate
+    # gradient in the ill-conditioned case
+    control = _max_err(flipped_coord_grad()[2],
+                       cpu_runs["projection_ngf"][2])
+    _emit(max_abs_err=refine_ref, tol=REFINE_REF_TOL,
+          history_tol=REFINE_HISTORY_TOL,
+          flipped_coord_grad_history_err=control)
     for cfg, e in refine_ref.items():
         _require(e["phi"] <= REFINE_REF_TOL[0]
-                 and e["warped"] <= REFINE_REF_TOL[1],
+                 and e["warped"] <= REFINE_REF_TOL[1]
+                 and e["total_history"] <= REFINE_HISTORY_TOL,
                  f"refinement ({cfg}) on the card disagrees with the CPU")
+    _require(control > REFINE_HISTORY_TOL,
+             f"the history's check does not see a wrong coordinate "
+             f"gradient: {control}")
 
-    def profile_call(fn, **fields):
+    def profile_call(fn, totals=(), **fields):
         """Run ``fn`` once under torch.profiler and emit its wall time,
         device time by layer and the device's idle share, with ``fields``
-        (and the wall time a step where they give ``steps``). Returns
+        (and the wall time a step where they give ``steps``), and for each
+        layer in ``totals`` its device ms and kernel launches. Returns
         (wall ms, device busy ms)."""
         from torch.profiler import ProfilerActivity, profile
         with profile(activities=[ProfilerActivity.CPU,
@@ -1452,10 +1586,16 @@ def main():
             fn()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-        kernel_ms = {}
+        kernel_ms, kernel_calls = {}, {}
         for e in prof.key_averages():
             if e.device_type == torch.autograd.DeviceType.CUDA:
                 kernel_ms[e.key] = e.self_device_time_total / 1e3
+                kernel_calls[e.key] = e.count
+        for layer in totals:
+            names = [k for k in kernel_ms if _layer(k) == layer]
+            fields[f"{layer}_total"] = {
+                "ms": sum(kernel_ms[k] for k in names),
+                "launches": sum(kernel_calls[k] for k in names)}
         by_layer = {}
         for name, t in kernel_ms.items():
             by_layer[_layer(name)] = by_layer.get(_layer(name), 0.0) + t
@@ -1850,7 +1990,6 @@ def main():
 
     # -- training against the CPU at 32^3 ----------------------------------
     _begin("train_reference")
-    from liftreg_tpu_torch.ops import warp_kernel
     ref_root = os.path.join(train_root, "small")
     write_train_dataset(torch, F, drr, project_taps,
                         os.path.join(ref_root, "data"), 32, 4, 1, 2, 8, 4,
@@ -2124,7 +2263,7 @@ def main():
     inv_pts = (identity_map((SZ,) * 3, device=dev)[None]
                + disp_inv_rn).contiguous()
     flags_rn = {"normalized": True, "scale_intensity": False}
-    rn_errs = {}
+    rn_errs, overflow_shares = {}, {}
     for name, taps_rn, pts_rn in (
             ("disp", disp_rn, inv_pts), ("warped", out_rn["warped"], inv_pts),
             ("attenuation", batch_rn["original_source"], out_rn["phi"])):
@@ -2134,6 +2273,10 @@ def main():
             rn_errs[f"image_grad/{name}"] = image_grad_errs(
                 warp_image_grad, warp_image_grad_plain, taps_rn, pts_rn,
                 cot_rn, False, **flags_rn)
+            overflow.zero_()
+            warp_image_grad(taps_rn, pts_rn, cot_rn, False, **flags_rn)
+            overflow_shares[f"regnet_{name}"] = int(overflow) / (
+                taps_rn.shape[0] * pts_rn[0, 0].numel())
         want = warp_coord_grad_plain(taps_rn, pts_rn, cot_rn, False,
                                      **flags_rn)
         err = _max_err(warp_coord_grad(taps_rn, pts_rn, cot_rn, False,
@@ -2159,7 +2302,8 @@ def main():
     del out_rn, disp_rn, disp_inv_rn, inv_pts
 
     _begin("profile_regnet")
-    profile_call(lambda: tr_rn.step(batch_rn, names_rn), steps=1)
+    profile_call(lambda: tr_rn.step(batch_rn, names_rn), steps=1,
+                 totals=("warp_image_grad",))
     tr_rn._pending_losses.clear()
     del tr_rn, batch_rn, names_rn
     torch.cuda.empty_cache()
@@ -2167,7 +2311,7 @@ def main():
 
     # -- times -------------------------------------------------------------
     _begin("times")
-    ms, plain_ms, lib_ms = {}, {}, {}
+    ms, plain_ms, lib_ms, image_grad_fields = {}, {}, {}, {}
     coefs_bf16 = coefs.to(torch.bfloat16)
     ms["pca_expand"] = _cuda_ms(lambda: pca_expand(coefs, V, mean), 20)
     plain_ms["pca_expand"] = _cuda_ms(
@@ -2231,6 +2375,9 @@ def main():
     ig_phi = _phi_of(_smooth_coords(torch, F, g, 1, SZ, 4.0, dev), SZ)
     ig_cot = torch.randn((1, 3) + (SZ,) * 3, generator=g, device=dev)
     ig_flags = {"normalized": True, "scale_intensity": False}
+    overflow.zero_()
+    warp_image_grad(ig_vol, ig_phi, ig_cot, False, **ig_flags)
+    overflow_shares["timed"] = int(overflow) / ig_cot[0, 0].numel()
     ms["warp_image_grad"] = _cuda_ms(lambda: warp_image_grad(
         ig_vol, ig_phi, ig_cot, False, **ig_flags), 20)
     plain_ms["warp_image_grad"] = _cuda_ms(lambda: warp_image_grad_plain(
@@ -2239,6 +2386,21 @@ def main():
     lib_ms["warp_image_grad"] = _cuda_ms(
         lambda: torch.ops.aten.grid_sampler_3d_backward(
             ig_cot, ig_vol, ig_grid, 0, 0, True, [True, False]), 10)
+    # and at fields like RegNet2D3D's inverse iteration: the identity (its
+    # first step) and a smooth field of up to 0.9 voxels
+    for name, amp in (("identity", 0.0), ("near_identity", 0.9)):
+        near = _near_identity_phi(torch, F, g, 1, SZ, amp, dev)
+        overflow.zero_()
+        warp_image_grad(ig_vol, near, ig_cot, False, **ig_flags)
+        overflow_shares[name] = int(overflow) / ig_cot[0, 0].numel()
+        image_grad_fields[name] = {
+            "ms": _cuda_ms(lambda: warp_image_grad(
+                ig_vol, near, ig_cot, False, **ig_flags), 20),
+            "library_ms": _cuda_ms(
+                lambda: torch.ops.aten.grid_sampler_3d_backward(
+                    ig_cot, ig_vol, near.movedim(1, -1).flip(-1).contiguous(),
+                    0, 0, True, [True, False]), 10)}
+        del near
     ig_points = ig_phi.numel() // 3
     ig_bytes = (ig_phi.numel() + ig_cot.numel() + ig_vol.numel()) * 4
     ig_ops = (IMG_GRAD_OPS_PER_POINT + WARP_PHI_OPS
@@ -2374,6 +2536,7 @@ def main():
         return (t_ms - register_ms) / (REFINE_STEPS + 1)
 
     _emit(kernel_ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+          image_grad_fields=image_grad_fields,
           warp_layouts=layout_times, lift_bf16_buffer=lift_bf16,
           register_ms=register_ms, register_per_s=B * 1e3 / register_ms,
           peak_memory_gib=peak_gib, register_refine_ms=refine_ms,
@@ -2399,6 +2562,11 @@ def main():
           regnet_peak_memory_gib=regnet_peak_gib,
           subspace_step_ms=subspace_step_ms, subspace_batch=TRAIN_B,
           subspace_peak_memory_gib=subspace_peak_gib)
+    # the share of the image gradient's points that took its overflow path:
+    # at the timed shape (C = 3, 160^3, B = 1) and fields, and at
+    # RegNet2D3D's step
+    _begin("image_grad_overflow")
+    _emit(overflow_share=overflow_shares)
 
     _begin("profile")
     profile_call(lambda: pipe.register(pca, src_hu, tgt_hu, seg, seg))

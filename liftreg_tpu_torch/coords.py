@@ -13,37 +13,41 @@ import numpy as np
 import torch
 
 
-def linspace(start, stop, n):
-    """``jnp.linspace(start, stop, n)`` in f32, rounded as XLA computes it
-    on the CPU for a call outside ``jit`` (a CPU tensor). XLA turns the
-    division by ``d = n - 1`` into a product with ``r = f32(1/d)``, takes
-    ``tr = f32(stop*r)``, and fuses the sums into multiply-adds:
+def linspace_in_jit(start, stop, n):
+    """``jnp.linspace(start, stop, n)`` in f32, rounded as XLA compiles it
+    inside ``jit`` on the CPU, with ``start`` and ``stop`` constants: the
+    JAX package's identity map (``liftreg_tpu/coords.py:identity_map``,
+    called inside the jitted models, refiners, pipeline and train steps)
+    and its DRR geometry (``liftreg_tpu/ops/drr.py:125-127,165-167``, inside
+    the jitted projector and lift). The compiled HLO folds ``stop * (i/d)``
+    into ``i * c`` with ``r = f32(1/d)``, ``c = f32(stop * r)`` (``c = r``
+    when ``stop`` is 1, a product that ``1 - i*r`` shares):
 
-    - ``out[i] = f32(fma(i, tr, f32(start * s_i)))``, the last element
+    - ``out[i] = f32(f32(start * s_i) + f32(i * c))`` with
+      ``s_i = f32(1 - f32(i * r))``, no fused multiply-add, the last element
       ``stop``;
-    - ``s_i = f32(fma(-i, r, 1))`` for ``i < 32*floor(d/32)`` when
-      ``n >= 353`` (XLA's vectorised loop body of 32 elements contracts
-      ``1 - i*r`` too), else ``s_i = f32(1 - f32(i*r))`` (its scalar
-      remainder);
-    - for ``2 < n <= 34`` element 1 takes the other contraction,
-      ``f32(fma(start, s_1, f32(tr)))``.
+    - from n = 353, for ``i < 32*floor(d/32)`` (XLA's vectorised loop
+      body of 32 elements; the scalar remainder keeps the rule above),
+      when ``stop`` is not 1, the body contracts
+      ``s_i = f32(fma(-i, r, 1))`` and the product of the positive end:
+      ``f32(fma(i, c, f32(start * s_i)))`` for ``start < 0 < stop``,
+      ``f32(fma(start, s_i, f32(i * c)))`` for ``stop <= 0 < start``
+      (the product of two f32 values is exact in f64, so an f64 sum
+      rounded to f32 stands in for each multiply-add).
 
-    The split comes from XLA's CPU code generation, not from the HLO (it is
-    the same at n = 352 and 353), so the rule holds for the XLA version and
-    the CPU vector width it was measured on (jax 0.9.0, AVX-512) and may
-    move with either. The product of two f32 values is exact in f64, so
-    the f64 sum rounded to f32 stands in for each multiply-add.
-    ``torch.linspace`` rounds differently (by an ulp in most elements).
-
-    ``tests/test_torch_linspace_long.py`` holds it bit-equal to a live
-    ``jnp.linspace`` for every n from 2 to 1024 on ``(-1, 1)``,
-    ``(-n/2, n/2 - 1)``, its reverse, ``(0, 1)`` and ``(-1.1n, 0.7n)``.
-    Inside ``jit``, where the JAX package builds its DRR geometry and
-    identity map, XLA compiles the same expression with its constants
-    folded in and rounds otherwise: the centred range ``(-n/2, n/2 - 1)``
-    differs there by up to 1 ulp of ``n/2`` and ``(-1, 1)`` by up to
-    1 ulp of 1 (measured for n from 2 to 1024); the reversed range
-    ``(n - 1, 0)`` and ``(0, n - 1)`` are bit-equal."""
+    Measured bit-equal to ``jax.jit`` (jax 0.9.0, AVX-512) for every n from
+    2 to 1024 on ``(-1, 1)``, ``(-n/2, n/2 - 1)``, its reverse, ``(0, 1)``,
+    ``(-1.1n, 0.7n)``, ``(0, n - 1)`` and ``(n - 1, 0)``, and the identity
+    map also where XLA fuses it into the models' ``disp + identity_map``
+    and into the phi of the jitted ``RegistrationPipeline.register``
+    (``tests/test_torch_linspace_jit.py``). Other ranges with an end of
+    0 or 1 can contract otherwise from n = 353 (``(3, 1)``, ``(1, -1)``
+    and ``(-1, 0)`` do): the rule is not claimed for them. The split of
+    the body from the remainder comes from XLA's CPU code generation, not
+    from the HLO, so the rule holds for the XLA version and the CPU vector
+    width it was measured on and may move with either. ``torch.linspace``
+    and an eager ``jnp.linspace`` round otherwise (by an ulp in many
+    elements)."""
     n = int(n)
     start32 = torch.tensor(start, dtype=torch.float32)
     if n == 1:
@@ -52,21 +56,25 @@ def linspace(start, stop, n):
     d = n - 1
     i = torch.arange(n, dtype=torch.float32)
     r = torch.tensor(1.0, dtype=torch.float32) / d
-    tr = (stop32 * r).double()
+    c = stop32 * r
     s = 1.0 - i * r
-    if n >= 353:
+    out = start32 * s + i * c
+    if n >= 353 and stop != 1.0 and (start < 0 < stop or stop <= 0 < start):
         body = 32 * (d // 32)
-        s[:body] = (1.0 - i[:body].double() * r.double()).float()
-    out = (i.double() * tr + (start32 * s).double()).float()
-    if 2 < n <= 34:
-        out[1] = (start32.double() * s[1].double() + tr).float()
+        ib = i[:body].double()
+        sf = (1.0 - ib * r.double()).float().double()
+        if start < 0:
+            out[:body] = (ib * c.double() + (start32 * sf).float()).float()
+        else:
+            out[:body] = (start32.double() * sf
+                          + (i[:body] * c).double()).float()
     out[-1] = stop32
     return out
 
 
 @functools.lru_cache(maxsize=16)
 def _identity_map(sz, device, dtype):
-    axes = [linspace(-1.0, 1.0, n) for n in sz]
+    axes = [linspace_in_jit(-1.0, 1.0, n) for n in sz]
     grid = torch.stack(torch.meshgrid(*axes, indexing="ij"), dim=0)
     return grid.to(device=device, dtype=dtype)
 
@@ -74,9 +82,10 @@ def _identity_map(sz, device, dtype):
 def identity_map(sz, device=None, dtype=torch.float32):
     """Normalized identity map ``(ndim, *sz)`` in [-1, 1] on ``device``:
     axis ``d`` varies along spatial dim ``d`` as ``linspace(-1, 1, sz[d])``
-    with JAX's rounding (:func:`linspace`). Cached by ``(sz, device,
-    dtype)``: the same tensor comes back on every call, so callers must not
-    write into it."""
+    rounded as the JAX package's identity map rounds inside ``jit``, where
+    every one of its callers builds it (:func:`linspace_in_jit`). Cached by
+    ``(sz, device, dtype)``: the same tensor comes back on every call, so
+    callers must not write into it."""
     device = torch.device("cpu") if device is None else torch.device(device)
     return _identity_map(tuple(int(n) for n in sz), device, dtype)
 

@@ -91,16 +91,41 @@
 // ports XLA's scatter-add in the autodiff of resample._quad_plain
 // (resample.py:91-145), the path that RegNet2D3D differentiates, and sums
 // each tap's term as (g * w_z) * (w_y * w_x), as that autodiff rounds it.
-// The wrapper zero-fills dtaps; one thread takes one point of one batch
-// element (blockIdx.y) and adds its terms of nonzero weight, up to 8 per
-// channel, with f32 atomics (red.global.add.f32), so the order of a tap's
-// sum changes from run to run (and a tap of weight 0 takes no term, where
-// XLA's scatter adds g * 0: the two differ only for a non-finite g).
-// Bound: bytes, phi, the cotangent and dtaps (~0.15 GB at C = 3, 160^3,
-// B = 1, ~0.044 ms); the atomics set the time instead: 0.405 ms there on an
-// H100 80GB HBM3 at 700 W, against 0.453 for grid_sampler_3d_backward's
-// input gradient (chip_smoke.py times). Hopper's vector
-// red.global.add.v2/v4.f32 and a deterministic gather design are untried.
+// The wrapper zero-fills dtaps. Bound: bytes, phi, the cotangent and dtaps
+// (~0.15 GB at C = 3, 160^3, B = 1, ~0.044 ms). A first version (one
+// thread a point, each term a red.global.add.f32: ~98 M global atomics at
+// that shape) took 0.399-0.405 ms there on an H100 80GB HBM3 at 700 W. This
+// design sums in shared memory instead: a block owns a tile of output
+// points (1 x 8 x 32 of a 3-D phi, a warp's lanes on consecutive x; else a
+// run of consecutive points), finds the box of its points' live taps (a
+// min/max over warp reductions and shared atomics; taps of weight 0 stay
+// out, so zeros-padded points far outside do not widen it), zeroes the box
+// in shared memory, adds each live term there with a shared-memory f32
+// atomic, and adds the box to dtaps once, row by row along x, as 16-byte
+// red.global.add.v4.f32 where H % 4 == 0 (else one float at a time),
+// skipping groups that stayed 0. A tile whose box times its channels
+// overflows the budget (a rough field; border padding that clips points
+// far outside onto a face) adds its terms to dtaps directly, in the same
+// kernel, and its points are counted in the wrapper's overflow counter.
+// Each term is still (g * w_z) * (w_y * w_x), and a tap of weight 0 takes
+// none (where XLA's scatter adds g * 0: the two differ only for a
+// non-finite g); only the order of a tap's sum changes, and it changes
+// from run to run.
+// Measured on an H100 80GB HBM3 at 700 W (C = 3, 160^3, B = 1, zero fill
+// included), with 1 x 8 x 32 points, 256 threads, 5 blocks an SM, 6144
+// floats and 3 channels' cotangents in registers: 0.305 ms on
+// chip_smoke.py's smooth field of up to ~12 voxels against the first
+// version's 0.400, 0.222 against 0.228 on a 0.9-voxel field, 0.176
+// against 0.157 on the identity (its atomics meet no conflicts there), and
+// for the 8 calls of one RegNet2D3D step 1.87 ms against 2.74 on noise
+// inputs and 1.42 against 1.39 on smooth ones (tools/torch_kernel_ab.py,
+// parent and change in turns). Sending the tiles near the identity
+// straight to dtaps lost (those 8 noise-input calls replayed: 4.05 ms
+// against 1.99), as did merging neighbouring points' terms in registers
+// first (tools/warp_variants/warp_image_grad_merged.cuh) and other tiles,
+// threads, budgets and channels (tools/torch_image_grad_sweep.py;
+// PERF.md section 6).
+#include <climits>
 #include <cstdint>
 #include <type_traits>
 
@@ -595,74 +620,327 @@ cudaError_t launch_grad(const void* taps, const float* pts, const float* g,
   return cudaGetLastError();
 }
 
-// The image gradient's design (see the note at the top): one thread a
-// point, the channels in a loop, up to 8 f32 atomics a channel.
+// The image gradient's design (see the note at the top): a block owns a tile
+// of kImgTile output points, kImgPts a thread (in the phi layout with a 3-D
+// out_shape a kImgTZ x kImgTY x kImgTX block of the output grid, x
+// innermost and a warp's lanes on consecutive x, so that the loads of phi
+// and g are coalesced; else a run of consecutive points). It finds the box
+// of the tile's live taps, adds its points' terms into the box in shared
+// memory with shared-memory atomics, and adds the box to dtaps once, row by
+// row along x; a tile whose box overflows kImgSmemFloats adds its terms to
+// dtaps directly. tools/torch_image_grad_sweep.py patches these constants.
+constexpr int kImgTZ = 1;
+constexpr int kImgTY = 8;
+constexpr int kImgTX = 32;
 constexpr int kImgThreads = 256;
+// blocks an SM must hold (caps the registers)
+constexpr int kImgMinBlocks = 5;
+// the box's shared-memory budget in floats, for all channels of a pass
+constexpr int kImgSmemFloats = 6144;
+// channels of a pass whose cotangents a thread holds in registers
+constexpr int kImgChan = 3;
+constexpr int kImgTile = kImgTZ * kImgTY * kImgTX;
+constexpr int kImgPts = kImgTile / kImgThreads;
+static_assert(kImgTX % 32 == 0 && kImgThreads % 32 == 0 &&
+                  kImgTile % kImgThreads == 0,
+              "a tile's rows along x and its threads are whole warps");
+static_assert(kImgSmemFloats % 4 == 0, "the box is zeroed as float4");
 
-template <int MODES, int LAYOUT>
-__global__ void __launch_bounds__(kImgThreads)
-warp_image_grad_kernel(const float* __restrict__ pts,
-                       const float* __restrict__ g,
-                       float* __restrict__ dtaps, int C, int D, int W, int H,
-                       int M, int border, int modes, int rescale) {
-  const int b = blockIdx.y;
-  const int m = blockIdx.x * kImgThreads + threadIdx.x;
-  if (m >= M) return;
-  const int S = D * W * H;
-  const float scale[3] = {0.5f * static_cast<float>(D - 1),
-                          0.5f * static_cast<float>(W - 1),
-                          0.5f * static_cast<float>(H - 1)};
-  float c[3];
-  load_points_strided<LAYOUT, 1>(pts, b, m, M, scale, c);
-  const Axis z = axis_taps(c[0], D, border, axis_mode<MODES>(modes, 0));
-  const Axis y = axis_taps(c[1], W, border, axis_mode<MODES>(modes, 1));
-  const Axis x = axis_taps(c[2], H, border, axis_mode<MODES>(modes, 2));
-  int at[8];
-  tap_offsets<MODES>(z, y, x, W, H, at);
-  const float wz[2] = {z.w0, z.w1};
-  const float wyx[4] = {__fmul_rn(y.w0, x.w0), __fmul_rn(y.w0, x.w1),
-                        __fmul_rn(y.w1, x.w0), __fmul_rn(y.w1, x.w1)};
-  // a tap of weight 0 (masked, clipped, or t on an integer) adds nothing:
-  // skipping its atomic changes no finite sum, and keeps the points
-  // outside a zeros-padded volume off the taps they are clipped to
-  bool live[8];
+// an axis with a tap of nonzero weight, and its lowest and highest such tap
+__device__ __forceinline__ bool axis_live(const Axis& a) {
+  return a.w0 != 0.f || a.w1 != 0.f;
+}
+
+__device__ __forceinline__ int live_lo(const Axis& a) {
+  return a.w0 != 0.f ? a.i0 : a.i1;
+}
+
+__device__ __forceinline__ int live_hi(const Axis& a) {
+  return a.w1 != 0.f ? a.i1 : a.i0;
+}
+
+// dtaps[0..3] += v as one 16-byte reduction (red.global.add.v4.f32, sm_90)
+__device__ __forceinline__ void red_add_v4(float* p, float4 v) {
+  atomicAdd(reinterpret_cast<float4*>(p), v);
+}
+
+// The cotangents of a thread's points for channels g0 .. g0 + nch - 1 of
+// g (B * C, M), doubled under rescale (d(out * 2 - 1)/d out, exact); 0 past
+// nch and for masked points. All are loaded together, so that their
+// latencies overlap.
+__device__ __forceinline__ void load_cotangents(
+    float (&gv)[kImgChan][kImgPts], const float* __restrict__ g, int64_t g0,
+    int nch, int M, const int* m, int rescale) {
+  const float gs = rescale ? 2.f : 1.f;
 #pragma unroll
-  for (int k = 0; k < 8; ++k) live[k] = wz[k >> 2] != 0.f && wyx[k & 3] != 0.f;
-  for (int ch = 0; ch < C; ++ch) {
-    const int64_t vc = static_cast<int64_t>(b) * C + ch;
-    float gv = __ldg(g + vc * M + m);
-    // d(out * 2 - 1)/d out, exact
-    if (rescale) gv *= 2.f;
-    float* d = dtaps + vc * S;
+  for (int cl = 0; cl < kImgChan; ++cl)
+#pragma unroll
+    for (int p = 0; p < kImgPts; ++p)
+      gv[cl][p] = cl < nch && m[p] >= 0
+                      ? __ldg(g + (g0 + cl) * M + m[p]) * gs
+                      : 0.f;
+}
+
+// Add each live term (g * w_z) * (w_y * w_x) of a thread's points, for
+// nch <= kImgChan channels with the cotangents gv[cl], at base + cl *
+// cstride + ((z - oz) * sy + y - oy) * sx + x - ox, with f32 atomics: into
+// a tile's box in shared memory (origin (oz, oy, ox), strides (sy, sx)), or
+// into dtaps (origin 0, strides (W, H)). A tap of weight 0 takes no term
+// (a masked point's weights are 0).
+__device__ __forceinline__ void add_terms(
+    float* base, int64_t cstride, int nch,
+    const float (&gv)[kImgChan][kImgPts], const Axis* az, const Axis* ay,
+    const Axis* ax, int oz, int oy, int ox, int sy, int sx) {
+#pragma unroll
+  for (int p = 0; p < kImgPts; ++p) {
+    int at[8];
+    const int zy[2] = {(az[p].i0 - oz) * sy - oy, (az[p].i1 - oz) * sy - oy};
 #pragma unroll
     for (int k = 0; k < 8; ++k)
-      if (live[k])
-        atomicAdd(d + at[k],
-                  __fmul_rn(__fmul_rn(gv, wz[k >> 2]), wyx[k & 3]));
+      at[k] = (zy[k >> 2] + ((k >> 1) & 1 ? ay[p].i1 : ay[p].i0)) * sx +
+              (k & 1 ? ax[p].i1 : ax[p].i0) - ox;
+    const float wz[2] = {az[p].w0, az[p].w1};
+    const float wyx[4] = {
+        __fmul_rn(ay[p].w0, ax[p].w0), __fmul_rn(ay[p].w0, ax[p].w1),
+        __fmul_rn(ay[p].w1, ax[p].w0), __fmul_rn(ay[p].w1, ax[p].w1)};
+    int live = 0;
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      if (wz[k >> 2] != 0.f && wyx[k & 3] != 0.f) live |= 1 << k;
+    if (!live) continue;
+#pragma unroll
+    for (int cl = 0; cl < kImgChan; ++cl) {
+      if (cl >= nch) break;
+      float* bc = base + cl * cstride;
+#pragma unroll
+      for (int k = 0; k < 8; ++k)
+        if ((live >> k) & 1)
+          atomicAdd(bc + at[k],
+                    __fmul_rn(__fmul_rn(gv[cl][p], wz[k >> 2]), wyx[k & 3]));
+    }
   }
 }
 
+template <int MODES, int LAYOUT>
+__global__ void __launch_bounds__(kImgThreads, kImgMinBlocks)
+warp_image_grad_kernel(const float* __restrict__ pts,
+                       const float* __restrict__ g,
+                       float* __restrict__ dtaps,
+                       unsigned long long* __restrict__ overflow, int C,
+                       int D, int W, int H, int M, int Do, int Wo, int Ho,
+                       int border, int modes, int rescale, int vec) {
+  extern __shared__ float4 box4[];
+  float* box = reinterpret_cast<float*>(box4);
+  // the box's corners: low z, y, x and minus the high ones, by atomicMin
+  __shared__ int corner[6];
+  const int tid = threadIdx.x;
+  const int b = blockIdx.y;
+  if (tid < 6) corner[tid] = INT_MAX;
+  const float scale[3] = {0.5f * static_cast<float>(D - 1),
+                          0.5f * static_cast<float>(W - 1),
+                          0.5f * static_cast<float>(H - 1)};
+
+  // the tile's points: m = -1 past the end of the grid or of the points
+  int m[kImgPts];
+  int nvalid;
+  if (Do > 0) {
+    const int ntx = (Ho + kImgTX - 1) / kImgTX;
+    const int nty = (Wo + kImgTY - 1) / kImgTY;
+    int t = blockIdx.x;
+    const int x0 = (t % ntx) * kImgTX;
+    t /= ntx;
+    const int y0 = (t % nty) * kImgTY;
+    const int z0 = (t / nty) * kImgTZ;
+#pragma unroll
+    for (int p = 0; p < kImgPts; ++p) {
+      const int q = p * kImgThreads + tid;
+      const int x = x0 + q % kImgTX;
+      const int y = y0 + (q / kImgTX) % kImgTY;
+      const int z = z0 + q / (kImgTX * kImgTY);
+      m[p] = x < Ho && y < Wo && z < Do ? (z * Wo + y) * Ho + x : -1;
+    }
+    nvalid = min(kImgTX, Ho - x0) * min(kImgTY, Wo - y0) *
+             min(kImgTZ, Do - z0);
+  } else {
+    const int m0 = blockIdx.x * kImgTile;
+#pragma unroll
+    for (int p = 0; p < kImgPts; ++p) {
+      const int q = m0 + p * kImgThreads + tid;
+      m[p] = q < M ? q : -1;
+    }
+    nvalid = min(kImgTile, M - m0);
+  }
+
+  // the first channels' cotangents, in flight with the points' loads
+  float gv[kImgChan][kImgPts];
+  load_cotangents(gv, g, static_cast<int64_t>(b) * C, min(C, kImgChan), M,
+                  m, rescale);
+  // each point's taps and weights, and the box of the block's live taps
+  // (a tap of weight 0 adds nothing, so points outside a zeros-padded
+  // volume leave the box alone)
+  Axis az[kImgPts], ay[kImgPts], ax[kImgPts];
+  int ext[6] = {INT_MAX, INT_MAX, INT_MAX, INT_MAX, INT_MAX, INT_MAX};
+#pragma unroll
+  for (int p = 0; p < kImgPts; ++p) {
+    float c[3] = {0.f, 0.f, 0.f};
+    if (m[p] >= 0) {
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        const float v =
+            LAYOUT == kPixel
+                ? __ldg(pts + 3 * (static_cast<int64_t>(b) * M + m[p]) + a)
+                : __ldg(pts + (static_cast<int64_t>(b) * 3 + a) * M + m[p]);
+        c[a] = LAYOUT == kPixel ? v : __fmul_rn(__fadd_rn(v, 1.f), scale[a]);
+      }
+    }
+    az[p] = axis_taps(c[0], D, border, axis_mode<MODES>(modes, 0));
+    ay[p] = axis_taps(c[1], W, border, axis_mode<MODES>(modes, 1));
+    ax[p] = axis_taps(c[2], H, border, axis_mode<MODES>(modes, 2));
+    // a masked point adds nothing
+    if (m[p] < 0) az[p].w0 = az[p].w1 = 0.f;
+    if (axis_live(az[p]) && axis_live(ay[p]) && axis_live(ax[p])) {
+      ext[0] = min(ext[0], live_lo(az[p]));
+      ext[1] = min(ext[1], live_lo(ay[p]));
+      ext[2] = min(ext[2], live_lo(ax[p]));
+      ext[3] = min(ext[3], -live_hi(az[p]));
+      ext[4] = min(ext[4], -live_hi(ay[p]));
+      ext[5] = min(ext[5], -live_hi(ax[p]));
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < 6; ++k) ext[k] = __reduce_min_sync(0xffffffffu, ext[k]);
+  __syncthreads();
+  if ((tid & 31) == 0) {
+#pragma unroll
+    for (int k = 0; k < 6; ++k) atomicMin(&corner[k], ext[k]);
+  }
+  __syncthreads();
+  const int zlo = corner[0], ylo = corner[1], xlo = corner[2];
+  const int zhi = -corner[3], yhi = -corner[4], xhi = -corner[5];
+  // no live tap in the tile (every point outside a zeros-padded volume)
+  if (zlo > zhi) return;
+  // with vec the box's rows start and end on 16-byte boundaries of dtaps
+  const int xs = vec ? xlo & ~3 : xlo;
+  const int xe = vec ? min((xhi | 3) + 1, H) : xhi + 1;
+  const int bx = xe - xs, by = yhi - ylo + 1, bz = zhi - zlo + 1;
+  const int64_t box_n = static_cast<int64_t>(bz) * by * bx;
+  const int per = box_n <= kImgSmemFloats ? static_cast<int>(box_n) : 0;
+  // channels a pass; 0: the box overflows the budget
+  const int cpass = per ? min(min(C, kImgChan), kImgSmemFloats / per) : 0;
+  const int S = D * W * H;
+
+  if (cpass == 0) {
+    // the overflow path: the terms straight to dtaps, as f32 atomics
+    if (overflow != nullptr && tid == 0)
+      atomicAdd(overflow, static_cast<unsigned long long>(nvalid));
+    for (int c0 = 0; c0 < C; c0 += kImgChan) {
+      const int nc = min(kImgChan, C - c0);
+      if (c0 > 0)
+        load_cotangents(gv, g, static_cast<int64_t>(b) * C + c0, nc, M, m,
+                        rescale);
+      add_terms(dtaps + (static_cast<int64_t>(b) * C + c0) * S, S, nc, gv,
+                az, ay, ax, 0, 0, 0, W, H);
+    }
+    return;
+  }
+
+  for (int c0 = 0; c0 < C; c0 += cpass) {
+    const int nc = min(cpass, C - c0);
+    if (c0 > 0)
+      load_cotangents(gv, g, static_cast<int64_t>(b) * C + c0, nc, M, m,
+                      rescale);
+    const int n4 = (nc * per + 3) / 4;
+    for (int i = tid; i < n4; i += kImgThreads)
+      box4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+    __syncthreads();
+    add_terms(box, per, nc, gv, az, ay, ax, zlo, ylo, xs, by, bx);
+    __syncthreads();
+    // the flush: a row of the box is bx consecutive taps of dtaps; taps
+    // (vec: groups of 4) that stayed 0 are skipped
+    if (vec) {
+      const int q4 = bx >> 2;
+      const int items = nc * bz * by * q4;
+      for (int i = tid; i < items; i += kImgThreads) {
+        const float4 v = box4[i];
+        if (v.x == 0.f && v.y == 0.f && v.z == 0.f && v.w == 0.f) continue;
+        const int r = i / q4, j = i - r * q4;
+        const int yy = r % by, t = r / by;
+        const int zz = t % bz, cl = t / bz;
+        red_add_v4(dtaps + (static_cast<int64_t>(b) * C + c0 + cl) * S +
+                       ((zlo + zz) * W + ylo + yy) * H + xs + 4 * j,
+                   v);
+      }
+    } else {
+      const int items = nc * per;
+      for (int i = tid; i < items; i += kImgThreads) {
+        const float v = box[i];
+        if (v == 0.f) continue;
+        const int r = i / bx, xx = i - r * bx;
+        const int yy = r % by, t = r / by;
+        const int zz = t % bz, cl = t / bz;
+        atomicAdd(dtaps + (static_cast<int64_t>(b) * C + c0 + cl) * S +
+                      ((zlo + zz) * W + ylo + yy) * H + xs + xx,
+                  v);
+      }
+    }
+    if (c0 + cpass < C) __syncthreads();
+  }
+}
+
+template <int MODES, int LAYOUT>
+cudaError_t launch_image_grad(const float* pts, const float* g, float* dtaps,
+                              unsigned long long* overflow, dim3 grid, int C,
+                              int D, int W, int H, int M, int Do, int Wo,
+                              int Ho, int border, int modes, int rescale,
+                              int vec, cudaStream_t stream) {
+  constexpr int kSmem = kImgSmemFloats * static_cast<int>(sizeof(float));
+  // a budget above 48 KB (with the corners) must be asked for; the port's
+  // 24 KB needs no call
+  if constexpr (kSmem + 6 * sizeof(int) > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        warp_image_grad_kernel<MODES, LAYOUT>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+    if (e != cudaSuccess) return e;
+  }
+  warp_image_grad_kernel<MODES, LAYOUT><<<grid, kImgThreads, kSmem, stream>>>(
+      pts, g, dtaps, overflow, C, D, W, H, M, Do, Wo, Ho, border, modes,
+      rescale, vec);
+  return cudaGetLastError();
+}
+
 template <int LAYOUT>
-int image_grad(const float* pts, const float* g, float* dtaps, int64_t B,
-               int64_t C, int64_t D, int64_t W, int64_t H, int64_t M,
-               int border, int modes, int rescale, void* stream) {
+int image_grad(const float* pts, const float* g, float* dtaps,
+               unsigned long long* overflow, int64_t B, int64_t C, int64_t D,
+               int64_t W, int64_t H, int64_t M, int64_t Do, int64_t Wo,
+               int64_t Ho, int border, int modes, int rescale, void* stream) {
   if (B * M == 0) return static_cast<int>(cudaSuccess);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(static_cast<unsigned>((M + kImgThreads - 1) / kImgThreads),
-                  static_cast<unsigned>(B));
+  const int64_t tiles =
+      Do > 0 ? ((Ho + kImgTX - 1) / kImgTX) * ((Wo + kImgTY - 1) / kImgTY) *
+                   ((Do + kImgTZ - 1) / kImgTZ)
+             : (M + kImgTile - 1) / kImgTile;
+  const dim3 grid(static_cast<unsigned>(tiles), static_cast<unsigned>(B));
+  // the flush's 16-byte reductions: rows of dtaps on 16-byte boundaries
+  const int vec =
+      H % 4 == 0 && reinterpret_cast<uintptr_t>(dtaps) % 16 == 0;
   const int c = static_cast<int>(C), d = static_cast<int>(D),
             w = static_cast<int>(W), h = static_cast<int>(H),
-            m = static_cast<int>(M);
+            m = static_cast<int>(M), dz = static_cast<int>(Do),
+            wy = static_cast<int>(Wo), hx = static_cast<int>(Ho);
+  cudaError_t e;
   if (modes == kAllOct)
-    warp_image_grad_kernel<kAllOct, LAYOUT><<<grid, kImgThreads, 0, s>>>(
-        pts, g, dtaps, c, d, w, h, m, border, modes, rescale);
+    e = launch_image_grad<kAllOct, LAYOUT>(pts, g, dtaps, overflow, grid, c,
+                                           d, w, h, m, dz, wy, hx, border,
+                                           modes, rescale, vec, s);
   else if (modes == kQuadZ)
-    warp_image_grad_kernel<kQuadZ, LAYOUT><<<grid, kImgThreads, 0, s>>>(
-        pts, g, dtaps, c, d, w, h, m, border, modes, rescale);
+    e = launch_image_grad<kQuadZ, LAYOUT>(pts, g, dtaps, overflow, grid, c,
+                                          d, w, h, m, dz, wy, hx, border,
+                                          modes, rescale, vec, s);
   else
-    warp_image_grad_kernel<-1, LAYOUT><<<grid, kImgThreads, 0, s>>>(
-        pts, g, dtaps, c, d, w, h, m, border, modes, rescale);
-  return static_cast<int>(cudaGetLastError());
+    e = launch_image_grad<-1, LAYOUT>(pts, g, dtaps, overflow, grid, c, d, w,
+                                      h, m, dz, wy, hx, border, modes,
+                                      rescale, vec, s);
+  return static_cast<int>(e);
 }
 
 template <int LAYOUT>
@@ -745,22 +1023,28 @@ extern "C" int liftreg_warp_coord_grad_phi(const void* taps, int taps_bf16,
 
 // The gradient with respect to f32 taps: dtaps (B, C, D, W, H), zero-filled
 // by the caller, receives sum over points of g (B, C, M) times each tap's
-// weight at coords (B, M, 3)
+// weight at coords (B, M, 3). overflow (one 64-bit counter, or null)
+// receives the points of each tile whose box overflowed the shared memory.
 extern "C" int liftreg_warp_image_grad(const float* coords, const float* g,
-                                       float* dtaps, int64_t B, int64_t C,
-                                       int64_t D, int64_t W, int64_t H,
-                                       int64_t M, int border, int modes,
-                                       void* stream) {
-  return image_grad<kPixel>(coords, g, dtaps, B, C, D, W, H, M, border,
-                            modes, 0, stream);
+                                       float* dtaps,
+                                       unsigned long long* overflow,
+                                       int64_t B, int64_t C, int64_t D,
+                                       int64_t W, int64_t H, int64_t M,
+                                       int border, int modes, void* stream) {
+  return image_grad<kPixel>(coords, g, dtaps, overflow, B, C, D, W, H, M, 0,
+                            0, 0, border, modes, 0, stream);
 }
 
-// the same for phi (B, 3, M), g doubled under rescale
+// the same for phi (B, 3, M), g doubled under rescale; (Do, Wo, Ho) is the
+// out_shape of a 3-D phi (Do * Wo * Ho = M), tiled in 3-D, or Do = 0
 extern "C" int liftreg_warp_image_grad_phi(const float* phi, const float* g,
-                                           float* dtaps, int64_t B, int64_t C,
-                                           int64_t D, int64_t W, int64_t H,
-                                           int64_t M, int border, int modes,
+                                           float* dtaps,
+                                           unsigned long long* overflow,
+                                           int64_t B, int64_t C, int64_t D,
+                                           int64_t W, int64_t H, int64_t M,
+                                           int64_t Do, int64_t Wo,
+                                           int64_t Ho, int border, int modes,
                                            int rescale, void* stream) {
-  return image_grad<kPhi>(phi, g, dtaps, B, C, D, W, H, M, border, modes,
-                          rescale, stream);
+  return image_grad<kPhi>(phi, g, dtaps, overflow, B, C, D, W, H, M, Do, Wo,
+                          Ho, border, modes, rescale, stream);
 }

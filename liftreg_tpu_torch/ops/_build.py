@@ -128,10 +128,11 @@ SIGNATURES = {
     "liftreg_warp_coord_grad_phi": [_PTR, _I32, _PTR, _PTR, _PTR, _I64,
                                     _I64, _I64, _I64, _I64, _I64, _I32, _I32,
                                     _I32, _PTR],
-    "liftreg_warp_image_grad": [_PTR, _PTR, _PTR, _I64, _I64, _I64, _I64,
-                                _I64, _I64, _I32, _I32, _PTR],
-    "liftreg_warp_image_grad_phi": [_PTR, _PTR, _PTR, _I64, _I64, _I64, _I64,
-                                    _I64, _I64, _I32, _I32, _I32, _PTR],
+    "liftreg_warp_image_grad": [_PTR, _PTR, _PTR, _PTR, _I64, _I64, _I64,
+                                _I64, _I64, _I64, _I32, _I32, _PTR],
+    "liftreg_warp_image_grad_phi": [_PTR, _PTR, _PTR, _PTR, _I64, _I64,
+                                    _I64, _I64, _I64, _I64, _I64, _I64, _I64,
+                                    _I32, _I32, _I32, _PTR],
     "liftreg_drr_project": [_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _I64, _I64,
                             _I64, _I64, _I64, _I64, _I64, _I64, _PTR],
     "liftreg_drr_project_adjoint": [_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR,

@@ -23,7 +23,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..coords import linspace
+from ..coords import linspace_in_jit
 from ..device import f32_precision
 
 
@@ -69,9 +69,11 @@ def _two_tap_matrix(pix, n):
 
 
 def _linspace(a, b, n, like):
-    """``jnp.linspace`` rounding (:func:`..coords.linspace`), on the device
-    and in the dtype of ``like``."""
-    return linspace(a, b, n).to(device=like.device, dtype=like.dtype)
+    """``jnp.linspace`` rounded as the JAX package's geometry rounds it
+    inside ``jit``, where its projector and lift build it
+    (:func:`..coords.linspace_in_jit`), on the device and in the dtype of
+    ``like``."""
+    return linspace_in_jit(a, b, n).to(device=like.device, dtype=like.dtype)
 
 
 def forward_geometry(poses, vol_shape, resolution, spacing):

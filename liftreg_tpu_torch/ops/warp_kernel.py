@@ -39,9 +39,12 @@ entry, :func:`warp_image_grad`, in the same two layouts, with the plain
 version :func:`warp_image_grad_plain`: the scatter-add of ``g * w`` into
 the 8 taps of each point, with the forward's taps and weights and the z
 axis of ``_trilinear_quad``, as XLA's autodiff of
-``liftreg_tpu/ops/resample.py:_quad_plain`` gives it. The kernel adds with
-f32 atomics, so its sums' order, and their last bits, change from call to
-call. bf16 taps take no image gradient (``NotImplementedError``, ROADMAP
+``liftreg_tpu/ops/resample.py:_quad_plain`` gives it. The kernel sums a
+tile of points' terms in shared memory and adds each tap of the tile's box
+to device memory once (a tile whose box overflows adds its terms there
+directly, counted in :func:`image_grad_overflow`); both sums use f32
+atomics, so their order, and their last bits, change from call to call.
+bf16 taps take no image gradient (``NotImplementedError``, ROADMAP
 B2): no path of the JAX package differentiates a bf16-tap warp with
 respect to the image.
 
@@ -393,7 +396,9 @@ def warp_image_grad(taps, coords, g, border, normalized=False,
                     scale_intensity=False):
     """The image-gradient kernel on CUDA tensors, the plain version on CPU
     tensors; f32 taps only. ``warp_image_grad.launches`` counts kernel
-    launches."""
+    launches. With ``normalized`` and a 3-D out_shape the kernel tiles the
+    output grid in 3-D (a tile's taps then lie close together); other
+    points go in runs of consecutive points."""
     M = _check(taps, coords, "warp_image_grad", normalized, scale_intensity,
                g=g)
     B, C, D, W, H = taps.shape
@@ -411,21 +416,39 @@ def warp_image_grad(taps, coords, g, border, normalized=False,
     check_offsets(taps.shape, M)
     dtaps = torch.zeros_like(taps)
     lib = _build.library()
-    args = (coords.data_ptr(), g.data_ptr(), dtaps.data_ptr(), B, C, D, W, H,
-            M, int(border), _packed(axis_modes((D, W, H), quad_z=True)))
+    ptrs = (coords.data_ptr(), g.data_ptr(), dtaps.data_ptr(),
+            image_grad_overflow(taps.device).data_ptr(), B, C, D, W, H, M)
+    flags = (int(border), _packed(axis_modes((D, W, H), quad_z=True)))
     with torch.cuda.device(taps.device):
         stream = torch.cuda.current_stream().cuda_stream
         if normalized:
-            rc = lib.liftreg_warp_image_grad_phi(*args, int(scale_intensity),
-                                                 stream)
+            out_shape = tuple(coords.shape[2:])
+            grid = out_shape if len(out_shape) == 3 else (0, 0, 0)
+            rc = lib.liftreg_warp_image_grad_phi(
+                *ptrs, *grid, *flags, int(scale_intensity), stream)
         else:
-            rc = lib.liftreg_warp_image_grad(*args, stream)
+            rc = lib.liftreg_warp_image_grad(*ptrs, *flags, stream)
     _build.check(rc, "warp_image_grad")
     warp_image_grad.launches += 1
     return dtaps
 
 
 warp_image_grad.launches = 0
+_OVERFLOW = {}
+
+
+def image_grad_overflow(device):
+    """The image-gradient kernel's overflow counter on CUDA ``device``: one
+    int64 to which each launch adds the points of every tile whose box of
+    live taps did not fit the kernel's shared memory, and which therefore
+    added their terms straight to device memory. Made zero at first use;
+    callers that measure the share zero it themselves."""
+    device = torch.device(device)
+    if device.index is None:
+        device = torch.device(device.type, torch.cuda.current_device())
+    if device not in _OVERFLOW:
+        _OVERFLOW[device] = torch.zeros(1, dtype=torch.int64, device=device)
+    return _OVERFLOW[device]
 
 
 class _WarpTrilinear(torch.autograd.Function):

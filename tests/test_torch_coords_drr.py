@@ -3,6 +3,9 @@
 Same numpy inputs through both packages; f32 throughout, atol/rtol 1e-5
 (the projections are sums of up to W 2-tap products, taken in another
 order than XLA's)."""
+import functools
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -31,31 +34,36 @@ def test_identity_map():
                                 (160, 2, 160), (240, 3, 240),
                                 (256, 256, 2), (7, 160, 33)])
 def test_identity_map_bit_equal(sz):
-    """The identity map rounds as jnp.linspace does: bit-equal, not close
-    (its pixel coordinates sit on integers, where the warp's gradient
-    jumps)."""
+    """The identity map rounds as the JAX package's does inside jit, where
+    its models and refiners build it: bit-equal, not close (its pixel
+    coordinates sit on integers, where the warp's gradient jumps)."""
     got = tcoords.identity_map(sz)
-    np.testing.assert_array_equal(_np(got), np.asarray(jcoords.identity_map(sz)))
+    want = jax.jit(jcoords.identity_map, static_argnums=0)(sz)
+    np.testing.assert_array_equal(_np(got), np.asarray(want))
     assert tcoords.identity_map(sz, device="cpu") is got
 
 
 def test_linspace_bit_equal_every_n():
+    """(-1, 1) as the JAX package's identity map builds it, inside jit."""
     for n in range(1, 257):
+        want = jax.jit(functools.partial(jnp.linspace, -1.0, 1.0, n,
+                                         dtype=jnp.float32))()
         np.testing.assert_array_equal(
-            _np(tcoords.linspace(-1.0, 1.0, n)),
-            np.asarray(jnp.linspace(-1.0, 1.0, n, dtype=jnp.float32)),
+            _np(tcoords.linspace_in_jit(-1.0, 1.0, n)), np.asarray(want),
             err_msg=f"n={n}")
 
 
 @pytest.mark.parametrize("n", [16, 20, 24, 30, 32, 48, 96, 160, 240])
 def test_drr_linspace_bit_equal_at_geometry_ranges(n):
     """The ranges of drr.forward_geometry / backward_geometry: detector
-    and volume grids centred on 0, and the (reversed) coronal planes."""
+    and volume grids centred on 0, and the (reversed) coronal planes, as
+    the JAX package's projector and lift build them inside jit."""
     like = torch.zeros(1)
     for lo, hi in ((-n / 2.0, n / 2.0 - 1.0), (n - 1.0, 0.0), (0.0, n - 1.0)):
+        want = jax.jit(functools.partial(jnp.linspace, lo, hi, n,
+                                         dtype=jnp.float32))()
         np.testing.assert_array_equal(
-            _np(tdrr._linspace(lo, hi, n, like)),
-            np.asarray(jnp.linspace(lo, hi, n, dtype=jnp.float32)),
+            _np(tdrr._linspace(lo, hi, n, like)), np.asarray(want),
             err_msg=f"linspace({lo}, {hi}, {n})")
 
 

@@ -50,6 +50,7 @@ from liftreg_tpu_torch.ops.pca_kernel import (MAX_CHUNK, pca_expand,
                                               pca_grad_plain)
 from liftreg_tpu_torch.ops.warp_kernel import (warp_coord_grad,
                                                warp_coord_grad_plain,
+                                               image_grad_overflow,
                                                warp_image_grad,
                                                warp_image_grad_plain,
                                                warp_trilinear,
@@ -644,7 +645,8 @@ def test_train_step_on_card_matches_cpu(device, tmp_path):
 
 IMAGE_GRAD_CASES = ("serving_c1_b1", "serving_c3_b1", "serving_c1_b2",
                     "serving_c3_b2", "ragged_m", "unaligned", "unit_d",
-                    "unit_w", "unit_h", "pixel")
+                    "unit_w", "unit_h", "pixel", "rough", "pixel_rough",
+                    "faces", "pixel_faces")
 
 
 @pytest.mark.parametrize("case,border,scale_intensity", [
@@ -658,8 +660,12 @@ def test_warp_image_grad_kernel_matches_plain(device, case, border,
     at 160^3 with B = 1 and 2 in the phi layout; M = 6001 points, which no
     block divides; phi and the cotangent off a 16-byte boundary; spatial
     dims of 1 (the quad and generic modes); the pixel layout (no rescale
-    there). Coordinates far outside, on integers and on the edges. Two
-    calls agree within the same tolerance (see the module docstring)."""
+    there). Coordinates far outside, on integers and on the edges. A rough
+    field (each point up to 12 voxels off its own, independently), whose
+    tiles' boxes overflow the kernel's shared memory and take its overflow
+    path, which must then count points; a field clamped onto the faces, so
+    that the tiles' boxes end exactly at them. Two calls agree within the
+    same tolerance (see the module docstring)."""
     g = torch.Generator(device=device).manual_seed(9)
     B, C, spatial, out_shape = 2, 2, (9, 12, 10), (9, 12, 10)
     if case.startswith("serving"):
@@ -671,28 +677,46 @@ def test_warp_image_grad_kernel_matches_plain(device, case, border,
         axis = "dwh".index(case[-1])
         spatial = out_shape = tuple(1 if i == axis else n
                                     for i, n in enumerate(spatial))
+    elif case.endswith(("rough", "faces")):
+        C, spatial = 3, (40, 24, 36)
+        out_shape = spatial
     vol = torch.zeros((B, C) + spatial, device=device)
     if case == "ragged_m":
         phi = torch.rand((B, 3) + out_shape, generator=g,
                          device=device) * 2.6 - 1.3
     else:
         phi = _phi(g, B, out_shape, device)
+    if case.endswith(("rough", "faces")):
+        n = torch.tensor(spatial, dtype=torch.float32,
+                         device=device).view(1, 3, 1, 1, 1)
+        pix = (phi + 1.0) * (n - 1.0) * 0.5
+        if case.endswith("rough"):
+            pix = pix + (torch.rand(pix.shape, generator=g,
+                                    device=device) * 24.0 - 12.0)
+        else:
+            pix = torch.minimum(torch.maximum(pix, torch.zeros_like(pix)),
+                                n - 1.0)
+        phi = (pix / ((n - 1.0) * 0.5) - 1.0).contiguous()
     cot = torch.randn((B, C) + out_shape, generator=g, device=device)
     if case == "unaligned":
         phi, cot = _unaligned(phi), _unaligned(cot)
     flags = {"normalized": True, "scale_intensity": scale_intensity}
-    if case == "pixel":
+    if case.startswith("pixel"):
         n = torch.tensor(spatial, dtype=torch.float32, device=device)
         phi = ((phi.movedim(1, -1) + 1.0) * (n - 1) * 0.5).reshape(
             B, -1, 3).contiguous()
         cot = cot.reshape(B, C, -1).contiguous()
         flags = {}
     before = warp_image_grad.launches
+    overflow = image_grad_overflow(device)
+    overflow.zero_()
     got = warp_image_grad(vol, phi, cot, border, **flags)
     again = warp_image_grad(vol, phi, cot, border, **flags)
     torch.cuda.synchronize()
     assert warp_image_grad.launches == before + 2
     assert got.shape == vol.shape
+    if case.endswith("rough"):
+        assert int(overflow) > 0
     want = warp_image_grad_plain(vol, phi, cot, border, **flags)
     mag = warp_image_grad_plain(vol, phi, cot.abs(), border, **flags)
     tol = 1e-5 * float(want.abs().max()) + 1e-6 * mag

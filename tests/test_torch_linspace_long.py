@@ -1,17 +1,16 @@
-"""C4: liftreg_tpu_torch.coords.linspace against a live jnp.linspace, for
-long axes and the DRR geometry's ranges, on the CPU.
-
-Outside ``jit`` (a CPU call, as the JAX package's tests and eager callers
-make it) the port is bit-equal to ``jnp.linspace`` for every n from 2 to
-1024 on ``(-1, 1)``, the centred range ``(-n/2, n/2 - 1)``, its reverse,
+"""C4: liftreg_tpu_torch.coords.linspace_in_jit against ``jnp.linspace``
+compiled by ``jax.jit`` with constant ends, as the JAX package builds its
+identity map and DRR geometry (``liftreg_tpu/ops/drr.py:125-127,165-167``),
+for long axes, on the CPU: bit-equal for every n from 2 to 1024 on
+``(-1, 1)``, the centred range ``(-n/2, n/2 - 1)``, its reverse,
 ``(0, 1)``, ``(-1.1n, 0.7n)``, and the geometry's ``(n - 1, 0)`` and
-``(0, n - 1)``. Inside ``jit``, where the JAX package builds its DRR
-geometry (``liftreg_tpu/ops/drr.py:125-127,165-167``) with the ranges'
-ends as constants, XLA rounds the centred range otherwise: the port is
-held there to 1 ulp of ``n/2`` (the exception its docstring names), and
-bit-equal on the reversed and plane ranges. The rule follows XLA's CPU
-code generation, so these tests compare with a live ``jnp.linspace`` and
-keep no stored values."""
+``(0, n - 1)`` (the short n and n from 641 are in
+test_torch_linspace_geometry.py). The rule follows XLA's CPU code
+generation, so these tests compare with a live ``jax.jit`` and keep no
+stored values."""
+import functools
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -26,13 +25,18 @@ def _ranges(n):
             "planes_reversed": (n - 1.0, 0.0), "planes": (0.0, n - 1.0)}
 
 
-def _check_eager(ns, names):
+def _jit_linspace(lo, hi, n):
+    return np.asarray(jax.jit(functools.partial(
+        jnp.linspace, lo, hi, n, dtype=jnp.float32))())
+
+
+def _check_jit(ns, names):
     for n in ns:
         for name in names:
             lo, hi = _ranges(n)[name]
             np.testing.assert_array_equal(
-                coords.linspace(lo, hi, n).numpy(),
-                np.asarray(jnp.linspace(lo, hi, n, dtype=jnp.float32)),
+                coords.linspace_in_jit(lo, hi, n).numpy(),
+                _jit_linspace(lo, hi, n),
                 err_msg=f"{name} linspace({lo}, {hi}, {n})")
 
 
@@ -40,4 +44,4 @@ def _check_eager(ns, names):
 def test_linspace_bit_equal_long(first):
     """n from 257 to 640 on every range, 64 sizes a case (641 to 1024 are
     in test_torch_linspace_geometry.py)."""
-    _check_eager(range(first, first + 64), list(_ranges(2)))
+    _check_jit(range(first, first + 64), list(_ranges(2)))

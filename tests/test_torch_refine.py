@@ -3,9 +3,9 @@
 ``RegistrationPipeline(refine_steps=...)`` at 16^3 with the flax weights
 carried by ``params_from_jax``.
 
-The port's identity map rounds as ``jnp.linspace`` does
-(``liftreg_tpu_torch/coords.py:linspace``, held bit-equal in
-tests/test_torch_coords_drr.py), so a refinement from zero coefficients,
+The port's identity map rounds as the JAX package's does inside ``jit``
+(``liftreg_tpu_torch/coords.py:linspace_in_jit``, held bit-equal in
+tests/test_torch_coords_drr.py and test_torch_linspace_jit.py), so a refinement from zero coefficients,
 where phi is the identity map and its pixel coordinates sit on integers
 (the warp's kinks), takes the same subgradients in both packages:
 ``test_refiner_from_zero_matches_jax``. The kink conventions themselves

@@ -1,5 +1,7 @@
 """The port's timing tools (``tools/torch_kernel_ab.py``,
-``tools/torch_drr_sweep.py``, ``tools/torch_grad_sweep.py``) on the CPU:
+``tools/torch_drr_sweep.py``, ``tools/torch_grad_sweep.py``,
+``tools/torch_warp_sweep.py``, ``tools/torch_image_grad_sweep.py``) on the
+CPU:
 what they can check without a card. They share the serving inputs with
 ``chip_smoke.py``."""
 import re
@@ -279,3 +281,137 @@ def test_glue_counter_sees_the_plain_glue():
         assert counts["coordinate_buffers"] >= warps
         assert counts["rescales"] == warps
         assert counts["tap_casts"] == casts
+
+
+import torch_image_grad_sweep  # noqa: E402
+
+
+def test_image_grad_sweep_variants_read_the_knobs():
+    """The image gradient's sweep starts from the port's source as built;
+    every constant it sets is one the source defines, once; the names are
+    distinct."""
+    sweep = torch_image_grad_sweep
+    assert list(sweep.VARIANTS)[0] == "csrc" and sweep.VARIANTS["csrc"] == []
+    src = sweep.SRC.read_text()
+    for name, subs in sweep.VARIANTS.items():
+        for pattern, _ in subs:
+            assert len(re.findall(pattern, src)) == 1, (name, pattern)
+        # each variant other than the port's source changes it
+        assert (sweep.patched_source(name, subs) == src) == (name == "csrc")
+    names = list(sweep.VARIANTS) + list(sweep.ABLATIONS) \
+        + list(sweep.DESIGNS)
+    assert len(names) == len(set(names))
+    text = sweep.patched_source("t2x8x32_n256_mb4_ch1_s12288",
+                                sweep.VARIANTS["t2x8x32_n256_mb4_ch1_s12288"])
+    assert "constexpr int kImgTZ = 2;" in text
+    assert "constexpr int kImgChan = 1;" in text
+
+
+@pytest.mark.parametrize("name", sorted(torch_image_grad_sweep.ABLATIONS)
+                         + sorted(torch_image_grad_sweep.DESIGNS))
+def test_image_grad_sweep_ablations_patch_the_source(name):
+    """Each ablation's and design's patterns still match the port's source
+    once."""
+    subs = {**torch_image_grad_sweep.ABLATIONS,
+            **torch_image_grad_sweep.DESIGNS}[name]
+    text = torch_image_grad_sweep.SRC.read_text()
+    for pattern, repl in subs:
+        text, count = re.subn(pattern, repl, text)
+        assert count == 1, pattern
+
+
+def test_image_grad_sweep_reads_registers_and_spills():
+    log = "\n".join([
+        "ptxas info    : Compiling entry function '_ZN50_GLOBAL__N__cbb06ca2"
+        "_17_warp_trilinear_cu_7a471e3c22warp_image_grad_kernelILi1ELi1EEEvP"
+        "KfS2_PfPyiiiiiiiiiiii' for 'sm_90a'",
+        "ptxas info    : Function properties for x",
+        "    0 bytes stack frame, 20 bytes spill stores, 20 bytes spill "
+        "loads",
+        "ptxas info    : Used 64 registers, used 1 barriers, 32 bytes smem",
+        "ptxas info    : Compiling entry function '_ZN50_GLOBAL__N__cbb06ca2"
+        "_17_warp_trilinear_cu_7a471e3c22warp_image_grad_kernelILin1ELi0EEEv"
+        "PKfS2_PfPyiiiiiiiiiiii' for 'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 40 registers, used 1 barriers, 32 bytes smem",
+    ])
+    assert torch_image_grad_sweep._registers(log) == {
+        "warp_image_grad_kernel<Li1ELi1E>": "64 (spills 20 bytes)",
+        "warp_image_grad_kernel<Lin1ELi0E>": 40}
+
+
+def test_image_grad_cases_shapes():
+    """chip_smoke.py's image-gradient cases at a small size: both layouts
+    of each field at C = 1 and 3, the rough field off its own voxels, the
+    slab's y outside the volume, the clamped field on the faces."""
+    import torch.nn.functional as F
+    cs = torch_kernel_ab.chip_smoke_module()
+    cs.SZ, cs.ROUGH_SZ = 10, 12
+    g = torch.Generator().manual_seed(0)
+    cases = cs.image_grad_cases(torch, F, g, torch.device("cpu"))
+    for field in ("rough", "slab", "faces"):
+        for C in (1, 3):
+            vol, phi, cot, is_phi = cases[f"phi/{field}_c{C}"]
+            assert is_phi and phi.shape == (2, 3) + (12,) * 3
+            assert vol.shape == cot.shape == (2, C) + (12,) * 3
+            _, pix, pcot, is_phi = cases[f"pixel/{field}_c{C}"]
+            assert not is_phi and pix.shape == (2, 12 ** 3, 3)
+            assert pcot.shape == (2, C, 12 ** 3)
+            back = (phi.movedim(1, -1) + 1.0) * 5.5
+            torch.testing.assert_close(back.reshape(2, -1, 3), pix)
+    _, pix, _, _ = cases["pixel/faces_c3"]
+    assert float(pix.min()) == 0.0 and float(pix.max()) == 11.0
+    _, pix, _, _ = cases["pixel/slab_c1"]
+    assert bool((pix.view(2, 12, 12, 12, 3)[:, :, 5:8, :, 1] == 48.0).all())
+    ident = torch.arange(12.0)
+    rough = cases["pixel/rough_c1"][1].view(2, 12, 12, 12, 3)[..., 2]
+    assert float((rough - ident).abs().max()) > 6.0
+
+
+def test_regnet_step_times_a_step_on_the_cpu(monkeypatch):
+    """torch_kernel_ab.py's RegNet2D3D step at 16^3 with the CPU's plain
+    versions: finite medians of 5 steps, the model's gradients filled."""
+    from liftreg_tpu_torch.models.unet2d3d import RegNet2D3D
+    cs = torch_kernel_ab.chip_smoke_module()
+    cs.SZ = 16
+    for name in ("synchronize", "reset_peak_memory_stats"):
+        monkeypatch.setattr(torch.cuda, name, lambda: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda: 0)
+    out = torch_kernel_ab._regnet_step(torch, cs, drr, RegNet2D3D,
+                                       torch.device("cpu"))
+    assert len(out["regnet_step_calls"]) == 5
+    assert out["regnet_step"] == sorted(out["regnet_step_calls"])[2] > 0
+    # no card, so no image-gradient kernel in the profile
+    assert out["regnet_image_grad_launches"] == 0
+    assert out["regnet_image_grad_smooth_launches"] == 0
+
+
+@pytest.mark.parametrize("name", ["subspace_backproj", "subspace"])
+def test_subspace_step_times_a_step_on_the_cpu(monkeypatch, name):
+    """torch_kernel_ab.py's LiftReg and LiftRegSubspace steps at 32^3,
+    B = 2, latent 4 with the CPU's plain versions: finite medians of 3
+    steps."""
+    from liftreg_tpu_torch.models import get_model
+    cs = torch_kernel_ab.chip_smoke_module()
+    cs.SZ, cs.TRAIN_B, cs.LATENT = 32, 2, 4
+    for fn in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
+        monkeypatch.setattr(torch.cuda, fn, lambda: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda: 0)
+    out = torch_kernel_ab._subspace_step(torch, cs, drr, get_model(name),
+                                         "step", torch.device("cpu"))
+    assert len(out["step_calls"]) == 3
+    assert out["step"] == sorted(out["step_calls"])[1] > 0
+
+
+def test_refine_conditioning_needs_a_card(monkeypatch, capsys):
+    """tools/torch_refine_conditioning.py refuses to run without a card
+    (it draws refine_reference's data on the card) and covers
+    refine_reference's four configurations."""
+    import torch_refine_conditioning
+    cs = torch_kernel_ab.chip_smoke_module()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert torch_refine_conditioning.main([]) == 1
+    assert "no CUDA device" in capsys.readouterr().err
+    assert set(torch_refine_conditioning.CONFIGS) == {
+        "image_ncc", "image_lncc", "projection_ncc", "projection_ngf"}
+    assert cs.REFINE_HISTORY_TOL > 0

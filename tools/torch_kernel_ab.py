@@ -14,7 +14,11 @@ kernels also with one volume, ``_b1``; the warp kernels with pixel
 coordinates and, where the tree has it, with phi in its (B, 3, D, W, H)
 layout, ``_phi``; ``warp_image`` with its glue, forward and with the phi
 gradient; the projector's adjoint where the tree has it, with its plan
-built once where the tree has one, ``drr_adjoint_plan`` timing the plan),
+built once where the tree has one, ``drr_adjoint_plan`` timing the plan;
+the warp's image gradient where the tree has it, at ``chip_smoke.py``'s
+timed inputs of it: C = 3, 160^3, B = 1, phi layout, zeros padding, and
+on a 0.9-voxel field and on the identity, ``_near_identity`` and
+``_identity``),
 and the steady-state
 time of ``RegistrationPipeline.register`` there (bf16 encoder, basis and
 taps, random seeded weights; host clock over 10 calls after 2 warm-ups,
@@ -22,7 +26,20 @@ ending in a synchronize). ``register_refine`` is the same pipeline with
 ``refine_steps=30`` on ``chip_smoke.py``'s refine inputs: each of 3 calls
 after 1 warm-up on the host clock, their median, and the peak memory;
 ``register_refine_projection`` the same in the projection domain, where
-the tree has it.
+the tree has it. ``regnet_step`` is RegNet2D3D's forward, its projection
+loss (``RegNet2D3DLoss``, NCC) and the backward, in f32 as the trainer's
+step runs them (no optimizer update), at the learned-basis
+workflow's stage-1 shape (160^3, B = 1, 4 views on 240^2, f32, random
+seeded weights and inputs), where the tree has the model: each of 5 steps
+after 1 warm-up on the host clock, their median; then one more step under
+``torch.profiler``, whose image-gradient launches give
+``regnet_image_grad_ms`` (their device time) and
+``regnet_image_grad_launches``, and the same on smooth inputs, as
+``chip_smoke.py``'s dataset makes them (``regnet_image_grad_smooth_ms``). ``train_step`` and ``subspace_step`` are
+the same for LiftReg (``subspace_backproj``) and ``LiftRegSubspace`` at the
+reference config (``configs/cur_task_setting.json``: 160^3, B = 30, 4 views
+on 240^2, latent 56, f32, NCC with the subspace loss), each of 3 steps
+after 1 warm-up, their median.
 Needs a CUDA card and nvcc; imports nothing of JAX.
 """
 import importlib.util
@@ -131,6 +148,25 @@ def _time_tree(root):
             lambda: adjoint(cot1, *fwd, (sz,) * 3, **kw))
     out["pca_expand"] = ms(lambda: pca_expand(coefs, V, mean))
     out["pca_grad"] = ms(lambda: pca_grad(g_pca, V))
+    from liftreg_tpu_torch.ops import warp_kernel
+    if hasattr(warp_kernel, "warp_image_grad"):
+        # chip_smoke.py's times of the image gradient, on a generator of
+        # their own so that the other inputs stay those of trees without it
+        gi = torch.Generator(device=dev).manual_seed(2)
+        ig_vol = torch.zeros((1, 3) + (sz,) * 3, device=dev)
+        ig_phi = cs._phi_of(cs._smooth_coords(torch, F, gi, 1, sz, 4.0, dev),
+                            sz)
+        ig_cot = torch.randn((1, 3) + (sz,) * 3, generator=gi, device=dev)
+        out["warp_image_grad"] = ms(lambda: warp_kernel.warp_image_grad(
+            ig_vol, ig_phi, ig_cot, False, normalized=True))
+        # the fields of RegNet2D3D's inverse iteration: up to 0.9 voxels,
+        # and the identity
+        for name, amp in (("near_identity", 0.9), ("identity", 0.0)):
+            near = cs._near_identity_phi(torch, F, gi, 1, sz, amp, dev)
+            out[f"warp_image_grad_{name}"] = ms(
+                lambda: warp_kernel.warp_image_grad(
+                    ig_vol, near, ig_cot, False, normalized=True))
+        del ig_vol, ig_phi, ig_cot, near
 
     torch.manual_seed(0)
     pipe = RegistrationPipeline((sz,) * 3, latent_dim=cs.LATENT,
@@ -188,7 +224,157 @@ def _time_tree(root):
         out["register_refine_projection"] = sorted(calls)[1]
         out["register_refine_projection_peak_gib"] = \
             torch.cuda.max_memory_allocated() / 2 ** 30
+        del pipe_p
+    try:
+        from liftreg_tpu_torch.models.unet2d3d import RegNet2D3D
+    except ImportError:
+        RegNet2D3D = None
+    if RegNet2D3D is not None:
+        out.update(_regnet_step(torch, cs, drr, RegNet2D3D, dev))
+    from liftreg_tpu_torch.models import get_model
+    for key, name in (("train_step", "subspace_backproj"),
+                      ("subspace_step", "subspace")):
+        out.update(_subspace_step(torch, cs, drr, get_model(name), key, dev))
     print(json.dumps(out), flush=True)
+
+
+def _median_step(torch, step, n):
+    """The host-clock ms of ``n`` calls of ``step`` after 1 warm-up, their
+    median, and the peak memory."""
+    step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        steps.append((time.perf_counter() - t0) * 1e3)
+    return steps, sorted(steps)[n // 2], \
+        torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def regnet_step_inputs(torch, cs, drr, RegNet2D3D, dev, smooth=False):
+    """RegNet2D3D at the stage-1 shape (160^3, B = 1, 4 views on 240^2,
+    random seeded weights and inputs) and ``step()``: its forward, its
+    projection loss (``RegNet2D3DLoss``, NCC) and the backward, in f32 as
+    the trainer's step runs them (no optimizer update). With ``smooth`` the
+    inputs are made as ``chip_smoke.write_train_dataset`` makes a case (a
+    smooth volume, the target a shifted copy, its projections from the
+    port's projector) instead of uniform noise."""
+    from liftreg_tpu_torch.device import f32_precision
+    from liftreg_tpu_torch.losses.registration import RegNet2D3DLoss
+    sz = (cs.SZ,) * 3
+    torch.manual_seed(0)
+    model = RegNet2D3D(sz).to(dev)
+    loss_fn = RegNet2D3DLoss({"sim_class": "ncc"})
+    g = torch.Generator(device=dev).manual_seed(4)
+    res = drr.default_resolution(sz)
+    poses = torch.from_numpy(drr.synthesize_poses(30.0, 4, cs.SZ)).to(dev)
+    if smooth:
+        import torch.nn.functional as F
+        from liftreg_tpu_torch.ops.drr_kernel import project_taps
+        base = cs._smooth_field(torch, F, g, (1, 1) + sz, 8, dev)
+        target = torch.roll(base, shifts=(2, -3, 1), dims=(2, 3, 4)) \
+            + cs._smooth_field(torch, F, g, (1, 1) + sz, 6, dev) * 0.09
+        hu = target * 450.0 - 500.0
+        geom = drr.forward_geometry(poses, sz, res, (2.2, 2.2, 2.2))
+        proj = project_taps(drr.calc_relative_atten_coef(hu[0, 0])[None]
+                            .contiguous(), *geom)
+        inputs = {"source": base, "target": target,
+                  "original_source": (base * 450.0 + 500.0) / 1000.0 * 0.2,
+                  "target_proj": drr.normalize_drr(proj)}
+    else:
+        vol = torch.rand((1, 1) + sz, generator=g, device=dev)
+        inputs = {
+            "source": vol * 2.0 - 1.0,
+            "target": torch.rand((1, 1) + sz, generator=g, device=dev),
+            "original_source": vol * 0.3,
+            "target_proj": torch.rand((1, 4) + res, generator=g,
+                                      device=dev) * 2.0 - 1.0}
+    inputs.update(source_label=torch.ones((1, 1) + sz, device=dev),
+                  target_poses=poses[None],
+                  spacing=torch.full((1, 3), 2.2, device=dev))
+
+    def step():
+        # f32 convolutions forward and backward, as the trainer's step
+        # keeps them
+        with f32_precision():
+            model.zero_grad(set_to_none=True)
+            loss_fn(model(inputs), 1.0)["total_loss"].backward()
+
+    return step
+
+
+def _regnet_step(torch, cs, drr, RegNet2D3D, dev):
+    """RegNet2D3D's step at the stage-1 shape: the median ms of 5 steps
+    after 1 warm-up and the peak memory, then the device ms and launches
+    of the image gradient in one profiled step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def image_grad(step):
+        """(device ms, launches) of the image gradient in one step."""
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            step()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and "warp_image_grad" in e.key]
+        return (sum(e.self_device_time_total for e in events) / 1e3,
+                sum(e.count for e in events))
+
+    step = regnet_step_inputs(torch, cs, drr, RegNet2D3D, dev)
+    steps, median, peak = _median_step(torch, step, 5)
+    ms, launches = image_grad(step)
+    del step
+    step = regnet_step_inputs(torch, cs, drr, RegNet2D3D, dev, smooth=True)
+    step()
+    smooth_ms, smooth_launches = image_grad(step)
+    return {"regnet_step_calls": steps, "regnet_step": median,
+            "regnet_step_peak_gib": peak, "regnet_image_grad_ms": ms,
+            "regnet_image_grad_launches": launches,
+            "regnet_image_grad_smooth_ms": smooth_ms,
+            "regnet_image_grad_smooth_launches": smooth_launches}
+
+
+def _subspace_step(torch, cs, drr, model_cls, key, dev):
+    """``model_cls``'s forward, the subspace loss (NCC, reg factor 0.01) and
+    the backward at the reference config, f32, random seeded weights,
+    inputs and basis: the median ms of 3 steps after 1 warm-up, and the
+    peak memory."""
+    from liftreg_tpu_torch.device import f32_precision
+    from liftreg_tpu_torch.losses.registration import SubspaceLoss
+    sz, batch, n = (cs.SZ,) * 3, cs.TRAIN_B, 3 * cs.SZ ** 3
+    torch.manual_seed(0)
+    model = model_cls(sz, latent_dim=cs.LATENT, drr_feature_num=4).to(dev)
+    loss_fn = SubspaceLoss({"sim_class": "ncc", "initial_reg_factor": 0.01,
+                            "min_reg_factor": 0.01})
+    g = torch.Generator(device=dev).manual_seed(5)
+    res = drr.default_resolution(sz)
+    label = (torch.rand((batch, 1) + sz, generator=g, device=dev)
+             > 0.3).float()
+    inputs = {"source": torch.rand((batch, 1) + sz, generator=g,
+                                   device=dev) * 2.0 - 1.0,
+              "target": torch.rand((batch, 1) + sz, generator=g,
+                                   device=dev) * 2.0 - 1.0,
+              "source_label": label, "target_label": label,
+              "target_proj": torch.rand((batch, 4) + res, generator=g,
+                                        device=dev) * 2.0 - 1.0,
+              "target_poses": torch.from_numpy(
+                  drr.synthesize_poses(30.0, 4, cs.SZ)).to(dev)}
+    pca = {"vectors": torch.randn((cs.LATENT, n), generator=g, device=dev)
+           * 0.01, "mean": torch.zeros(n, device=dev)}
+
+    def step():
+        with f32_precision():
+            model.zero_grad(set_to_none=True)
+            loss_fn(model(inputs, pca), 0.01)["total_loss"].backward()
+
+    steps, median, peak = _median_step(torch, step, 3)
+    del model, inputs, pca
+    torch.cuda.empty_cache()
+    return {f"{key}_calls": steps, key: median, f"{key}_peak_gib": peak}
 
 
 def main(argv):
