@@ -144,7 +144,32 @@ line with its elapsed seconds:
 10. profile / profile_refine / profile_refine_projection: one register
    call, without refinement, with image-domain and with projection-domain
    refinement, under torch.profiler: device time by layer (from kernel
-   names) and the device's idle share.
+   names) and the device's idle share;
+11. image_grad_bf16_check: the warp's image gradient of bf16 taps (the f32
+   kernel's sums cast to bf16 once) against its plain version at 160^3
+   and on a rough 64^3 field, both paddings;
+12. learned_basis (the learned-basis workflow at 160^3, as its tools run
+   it; the dataset is removed at the end): learned_basis_dataset writes a
+   synthetic dataset (tools/torch_make_synthetic_dataset.py: anatomical
+   texture, rank-4 deformations, 4 train / 1 val / 1 test cases, 4 views);
+   learned_basis_optreg registers the 4 train pairs
+   (tools/torch_build_pca.py disp_from_optreg: DenseRegisterer at its
+   default levels, B = 2, bf16 taps), counts zeroed just before and read
+   just after and checked exactly (per call 206 warps and 203 coordinate
+   gradients, nothing else), each call's similarity and objective no worse
+   at the end than at the start; profile_optreg_level profiles one level
+   (20^3 grid, 60 steps); learned_basis_pca fits the PCA (EVR at each K);
+   learned_basis_train trains the subspace model on that basis for 2 steps
+   (bf16 basis and taps: finite losses, a checkpoint);
+   learned_basis_eval runs it in test mode and prints the test case's
+   learned and identity TRE; learned_basis_codec says whether the native
+   codec or the numpy/zlib path ran and round-trips a case through
+   compress_in_memory;
+13. optreg_reference: one DenseRegisterer call at 32^3 (B = 2, two levels
+   of 5 steps, bf16 taps) on the card against the CPU (the best grid, phi,
+   disp, the warped volume and both histories), and with the card's
+   coordinate gradient negated along one axis, which the histories must
+   catch.
 
 Then the nvidia-smi line, one JSON line of per-kernel numbers for the
 nine kernels (``launches``: for the image gradient one RegNet2D3D step's,
@@ -152,10 +177,13 @@ for the others refine_projection's register, which runs all eight;
 ``projection_launches`` from that register, ``serving_launches`` from
 main_path's, ``image_refine_launches`` from refine's,
 ``train_launches``, ``train_bf16_launches``, ``regnet_launches`` and
-``subspace_launches`` from one train step of each), and last
+``subspace_launches`` from one train step of each; ``optreg_call_launches``
+from one DenseRegisterer call of learned_basis and
+``optreg_step_launches`` from one of its level steps), and last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero; so does a
 missing card, and a watchdog after 15 minutes.
 """
+import contextlib
 import csv
 import importlib.util
 import json
@@ -312,15 +340,58 @@ REGNET_STEP_LAUNCHES = {"drr_backproject": 1, "warp_trilinear": 9,
 REGNET_VAL_LAUNCHES = {"drr_backproject": 1, "warp_trilinear": 9,
                        "drr_project": 3}
 
+# learned_basis: a synthetic dataset from tools/torch_make_synthetic_dataset
+# .py at 160^3 (anatomical texture, deformations of rank 4 at the DIR-Lab
+# magnitude 0.12 and a respiratory wavelength of SZ / 4 voxels; 4 train,
+# 1 val and 1 test cases; 4 views); per-pair registration of the 4 train
+# pairs at DenseRegisterer's default levels, B = 2, bf16 taps, each call's
+# launches checked exactly; the PCA (K = 4); 2 steps of the subspace model
+# on that basis (B = 2, bf16 basis and taps); test mode and the TRE
+LEARNED_SPLITS = (4, 1, 1)
+LEARNED_RANK = 4
+LEARNED_MAGNITUDE = 0.12
+LEARNED_SEED = 0
+OPTREG_B = 2
+# the level profiled in learned_basis: DenseRegisterer's second (20^3 grid,
+# 60 steps) at 160^3, B = 2
+OPTREG_PROFILE_LEVEL = (20, 60, 0.02)
+# optreg_reference: one DenseRegisterer call on the card against the same
+# call on the CPU (the kernels' plain versions) at 32^3, B = 2, bf16 taps,
+# two levels of 5 steps. The best grid, phi and disp within 1e-4 and the
+# warped volume within 1e-3 (a coordinate moved by 1e-4 moves a bf16 tap's
+# sample by up to ~1e-3 where the image is steep), the total and similarity
+# histories within 1e-6 (measured on an H100: 1.8e-6, 1.6e-6, 1.4e-5 and
+# 8.9e-8); the same call with the card's coordinate gradient negated along
+# one axis must break the histories' limit (measured: 0.23). A grid node
+# whose gradient is near 0 takes Adam's first step of a level by the sign
+# of last-bit differences (2 lr apart): none does on these volumes
+OPTREG_REF_SZ = 32
+OPTREG_REF_LEVELS = ((5, 5, 0.04), (10, 5, 0.02))
+OPTREG_REF_TOL = {"z": 1e-4, "phi": 1e-4, "disp": 1e-4, "warped": 1e-3,
+                  "total_history": 1e-6, "sim_history": 1e-6}
+# image_grad_bf16_check: the image gradient of bf16 taps (the f32 kernel's
+# sums, cast to bf16 once) against its plain version, within the f32
+# tolerance and one bf16 step (2^-7 of the value)
+IMG_GRAD_BF16_STEP = 2.0 ** -7
+
 _state = {"phase": "start", "t0": time.perf_counter()}
 
 
 def _expire():
+    _stop_children()
     print(json.dumps({"watchdog_s": WATCHDOG_S, "phase": _state["phase"]}),
           flush=True)
     print(f"chip_smoke: watchdog expired in phase {_state['phase']}",
           file=sys.stderr, flush=True)
     os._exit(1)
+
+
+def _stop_children():
+    """End the processes this script started that are still running."""
+    for proc in _state.get("children", ()):
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
 
 
 def _begin(name):
@@ -841,6 +912,263 @@ def _zero(kernels):
         fn.launches = 0
 
 
+@contextlib.contextmanager
+def negated_coord_grad(warp_kernel):
+    """Within the block, the warp's coordinate gradient comes back negated
+    along its first axis: a wrong gradient (not a scaled one, which Adam's
+    steps would not see), for the negative controls."""
+    kernel = warp_kernel.warp_coord_grad
+
+    def negated(*args, **kwargs):
+        out = kernel(*args, **kwargs).clone()
+        phi_layout = kwargs.get("normalized",
+                                len(args) > 4 and bool(args[4]))
+        out.select(1 if phi_layout else -1, 0).neg_()
+        return out
+
+    negated.launches = 0
+    warp_kernel.warp_coord_grad = negated
+    try:
+        yield
+    finally:
+        warp_kernel.warp_coord_grad = kernel
+
+
+def image_grad_bf16_check(torch, F, warp_kernel, device):
+    """The image gradient of bf16 taps, kernel against plain, at 160^3
+    (C = 1, B = 2, phi layout with scale_intensity, both paddings) and on a
+    rough 64^3 field; returns the largest excess over the tolerance."""
+    g = torch.Generator(device=device).manual_seed(11)
+    excess = {}
+    for name, sz, amp in (("serving", SZ, 4.0), ("rough", ROUGH_SZ, 0.0)):
+        phi = _near_identity_phi(torch, F, g, 2, sz, amp, device)
+        if name == "rough":
+            phi = (phi + torch.rand(phi.shape, generator=g, device=device)
+                   * 0.4 - 0.2).contiguous()
+        vol = torch.zeros((2, 1) + (sz,) * 3, device=device,
+                          dtype=torch.bfloat16)
+        cot = torch.randn((2, 1) + (sz,) * 3, generator=g, device=device)
+        for border in (False, True):
+            got = warp_kernel.warp_image_grad(vol, phi, cot, border,
+                                              normalized=True,
+                                              scale_intensity=True).float()
+            want = warp_kernel.warp_image_grad_plain(
+                vol, phi, cot, border, normalized=True,
+                scale_intensity=True).float()
+            mag = warp_kernel.warp_image_grad_plain(
+                vol.float(), phi, cot.abs(), border, normalized=True,
+                scale_intensity=True)
+            tol = (IMG_GRAD_REL_TOL * float(want.abs().max())
+                   + IMG_GRAD_MAG_TOL * mag + IMG_GRAD_BF16_STEP * want.abs())
+            key = f"{name}/{'border' if border else 'zeros'}"
+            excess[key] = float(((got - want).abs() - tol).max())
+    return excess
+
+
+def start_learned_dataset(root, sz=SZ):
+    """Start tools/torch_make_synthetic_dataset.py writing learned_basis's
+    dataset under ``root`` in a process of its own, on the CPU (its
+    phantoms are host work: ~105 s at 160^3 beside the card, ~215 s on the
+    CPU beside the earlier phases, which it leaves the card to), with 2
+    threads; returns the process."""
+    n_train, n_val, n_test = LEARNED_SPLITS
+    cmd = [sys.executable, "tools/torch_make_synthetic_dataset.py", "-o",
+           root, "--size", str(sz), "--n_train", str(n_train), "--n_val",
+           str(n_val), "--n_test", str(n_test), "--n_proj", "4", "--latent",
+           str(LEARNED_RANK), "--seed", str(LEARNED_SEED),
+           "--deformation_rank", str(LEARNED_RANK), "--texture",
+           "anatomical", "--deformation_smooth", str(sz // 4),
+           "--deformation_magnitude", str(LEARNED_MAGNITUDE), "--device",
+           "cpu"]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            env=dict(os.environ, OMP_NUM_THREADS="2"))
+    proc.started = time.perf_counter()
+    _state.setdefault("children", []).append(proc)
+    return proc
+
+
+def learned_basis(torch, kernels, root, dataset_proc, profile_call=None,
+                  sz=SZ, device="cuda"):
+    """The learned-basis workflow on the card at 160^3 (see the constants
+    above), as its tools run it, on the dataset that ``dataset_proc``
+    (:func:`start_learned_dataset`) writes. Emits one line per step;
+    returns the launches of one DenseRegisterer call and of one of its
+    level steps, and the TRE. ``sz`` and ``device`` rehearse it small on
+    the CPU."""
+    import numpy as np
+
+    from liftreg_tpu_torch import native, optreg
+    from liftreg_tpu_torch import pca as pca_lib
+    from liftreg_tpu_torch.data.dataset import Registration2D3DDataset
+    from liftreg_tpu_torch.train import RegistrationTrainer
+    from liftreg_tpu_torch.utils.settings import default_task_setting
+    from liftreg_tpu_torch.utils.tre import eval_copd_highres
+    from tools.torch_build_pca import disp_from_optreg
+    from tools.torch_paper_workflow import identity_tre
+    from tools.torch_profile_optreg import pairs
+
+    _begin("learned_basis_dataset")
+    n_train, n_val, n_test = LEARNED_SPLITS
+    out, _ = dataset_proc.communicate(timeout=600)
+    _emit(size=sz, splits=LEARNED_SPLITS, rank=LEARNED_RANK,
+          magnitude=LEARNED_MAGNITUDE, smooth=sz // 4,
+          seconds_since_start=time.perf_counter() - dataset_proc.started,
+          returncode=dataset_proc.returncode, output_tail=out[-400:])
+    _require(dataset_proc.returncode == 0,
+             f"the dataset tool exited {dataset_proc.returncode}")
+
+    _begin("learned_basis_optreg")
+    reg = optreg.DenseRegisterer((sz,) * 3)
+    warps, grads = reg.launches()
+    n_calls = -(-n_train // OPTREG_B)
+    calls = []
+    _zero(kernels)
+    t0 = time.perf_counter()
+    fields = disp_from_optreg(root, batch=OPTREG_B, verbose=False,
+                              record=calls, device=device)
+    seconds = time.perf_counter() - t0
+    got = _counts(kernels)
+    want = {k: 0 for k in kernels}
+    if device == "cuda":
+        want.update(warp_trilinear=n_calls * warps,
+                    warp_coord_grad=n_calls * grads)
+    steps = sum(n + 1 for _, n, _ in reg.levels)
+    call_launches = {k: v // n_calls for k, v in got.items()}
+    # a level step: one gradient evaluation (its warp and coordinate
+    # gradient); each level adds one forward at its selected iterate
+    step_launches = {k: (v - (len(reg.levels) if k == "warp_trilinear"
+                              else 0)) / steps
+                     for k, v in call_launches.items()}
+    sims = [[float(c["sim_history"][0]), float(c["sim_history"][-1])]
+            for c in calls]
+    totals = [[float(c["total_history"][0]), float(c["total_history"][-1])]
+              for c in calls]
+    _emit(launches=got, expected=want, calls=n_calls, batch=OPTREG_B,
+          levels=reg.levels, seconds_total=seconds,
+          seconds_per_call=seconds / n_calls,
+          seconds_per_pair=seconds / n_train, call_launches=call_launches,
+          step_launches=step_launches, sim_first_last=sims,
+          total_first_last=totals, fields=list(fields.shape))
+    _require(got == want, f"optreg launches {got}, expected {want}")
+    _require(all(last <= first for first, last in sims + totals),
+             f"a call ended worse than it started: sim {sims}, "
+             f"total {totals}")
+    _require(bool(np.isfinite(fields).all()), "non-finite optreg fields")
+
+    if profile_call is not None:
+        _begin("profile_optreg_level")
+        g_lvl, n_lvl, lr_lvl = OPTREG_PROFILE_LEVEL
+        level = optreg.make_level((sz,) * 3, g_lvl, n_steps=n_lvl,
+                                  lr=lr_lvl, warp_taps_dtype=torch.bfloat16)
+        moving, target = (t.to(device) for t in pairs(root, OPTREG_B))
+        z0 = torch.zeros((OPTREG_B, 3) + (g_lvl,) * 3, device=device)
+        level(z0, moving, target)                       # warm-up
+        profile_call(lambda: level(z0, moving, target), steps=n_lvl + 1,
+                     level=OPTREG_PROFILE_LEVEL, batch=OPTREG_B)
+        del moving, target, z0, level
+
+    _begin("learned_basis_pca")
+    t0 = time.perf_counter()
+    vectors, mean = pca_lib.fit_pca(fields, n_train)
+    pca_dir = os.path.join(root, "pca_from_optreg")
+    pca_lib.save_pca(pca_dir, vectors, mean)
+    evr = {k: pca_lib.explained_variance_ratio(fields, vectors[:k], mean)
+           for k in (1, 2, n_train)}
+    _emit(seconds_fit=time.perf_counter() - t0, evr=evr,
+          vectors=list(vectors.shape))
+    _require(all(math.isfinite(v) and 0.0 <= v <= 1.0 + 1e-6
+                 for v in evr.values()) and evr[n_train] > 0.999,
+             f"EVR {evr}")
+    del fields
+
+    _begin("learned_basis_train")
+    exp = os.path.join(root, "exp_subspace")
+    # "epoch" is the last epoch's index: one epoch of n_train / 2 steps
+    setting = default_task_setting(root, exp, sz, overrides={"train": {
+        "epoch": 0, "save_fig": False,
+        "model": {"latent_dim": n_train, "pca_path": pca_dir,
+                  "pca_dtype": "bfloat16", "warp_taps_dtype": "bfloat16"}}})
+    t0 = time.perf_counter()
+    RegistrationTrainer(setting, device=device).run()
+    train_s = time.perf_counter() - t0
+    losses = read_metrics(exp).get("Train/total_loss", {})
+    ckpt = os.path.join(exp, "checkpoints", "model_best.ckpt")
+    _emit(seconds=train_s, steps=len(losses),
+          total_loss=[losses[k] for k in sorted(losses)],
+          checkpoint=os.path.isfile(ckpt))
+    _require(len(losses) == n_train // 2 and all(
+        math.isfinite(v) for v in losses.values()),
+        f"stage-3 losses {losses}")
+    _require(os.path.isfile(ckpt), "no stage-3 checkpoint")
+
+    _begin("learned_basis_eval")
+    setting["train"].update(mode="test", test_from=ckpt, save_3d_img=True)
+    RegistrationTrainer(setting, device=device).run()
+    results = eval_copd_highres(root, exp, dim=(sz,) * 3, device=device)
+    learned = float(np.mean([r["dist"] for r in results]))
+    identity = identity_tre(root, root, sz, device)
+    _emit(tre_learned_mm=learned, tre_identity_mm=identity,
+          cases=[r["id"] for r in results])
+    _require(len(results) == n_test and math.isfinite(learned)
+             and math.isfinite(identity), f"TRE {results}, {identity}")
+
+    _begin("learned_basis_codec")
+    opt = {"drr_folder_name": "drr", "use_segmentation_map": True,
+           "spacing_to_refer": [2.2] * 3, "load_projection_interval": 1,
+           "apply_hu_clip": True}
+    packed = Registration2D3DDataset(root, "test", option=dict(
+        opt, compress_in_memory=True))
+    plain = Registration2D3DDataset(root, "test", option=opt)
+    (ps, _), (qs, _) = packed[0], plain[0]
+    raw = sum(v.nbytes for v in qs.values())
+    stored = sum(len(v[1]) for v in packed.cases[0].values())
+    same = all(np.array_equal(ps[k], qs[k]) for k in qs)
+    _emit(native=native.native_available(),
+          path="native" if native.native_available() else "numpy_zlib",
+          library=os.path.relpath(native.library_path()),
+          round_trip_equal=same, raw_bytes=raw, packed_bytes=stored)
+    _require(same, "compress_in_memory changed a sample")
+    return {"call": call_launches, "step": step_launches,
+            "tre_learned_mm": learned, "tre_identity_mm": identity}
+
+
+def optreg_reference(torch, F, warp_kernel, card="cuda"):
+    """One DenseRegisterer call on the card against the CPU (see the
+    constants above), then with the card's coordinate gradient negated
+    along its first axis, which the histories must catch."""
+    from liftreg_tpu_torch import optreg
+
+    _begin("optreg_reference")
+    g = torch.Generator().manual_seed(3)
+    sz = (OPTREG_REF_SZ,) * 3
+    mov = F.interpolate(torch.randn((2, 1, 6, 6, 6), generator=g), size=sz,
+                        mode="trilinear", align_corners=True).clamp(-1, 1)
+    tgt = torch.roll(mov, shifts=(1, -2, 1), dims=(2, 3, 4))
+
+    def run(where):
+        reg = optreg.DenseRegisterer(sz, levels=OPTREG_REF_LEVELS,
+                                     warp_taps_dtype=torch.bfloat16)
+        out = reg(mov.to(where), tgt.to(where))
+        return {k: out[k].float().cpu() for k in OPTREG_REF_TOL}
+
+    cpu, on_card = run("cpu"), run(card)
+    with negated_coord_grad(warp_kernel):
+        control = run(card)
+    errs = {k: _max_err(on_card[k], cpu[k]) for k in OPTREG_REF_TOL}
+    control_errs = {k: _max_err(control[k], cpu[k])
+                    for k in ("total_history", "sim_history")}
+    _emit(max_abs_err=errs, tol=OPTREG_REF_TOL,
+          flipped_coord_grad_history_err=control_errs,
+          history_cpu=[float(x) for x in cpu["total_history"]])
+    _require(all(errs[k] <= tol for k, tol in OPTREG_REF_TOL.items()),
+             f"optreg on the card disagrees with the CPU: {errs}")
+    _require(all(control_errs[k] > OPTREG_REF_TOL[k] for k in control_errs),
+             f"the histories' check does not see a wrong coordinate "
+             f"gradient: {control_errs}")
+    return errs
+
+
 def main():
     timer = threading.Timer(WATCHDOG_S, _expire)
     timer.daemon = True
@@ -883,6 +1211,12 @@ def main():
                "drr_backproject": backproject_taps}
 
     dev = torch.device("cuda")
+
+    # learned_basis's dataset is host work: written meanwhile
+    learned_root = os.path.abspath(os.path.join("build",
+                                                "chip_smoke_learned"))
+    shutil.rmtree(learned_root, ignore_errors=True)
+    learned_proc = start_learned_dataset(learned_root)
 
     _begin("build")
     fresh = not _build.library_path().is_file()
@@ -1523,21 +1857,8 @@ def main():
         """refined on the card with the warp's coordinate gradient negated
         along its first axis, for that run only: a wrong refinement
         gradient (not a scaled one, which Adam's steps would not see)."""
-        kernel = warp_kernel.warp_coord_grad
-
-        def flipped(*args, **kwargs):
-            out = kernel(*args, **kwargs).clone()
-            phi_layout = kwargs.get("normalized",
-                                    len(args) > 4 and bool(args[4]))
-            out.select(1 if phi_layout else -1, 0).neg_()
-            return out
-
-        flipped.launches = 0
-        warp_kernel.warp_coord_grad = flipped
-        try:
+        with negated_coord_grad(warp_kernel):
             return refined("cuda", configs["projection_ngf"])
-        finally:
-            warp_kernel.warp_coord_grad = kernel
 
     refine_ref, cpu_runs = {}, {}
     for cfg, opts in configs.items():
@@ -2574,6 +2895,21 @@ def main():
     profile_call(lambda: pipe_r.register(r_pca, *r_args))
     _begin("profile_refine_projection")
     profile_call(lambda: pipe_p.register(r_pca, *r_args))
+
+    # -- the image gradient of bf16 taps; the learned-basis workflow -------
+    _begin("image_grad_bf16_check")
+    bf16_excess = image_grad_bf16_check(torch, F, warp_kernel, dev)
+    _emit(excess_over_tol=bf16_excess, step=IMG_GRAD_BF16_STEP)
+    _require(max(bf16_excess.values()) <= 0.0,
+             f"the bf16 image gradient disagrees: {bf16_excess}")
+    del pipe, pipe_r, pipe_p
+    torch.cuda.empty_cache()
+    try:
+        learned = learned_basis(torch, KERNELS, learned_root, learned_proc,
+                                profile_call)
+    finally:
+        shutil.rmtree(learned_root, ignore_errors=True)
+    optreg_reference(torch, F, warp_kernel)
     replaces = {
         "pca_expand": "liftreg_tpu/ops/pallas_pca.py:30",
         "pca_grad": "liftreg_tpu/ops/pallas_pca.py:78",
@@ -2619,7 +2955,9 @@ def main():
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": lib_ms[name]})
-        kernels[-1].update(projection_launches=projection_launches[name],
+        kernels[-1].update(optreg_call_launches=learned["call"][name],
+                           optreg_step_launches=learned["step"][name],
+                           projection_launches=projection_launches[name],
                            image_refine_launches=refine_launches[name],
                            serving_launches=launches[name],
                            train_launches=train_launches[name],
@@ -2641,4 +2979,7 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        sys.exit(main())
+    finally:
+        _stop_children()

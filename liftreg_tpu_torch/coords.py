@@ -72,22 +72,77 @@ def linspace_in_jit(start, stop, n):
     return out
 
 
+def linspace_eager(start, stop, n):
+    """``jnp.linspace(start, stop, n)`` in f32, rounded as XLA computes it
+    on the CPU for a call outside ``jit``: the identity map that
+    ``liftreg_tpu/optreg.py:DenseRegisterer.__call__`` subtracts from the
+    last level's phi. XLA turns the division by ``d = n - 1`` into a
+    product with ``r = f32(1/d)``, takes ``tr = f32(stop*r)``, and fuses
+    the sums into multiply-adds:
+
+    - ``out[i] = f32(fma(i, tr, f32(start * s_i)))``, the last element
+      ``stop``;
+    - ``s_i = f32(fma(-i, r, 1))`` for ``i < 32*floor(d/32)`` when
+      ``n >= 353`` (XLA's vectorised loop body of 32 elements contracts
+      ``1 - i*r`` too), else ``s_i = f32(1 - f32(i*r))`` (its scalar
+      remainder);
+    - for ``2 < n <= 34`` element 1 takes the other contraction,
+      ``f32(fma(start, s_1, f32(tr)))``.
+
+    Measured bit-equal to an eager ``jnp.linspace`` (jax 0.9.0, AVX-512)
+    for every n from 2 to 1024 on ``(-1, 1)``
+    (``tests/test_torch_optreg.py``); the split comes from XLA's CPU code
+    generation and may move with its version or the CPU's vector width.
+    The product of two f32 values is exact in f64, so the f64 sum rounded
+    to f32 stands in for each multiply-add."""
+    n = int(n)
+    start32 = torch.tensor(start, dtype=torch.float32)
+    if n == 1:
+        return start32[None]
+    stop32 = torch.tensor(stop, dtype=torch.float32)
+    d = n - 1
+    i = torch.arange(n, dtype=torch.float32)
+    r = torch.tensor(1.0, dtype=torch.float32) / d
+    tr = (stop32 * r).double()
+    s = 1.0 - i * r
+    if n >= 353:
+        body = 32 * (d // 32)
+        s[:body] = (1.0 - i[:body].double() * r.double()).float()
+    out = (i.double() * tr + (start32 * s).double()).float()
+    if 2 < n <= 34:
+        out[1] = (start32.double() * s[1].double() + tr).float()
+    out[-1] = stop32
+    return out
+
+
 @functools.lru_cache(maxsize=16)
-def _identity_map(sz, device, dtype):
-    axes = [linspace_in_jit(-1.0, 1.0, n) for n in sz]
+def _identity_map(sz, device, dtype, eager):
+    rule = linspace_eager if eager else linspace_in_jit
+    axes = [rule(-1.0, 1.0, n) for n in sz]
     grid = torch.stack(torch.meshgrid(*axes, indexing="ij"), dim=0)
     return grid.to(device=device, dtype=dtype)
 
 
-def identity_map(sz, device=None, dtype=torch.float32):
+def identity_map(sz, device=None, dtype=torch.float32, eager=False):
     """Normalized identity map ``(ndim, *sz)`` in [-1, 1] on ``device``:
     axis ``d`` varies along spatial dim ``d`` as ``linspace(-1, 1, sz[d])``
     rounded as the JAX package's identity map rounds inside ``jit``, where
-    every one of its callers builds it (:func:`linspace_in_jit`). Cached by
-    ``(sz, device, dtype)``: the same tensor comes back on every call, so
-    callers must not write into it."""
+    its models, refiners, pipeline and train steps build it
+    (:func:`linspace_in_jit`), or with ``eager`` as it rounds outside
+    ``jit`` (:func:`linspace_eager`; ``optreg.DenseRegisterer``'s ``disp``).
+    Cached by ``(sz, device, dtype, eager)``: the same tensor comes back on
+    every call, so callers must not write into it."""
     device = torch.device("cpu") if device is None else torch.device(device)
-    return _identity_map(tuple(int(n) for n in sz), device, dtype)
+    return _identity_map(tuple(int(n) for n in sz), device, dtype,
+                         bool(eager))
+
+
+def identity_map_np(sz, dtype=np.float32):
+    """The identity map in numpy, ``np.linspace`` per axis (the JAX
+    package's ``coords.identity_map_np``, which its tools use for stored
+    phi maps)."""
+    axes = [np.linspace(-1.0, 1.0, int(n), dtype=dtype) for n in sz]
+    return np.stack(np.meshgrid(*axes, indexing="ij"), axis=0)
 
 
 def norm_to_pixel(coord, n):

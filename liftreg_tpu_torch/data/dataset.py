@@ -12,7 +12,8 @@ does, so the order of the batches is the same. :class:`DeviceDatasetCache`
 and :class:`DeviceDataLoader` keep a whole split on the card and gather
 each batch there. :func:`pad_batch` is the JAX package's
 ``parallel/mesh.py`` padding of a short batch, without the sharding.
-``compress_in_memory`` (the native codec) is not ported yet.
+``compress_in_memory`` keeps each case packed by the native codec
+(:mod:`..native`, the JAX codec's format) and unpacks it as it is read.
 """
 from __future__ import annotations
 
@@ -25,6 +26,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
+from .. import native
 from ..device import resolve_device
 
 
@@ -79,11 +81,9 @@ class Registration2D3DDataset:
                                   dtype=np.float32)
         self.interval = int(_opt_get(option, "load_projection_interval", 2))
         self.apply_hu_clip = bool(_opt_get(option, "apply_hu_clip", False))
-        # the native codec's in-RAM compression comes with A5
-        if bool(_opt_get(option, "compress_in_memory", False)):
-            raise NotImplementedError(
-                "compress_in_memory needs the native codec, which the port "
-                "does not have yet (ROADMAP A5)")
+        # the native codec's in-RAM compression of every case
+        # (:mod:`..native`), unpacked as each sample is read
+        self.compress = bool(_opt_get(option, "compress_in_memory", False))
 
         if os.path.exists(self.data_id_path):
             names = [str(n) for n in np.load(self.data_id_path)]
@@ -136,6 +136,8 @@ class Registration2D3DDataset:
         case["target_poses"] = np.load(os.path.join(
             self.drr_path, "poses.npy")).astype(np.float32)[::self.interval]
         case["spacing"] = self.spacing.copy()
+        if self.compress:
+            case = {k: native.pack_array(v) for k, v in case.items()}
         return case
 
     def _load_all(self):
@@ -153,6 +155,8 @@ class Registration2D3DDataset:
     def __getitem__(self, idx):
         idx = idx % len(self.name_list)
         case = self.cases[idx]
+        if self.compress:
+            case = {k: native.unpack_array(*v) for k, v in case.items()}
         sample = {
             "source": case["source"][None],
             "target": case["target"][None],

@@ -44,6 +44,19 @@ def normalize_drr(proj):
     return clipped / 6.0 * 2.0 - 1.0
 
 
+def calc_relative_atten_coef_preprocessing(img):
+    """The preprocessing tool's unit-less variant,
+    ``(clip(img, -1024) + 1024) / 1024``."""
+    return (img.clamp(min=-1024.0) + 1024.0) / 1024.0
+
+
+def poses_from_geometry_csv(csv_path, spacing):
+    """Physical emitter positions (mm, a CSV with a header row) -> voxel
+    units, ``(P, 3)`` numpy f32."""
+    geo = np.genfromtxt(csv_path, delimiter=",")[1:]
+    return (geo / np.asarray(spacing)).astype(np.float32)
+
+
 def synthesize_poses(scan_range_deg, n_proj, width, emitter_y_scale=3.5):
     """Limited-angle emitter poses in voxel units, ``(P, 3)`` numpy f32:
     y = 3.5*W, x = tan(linspace(-r/2, r/2))*3*W, z = linspace(-0.2,0.2)*W."""

@@ -12,8 +12,8 @@ warps one image many times (the refinement) builds once and passes to
 :func:`warp_with_taps`. :func:`grid_sample` takes pixel coordinates
 (B, *out_shape, 3). The sampling is differentiable with respect to the
 coordinates (and so to ``phi``), through the kernel's coordinate-gradient
-entry, and with f32 taps with respect to the image, through its
-image-gradient entry (bf16 taps take no image gradient).
+entry, and with respect to the image, through its image-gradient entry
+(with bf16 taps summed in f32 and cast to bf16 once).
 ``warp_image(..., mode="nearest")`` (the trainer's warp of label maps) is a
 plain gather, :func:`grid_sample_nearest`, on either device.
 :func:`resize_nearest_2d` and :func:`resize_trilinear` are the JAX

@@ -33,20 +33,22 @@ z axis of f32 taps (``_trilinear_quad``) differentiates ``floor``-based
 weights. Plain autograd of :func:`warp_trilinear_plain` uses other
 conventions and is not the reference.
 
-The gradient with respect to f32 taps (no TPU kernel computes it: the
+The gradient with respect to the taps (no TPU kernel computes it: the
 TPU kernel's ``with_grad`` returns NaN for the image) is the kernel's third
 entry, :func:`warp_image_grad`, in the same two layouts, with the plain
 version :func:`warp_image_grad_plain`: the scatter-add of ``g * w`` into
-the 8 taps of each point, with the forward's taps and weights and the z
-axis of ``_trilinear_quad``, as XLA's autodiff of
-``liftreg_tpu/ops/resample.py:_quad_plain`` gives it. The kernel sums a
-tile of points' terms in shared memory and adds each tap of the tile's box
-to device memory once (a tile whose box overflows adds its terms there
+the 8 taps of each point, with the forward's taps and weights, as XLA's
+autodiff of ``liftreg_tpu/ops/resample.py`` gives it: for f32 taps with
+the z axis of ``_trilinear_quad`` (``_quad_plain``), for bf16 taps with the
+oct weights of ``_oct_plain`` on every axis, summed in f32 and cast to bf16
+once, as ``_oct_sample_bwd`` casts it (JAX's default path scatter-adds in
+bf16 instead: within a bf16 tolerance of this,
+``tests/test_torch_warp_image_grad.py``). The image gradient never reads
+the taps, so one kernel serves both tap types. The kernel sums a tile of
+points' terms in shared memory and adds each tap of the tile's box to
+device memory once (a tile whose box overflows adds its terms there
 directly, counted in :func:`image_grad_overflow`); both sums use f32
 atomics, so their order, and their last bits, change from call to call.
-bf16 taps take no image gradient (``NotImplementedError``, ROADMAP
-B2): no path of the JAX package differentiates a bf16-tap warp with
-respect to the image.
 
 Each axis samples in one of three modes (:func:`axis_modes`), chosen from
 the volume's shape as ``liftreg_tpu/ops/resample.py:grid_sample`` routes
@@ -358,9 +360,9 @@ warp_coord_grad.launches = 0
 def _image_grad_sum(taps, coords, g, border):
     B, C, D, W, H = taps.shape
     M = coords.shape[1]
-    (iz, wz, _), (iy, wy, _), (ix, wx, _) = _axes(taps.shape[2:], coords,
-                                                  border, quad_z=True,
-                                                  grad=False)
+    (iz, wz, _), (iy, wy, _), (ix, wx, _) = _axes(
+        taps.shape[2:], coords, border,
+        quad_z=taps.dtype == torch.float32, grad=False)
     dtaps = torch.zeros((B, C, D * W * H), dtype=torch.float32,
                         device=g.device)
     for dz in (0, 1):
@@ -375,12 +377,14 @@ def _image_grad_sum(taps, coords, g, border):
 
 def warp_image_grad_plain(taps, coords, g, border, normalized=False,
                           scale_intensity=False):
-    """taps (B, C, D, W, H) f32 (read for its shape only), coords (B, M, 3)
-    f32 and a cotangent g (B, C, M) f32 -> dtaps (B, C, D, W, H) f32, the
-    gradient of ``sum(g * warp_trilinear(taps, coords, border))`` with
-    respect to the taps: each point adds ``(g * w_z) * (w_y * w_x)`` to each
-    of its 8 taps, with the z axis of ``_trilinear_quad`` (the f32 taps'
-    path in JAX). With ``normalized``, phi (B, 3, *out_shape) and g
+    """taps (B, C, D, W, H) bf16/f32 (read for their shape and type only),
+    coords (B, M, 3) f32 and a cotangent g (B, C, M) f32 -> dtaps
+    (B, C, D, W, H) in the taps' type, the gradient of
+    ``sum(g * warp_trilinear(taps, coords, border))`` with respect to the
+    taps: each point adds ``(g * w_z) * (w_y * w_x)`` to each of its 8
+    taps in f32, with the z axis of ``_trilinear_quad`` for f32 taps (their
+    path in JAX) and the oct weights for bf16 taps, whose sums are cast to
+    bf16 once. With ``normalized``, phi (B, 3, *out_shape) and g
     (B, C, *out_shape), through the glue of :func:`warp_trilinear_plain`
     (g doubled under ``scale_intensity``)."""
     B, C = taps.shape[:2]
@@ -389,23 +393,21 @@ def warp_image_grad_plain(taps, coords, g, border, normalized=False,
         coords = _pixel_coords(taps, coords)
         if scale_intensity:
             g = g * 2.0
-    return _image_grad_sum(taps, coords, g, border)
+    return _image_grad_sum(taps, coords, g, border).to(taps.dtype)
 
 
 def warp_image_grad(taps, coords, g, border, normalized=False,
                     scale_intensity=False):
     """The image-gradient kernel on CUDA tensors, the plain version on CPU
-    tensors; f32 taps only. ``warp_image_grad.launches`` counts kernel
-    launches. With ``normalized`` and a 3-D out_shape the kernel tiles the
-    output grid in 3-D (a tile's taps then lie close together); other
-    points go in runs of consecutive points."""
+    tensors. ``warp_image_grad.launches`` counts kernel launches. With
+    ``normalized`` and a 3-D out_shape the kernel tiles the output grid in
+    3-D (a tile's taps then lie close together); other points go in runs of
+    consecutive points. The kernel sums in f32 with the taps' axis modes;
+    for bf16 taps its result is cast to bf16 once."""
     M = _check(taps, coords, "warp_image_grad", normalized, scale_intensity,
                g=g)
     B, C, D, W, H = taps.shape
-    if taps.dtype != torch.float32:
-        raise NotImplementedError(
-            "warp_image_grad: the gradient with respect to bf16 taps is not "
-            "ported (ROADMAP B2)")
+    f32_taps = taps.dtype == torch.float32
     g_shape = (B, C) + (tuple(coords.shape[2:]) if normalized else (M,))
     if g.shape != g_shape or g.dtype != torch.float32:
         raise ValueError(f"warp_image_grad: want an f32 cotangent of shape "
@@ -414,11 +416,11 @@ def warp_image_grad(taps, coords, g, border, normalized=False,
         return warp_image_grad_plain(taps, coords, g, border, normalized,
                                      scale_intensity)
     check_offsets(taps.shape, M)
-    dtaps = torch.zeros_like(taps)
+    dtaps = torch.zeros(taps.shape, dtype=torch.float32, device=taps.device)
     lib = _build.library()
     ptrs = (coords.data_ptr(), g.data_ptr(), dtaps.data_ptr(),
             image_grad_overflow(taps.device).data_ptr(), B, C, D, W, H, M)
-    flags = (int(border), _packed(axis_modes((D, W, H), quad_z=True)))
+    flags = (int(border), _packed(axis_modes((D, W, H), quad_z=f32_taps)))
     with torch.cuda.device(taps.device):
         stream = torch.cuda.current_stream().cuda_stream
         if normalized:
@@ -430,7 +432,7 @@ def warp_image_grad(taps, coords, g, border, normalized=False,
             rc = lib.liftreg_warp_image_grad(*ptrs, *flags, stream)
     _build.check(rc, "warp_image_grad")
     warp_image_grad.launches += 1
-    return dtaps
+    return dtaps if f32_taps else dtaps.to(taps.dtype)
 
 
 warp_image_grad.launches = 0
@@ -477,15 +479,10 @@ class _WarpTrilinear(torch.autograd.Function):
 def warp_trilinear_ad(taps, coords, border, normalized=False,
                       scale_intensity=False):
     """:func:`warp_trilinear`, differentiable with respect to ``coords``
-    (or phi) and, for f32 taps, with respect to ``taps``. bf16 taps that
-    require grad raise: their image gradient is not ported."""
+    (or phi) and ``taps``."""
     if not torch.is_grad_enabled() or not (taps.requires_grad
                                            or coords.requires_grad):
         return warp_trilinear(taps, coords, border, normalized,
                               scale_intensity)
-    if taps.requires_grad and taps.dtype != torch.float32:
-        raise NotImplementedError(
-            "warp_trilinear_ad: the gradient with respect to bf16 taps is "
-            "not ported (ROADMAP B2); detach the image or use f32 taps")
     return _WarpTrilinear.apply(taps, coords, border, normalized,
                                 scale_intensity)

@@ -40,20 +40,24 @@ class Adam:
     """optax.adam's update written out for one tensor:
     ``mu = (1-b1) g + b1 mu``, ``nu = (1-b2) g^2 + b2 nu``, bias
     corrections ``1 - b^count``, ``-lr * mu_hat / (sqrt(nu_hat + eps_root)
-    + eps)``."""
+    + eps)``. As optax rounds them: ``1 - b`` from Python floats, the bias
+    corrections as f32 powers of f32 ``b`` by the int32 step count, here
+    kept on z's device (filled there, not copied from the host)."""
 
     def __init__(self, z, lr):
         self.lr = lr
         self.mu = torch.zeros_like(z)
         self.nu = torch.zeros_like(z)
-        self.count = 0
+        self.b1 = z.new_full((), ADAM_B1)
+        self.b2 = z.new_full((), ADAM_B2)
+        self.count = z.new_zeros(())
 
     def step(self, z, g):
         self.mu = (1 - ADAM_B1) * g + ADAM_B1 * self.mu
         self.nu = (1 - ADAM_B2) * g ** 2 + ADAM_B2 * self.nu
-        self.count += 1
-        mu_hat = self.mu / (1 - ADAM_B1 ** self.count)
-        nu_hat = self.nu / (1 - ADAM_B2 ** self.count)
+        self.count = self.count + 1
+        mu_hat = self.mu / (1 - self.b1 ** self.count)
+        nu_hat = self.nu / (1 - self.b2 ** self.count)
         update = mu_hat / ((nu_hat + ADAM_EPS_ROOT).sqrt() + ADAM_EPS)
         return z + (-self.lr) * update
 
@@ -97,7 +101,10 @@ def _build_refine(losses_fn, lr, n_steps, early_stop_patience=None,
                 improved = (per_total < best_total - early_stop_tol).any()
                 stale = 0 if bool(improved) else stale + 1
             better = per_total < best_total
-            best_z = torch.where(better[:, None], z, best_z)
+            # the (B,) mask over z's trailing dims: (B, L) coefficients, or
+            # optreg's (B, 3, g, g, g) control grids
+            best_z = torch.where(
+                better.view((-1,) + (1,) * (z.dim() - 1)), z, best_z)
             best_total = torch.where(better, per_total, best_total)
             z = opt.step(z, g)
             totals.append(total.detach())

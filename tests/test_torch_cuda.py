@@ -724,6 +724,49 @@ def test_warp_image_grad_kernel_matches_plain(device, case, border,
     assert bool(((again - got).abs() <= tol).all())
 
 
+@pytest.mark.parametrize("case", ["serving", "unit_d", "unit_w", "pixel",
+                                  "rough"])
+@pytest.mark.parametrize("border", [False, True])
+def test_warp_image_grad_bf16_taps_kernel_matches_plain(device, case,
+                                                        border):
+    """bf16 taps (the oct weights on every axis): the kernel's f32 sums,
+    cast to bf16 once, against the plain version's. The f32 sums agree
+    within the f32 tolerance above, and their bf16 roundings then within
+    one more bf16 step (at most 2^-7 of the value, where a rounding
+    midpoint lies between them)."""
+    g = torch.Generator(device=device).manual_seed(10)
+    B, C, spatial = 2, 1, (40, 24, 36)
+    if case == "serving":
+        spatial = (160, 160, 160)
+    elif case.startswith("unit"):
+        axis = "dwh".index(case[-1])
+        spatial = tuple(1 if i == axis else n for i, n in enumerate(spatial))
+    vol = torch.zeros((B, C) + spatial, device=device, dtype=torch.bfloat16)
+    phi = _phi(g, B, spatial, device)
+    if case == "rough":
+        phi = (phi + torch.rand(phi.shape, generator=g, device=device)
+               * 0.5 - 0.25).contiguous()
+    cot = torch.randn((B, C) + spatial, generator=g, device=device)
+    flags = {"normalized": True, "scale_intensity": True}
+    if case == "pixel":
+        n = torch.tensor(spatial, dtype=torch.float32, device=device)
+        phi = ((phi.movedim(1, -1) + 1.0) * (n - 1) * 0.5).reshape(
+            B, -1, 3).contiguous()
+        cot = cot.reshape(B, C, -1).contiguous()
+        flags = {}
+    before = warp_image_grad.launches
+    got = warp_image_grad(vol, phi, cot, border, **flags)
+    torch.cuda.synchronize()
+    assert warp_image_grad.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == vol.shape
+    want = warp_image_grad_plain(vol, phi, cot, border, **flags).float()
+    mag = warp_image_grad_plain(vol.float(), phi, cot.abs(), border,
+                                **flags)
+    tol = (1e-5 * float(want.abs().max()) + 1e-6 * mag
+           + 2.0 ** -7 * want.abs())
+    assert bool(((got.float() - want).abs() <= tol).all())
+
+
 def test_warp_image_grad_zero_padding_adds_nothing(device):
     """Points far outside under zeros padding reach no tap: exactly 0."""
     vol = torch.zeros((1, 3, 8, 9, 10), device=device)

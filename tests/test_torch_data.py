@@ -51,10 +51,18 @@ def test_registry_and_limits(data_root):
     opt = _option(data_root, max_num_for_loading=[2, -1, -1, -1])
     assert len(tdata.Registration2D3DDataset(data_root, "train", option=opt)) \
         == 2
-    with pytest.raises(NotImplementedError, match="A5"):
-        tdata.Registration2D3DDataset(
-            data_root, "train", option=_option(data_root,
-                                               compress_in_memory=True))
+    # compress_in_memory (the native codec, ROADMAP A5) keeps each case
+    # packed and gives the same samples
+    packed = tdata.Registration2D3DDataset(
+        data_root, "train", option=_option(data_root,
+                                           compress_in_memory=True))
+    plain = tdata.Registration2D3DDataset(data_root, "train",
+                                          option=_option(data_root))
+    assert isinstance(packed.cases[0]["source"][1], bytes)
+    (ps, pn), (qs, qn) = packed[1], plain[1]
+    assert pn == qn and set(ps) == set(qs)
+    for k in qs:
+        np.testing.assert_array_equal(ps[k], qs[k], err_msg=k)
 
 
 @pytest.mark.parametrize("shuffle,drop_last", [(True, True), (True, False),

@@ -311,3 +311,19 @@ def test_test_mode_without_matplotlib(dataset, cli_runs):
                 assert os.path.isfile(os.path.join(exps[side], "tests",
                                                    name)), (side, name)
         assert len(_csv_rows(exps[side])) == 3
+
+
+def test_disp_from_experiment_matches_jax(dataset, cli_runs):
+    """``tools/torch_build_pca.py``'s fields from a trained model (test mode
+    from the same JAX checkpoint, the train split) against the JAX tool's:
+    within 1e-5, as the saved maps above."""
+    from tools.build_pca import disp_from_experiment as jdisp
+    from tools.torch_build_pca import disp_from_experiment
+    exps, _ = cli_runs
+    want = jdisp(dataset, os.path.join(exps["jax"], "cur_task_setting.json"))
+    got = disp_from_experiment(
+        dataset, os.path.join(exps["torch"], "cur_task_setting.json"),
+        device="cpu")
+    assert got.shape == want.shape == (2, 3 * SZ ** 3)
+    assert np.abs(want).max() > 1e-3
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)

@@ -191,15 +191,17 @@ def test_warp_coord_grad_matches_pallas_with_grad(taps):
 
 
 def test_warp_rejects_image_gradient():
-    """f32 taps take an image gradient (ROADMAP B2, ported); bf16 taps
-    still raise, naming B2."""
+    """f32 and bf16 taps take an image gradient (ROADMAP B2 and A4,
+    ported; the bf16 one in bf16); a cotangent of the wrong shape
+    raises."""
     img = torch.ones((1, 1, 4, 4, 4), requires_grad=True)
     coords = torch.full((1, 8, 3), 1.5, requires_grad=True)
     warp_trilinear_ad(img, coords, False).sum().backward()
     assert float(img.grad.sum()) == pytest.approx(8.0)
-    with pytest.raises(NotImplementedError, match="B2"):
-        warp_trilinear_ad(img.detach().bfloat16().requires_grad_(True),
-                          coords, False)
+    img16 = img.detach().bfloat16().requires_grad_(True)
+    warp_trilinear_ad(img16, coords, False).sum().backward()
+    assert img16.grad.dtype == torch.bfloat16
+    assert float(img16.grad.float().sum()) == pytest.approx(8.0)
     with pytest.raises(ValueError):
         warp_coord_grad(img.detach(), coords.detach(),
                         torch.zeros((1, 1, 7)), False)

@@ -19,6 +19,9 @@ FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|flax|liftreg_tpu)\b",
 def test_no_jax_or_reference_imports():
     files = sorted((ROOT / "liftreg_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
+    tools = sorted((ROOT / "tools").glob("torch_*.py"))
+    assert len(tools) >= 11
+    files += tools
     assert len(files) > 10
     bad = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
            for f in files for m in FORBIDDEN.finditer(f.read_text())]
@@ -42,3 +45,17 @@ def test_default_device_needs_cuda(monkeypatch):
 def test_exports():
     assert set(liftreg_tpu_torch.__all__) == {"RegistrationPipeline",
                                               "params_from_jax"}
+
+
+def test_codec_builds_into_build_dir():
+    """The native codec builds at first use under build/, never beside its
+    source (the JAX package writes its library next to ``codec.cpp``)."""
+    from liftreg_tpu_torch import native
+    src_dir = ROOT / "liftreg_tpu_torch" / "native"
+    lib = native.library_path()
+    assert lib.parent.parent == native.BUILD_ROOT
+    assert native.BUILD_ROOT.parent == ROOT / "build"
+    assert native.native_available()
+    assert lib.is_file()
+    assert sorted(p.name for p in src_dir.iterdir()
+                  if p.name != "__pycache__") == ["__init__.py", "codec.cpp"]

@@ -168,3 +168,28 @@ def test_resize_nearest_2d_matches_jax(hw, out):
     want = np.asarray(jresample.resize_nearest_2d(jnp.asarray(x), out))
     got = resample.resize_nearest_2d(torch.from_numpy(x), out).numpy()
     assert np.array_equal(got, want)
+
+
+def test_s2d_encoder_params_give_the_same_outputs():
+    """A JAX RegNet2D3D with ``s2d_encoder`` (its encoder's stages 0 and 1
+    as space-to-depth convolutions, the same parameter tree) and the
+    port's with the option on, from the same flax parameters: the outputs
+    within the tolerances above."""
+    inputs = _inputs(1)
+    jin = {k: jnp.asarray(v) for k, v in inputs.items()}
+    jm = JRegNet(img_sz=(SZ,) * 3, drr_feature_num=P, s2d_encoder=True)
+    params = _jax_params(jm, jin, 1)
+    out = jax.jit(jm.apply)(params, jin)
+    tm = get_model("regnet2d3d")((SZ,) * 3, drr_feature_num=P,
+                                 s2d_encoder=True)
+    tm.load_state_dict(params_from_jax(
+        jax.tree_util.tree_map(np.asarray, params)))
+    with torch.no_grad():
+        got = tm({k: torch.from_numpy(v) for k, v in inputs.items()})
+    for key, tol in (("phi", 1e-6), ("warped", 1e-5), ("warped_proj", 1e-5),
+                     ("warped_proj_inv", 1e-5)):
+        np.testing.assert_allclose(got[key].numpy(), np.asarray(out[key]),
+                                   rtol=0, atol=tol, err_msg=key)
+    for got_t, want_t, tol in zip(got["params"], out["params"], (1e-6, 1e-6)):
+        np.testing.assert_allclose(got_t.numpy(), np.asarray(want_t), rtol=0,
+                                   atol=tol)

@@ -140,10 +140,68 @@ def test_zero_padding_masks_add_exactly_zero():
 
 
 def test_bf16_taps_image_gradient_raises():
+    """bf16 taps take an image gradient now (in bf16); what still raises is
+    a cotangent of the wrong shape or type."""
     img = torch.zeros((1, 1, 4, 4, 4), dtype=torch.bfloat16,
                       requires_grad=True)
     coords = torch.zeros((1, 8, 3))
-    with pytest.raises(NotImplementedError, match="B2"):
-        warp_trilinear_ad(img, coords, False)
-    with pytest.raises(NotImplementedError, match="B2"):
-        warp_image_grad(img.detach(), coords, torch.zeros((1, 1, 8)), False)
+    warp_trilinear_ad(img, coords, False).sum().backward()
+    assert img.grad.dtype == torch.bfloat16
+    assert float(img.grad.float().sum()) == pytest.approx(8.0)
+    with pytest.raises(ValueError, match="cotangent"):
+        warp_image_grad(img.detach(), coords, torch.zeros((1, 1, 7)), False)
+    with pytest.raises(ValueError, match="cotangent"):
+        warp_image_grad(img.detach(), coords,
+                        torch.zeros((1, 1, 8), dtype=torch.bfloat16), False)
+
+
+@pytest.mark.parametrize("zero_boundary", [True, False])
+@pytest.mark.parametrize("scale_intensity", [True, False])
+def test_bf16_taps_image_grad_matches_jax_vjp(zero_boundary,
+                                              scale_intensity):
+    """bf16 taps (ROADMAP A4): the port sums the terms in f32 and casts the
+    sum to bf16 once. Against JAX's ``fast_vjp`` path (``_oct_sample_bwd``:
+    the same f32 sums, not rounded), within one bf16 rounding: 2^-8 of the
+    value plus 1e-6 of the largest. Against JAX's default path (autodiff
+    of ``_oct_plain``, whose scatter-adds round each partial sum to bf16),
+    within 2^-6 of the sum of the tap's terms' magnitudes (a face tap
+    under border padding sums the slab of points far outside), plus 1e-6
+    of the largest value."""
+    rng = np.random.default_rng(11 + 2 * zero_boundary + scale_intensity)
+    B = 2
+    img = rng.uniform(-1, 1, (B, 1) + SZ).astype(np.float32)
+    axes = np.meshgrid(*[np.linspace(-1, 1, n, dtype=np.float32)
+                         for n in SZ], indexing="ij")
+    phi = (np.stack(axes)[None] + rng.uniform(-0.3, 0.3, (B, 3) + SZ)
+           ).astype(np.float32)
+    phi[0, :, 0] = 2.5                      # a plane far outside
+    g = rng.normal(size=(B, 1) + SZ).astype(np.float32)
+    want = {}
+    for fast_vjp in (False, True):
+        _, vjp = jax.vjp(lambda i: jresample.warp_image(
+            i, jnp.asarray(phi), zero_boundary=zero_boundary,
+            scale_intensity=scale_intensity, taps_dtype=jnp.bfloat16,
+            fast_vjp=fast_vjp), jnp.asarray(img))
+        want[fast_vjp] = np.asarray(vjp(jnp.asarray(g))[0])
+    i_t = torch.from_numpy(img).requires_grad_(True)
+    out = resample.warp_image(i_t, torch.from_numpy(phi),
+                              zero_boundary=zero_boundary,
+                              scale_intensity=scale_intensity,
+                              taps_dtype=torch.bfloat16)
+    (out * torch.from_numpy(g)).sum().backward()
+    got = i_t.grad.numpy()
+    # bf16 values, carried back through the image's cast to the taps
+    np.testing.assert_array_equal(
+        got, torch.from_numpy(got).bfloat16().float().numpy())
+    fast = want[True]
+    np.testing.assert_allclose(got, fast, rtol=2.0 ** -8,
+                               atol=1e-6 * np.abs(fast).max())
+    # each tap's sum of |g * w|, through the glue's factors
+    mag = warp_image_grad_plain(
+        torch.ones((B, 1) + SZ), torch.from_numpy(phi),
+        torch.from_numpy(np.abs(g)), not zero_boundary, normalized=True,
+        scale_intensity=scale_intensity).numpy()
+    mag = mag * (0.5 if scale_intensity else 1.0)
+    excess = np.abs(got - want[False]) - (
+        2.0 ** -6 * mag + 1e-6 * np.abs(want[False]).max())
+    assert excess.max() <= 0, float(excess.max())
