@@ -22,8 +22,9 @@ line with its elapsed seconds:
    a batch of 9 for the PCA expansion, volumes with a spatial dim of 1 for
    the warp and its gradient, a point count that the gradient's points per
    thread do not divide, the PCA backward twice, which must give the same
-   bits, and the lift written as bf16 into the encoder's input buffer,
-   which must be its f32 output rounded once); the warp and its gradient
+   bits, and the encoder's bf16 input buffer (liftreg::encoder_input),
+   whose lift must be the f32 lift rounded once and whose channel 0 must
+   be the moving CT); the warp and its gradient
    also with phi in its (B, 3, D, W, H) layout, as warp_image passes it
    (B = 1, 4 and 9 at the serving shape, M = 6001 points, phi and the
    cotangent off a 16-byte boundary, unit dims; both tap types, both
@@ -57,6 +58,22 @@ line with its elapsed seconds:
    `out * 2 - 1`, the moving image's tap tensor is cast once per
    warp_image call outside the refinement's steps, and no op copies
    between host and card (each such copy stalls the stream);
+   serving: one-file artifacts (liftreg_tpu_torch/serving.py, the
+   kernels called as liftreg:: torch.library operators) of main_path's
+   pipeline and weights, both entries, exported into build/ and removed at
+   the end: the file sizes, the program's bytes (under 1% of the
+   weights'), the load, first-call and steady-state ms (live and served in
+   turns, the served mean within 2% of the live mean); each served call
+   bit-equal to the live pipeline with its launch counts zeroed just
+   before and checked exactly just after; batches of 1 and 3 padded to the
+   exported 4 against the full batch's rows; a refine_steps=30 artifact of
+   each domain (the refiner rebuilt from the artifact's meta) against the
+   live refined pipeline, timed beside it; an f32 artifact at 32^3 with
+   TF32 on for the process, bit-equal to the live f32 pipeline (and
+   exported on the CPU, its program moved to the card at load, within
+   REF_F32_TOL of it); and
+   tools/torch_serve_batch.py as a subprocess on 5 cases (a full batch and
+   one of 1), its outputs equal to ServingModel's;
 7. reference / refine_reference: the pipeline on the card against the same
    pipeline on the CPU (the kernels' plain versions) at 32^3, without and
    with 5 refinement steps (image domain with NCC and with LNCC, projection
@@ -128,9 +145,12 @@ line with its elapsed seconds:
 9. times: each kernel, its plain version and one PyTorch library call of
    the same function, with CUDA events (the warp and its gradient in both
    layouts and with both tap types; the lift also as the serving path
-   runs it, bf16 into the encoder's buffer, with the bound of the bytes it
-   writes); the steady-state register time, with and without refinement
-   (image domain with NCC and with LNCC, projection domain), and peak
+   runs it, the encoder's bf16 input buffer (liftreg::encoder_input: the
+   moving CT and the lift), with the bound of the bytes it moves and the
+   f32 matmul chain after the moving CT, cast once to bf16, as its
+   library call); the steady-state register time, with and without
+   refinement (image domain with NCC and with LNCC, projection domain), and
+   peak
    memory; the train step's median time and peak memory at the reference
    config, and the bf16 step's (measured in train and train_bf16); the
    image gradient, its plain version and grid_sampler_3d_backward's input
@@ -373,6 +393,28 @@ OPTREG_REF_TOL = {"z": 1e-4, "phi": 1e-4, "disp": 1e-4, "warped": 1e-3,
 # sums, cast to bf16 once) against its plain version, within the f32
 # tolerance and one bf16 step (2^-7 of the value)
 IMG_GRAD_BF16_STEP = 2.0 ** -7
+
+# serving: one-file artifacts (liftreg_tpu_torch/serving.py) of main_path's
+# pipeline and weights, both entries; the steady state 5 calls after 2
+# warm-ups, live and served in turns (live, served, served, live), and the
+# served mean within 2% of the live mean; the program's bytes under 1% of
+# the weights'; partial batches of 1 and 3 against the full batch's rows
+# within 1e-6 (the same kernels on the same rows; reported whether equal);
+# refined artifacts (30 steps, each domain) against the live refined
+# pipeline within REFINE_REF_TOL (the regulariser's backward adds with
+# atomics, so two refined calls differ in their last bits, which 30 Adam
+# steps carry on), each timed 3 calls after a warm-up; an f32 artifact at
+# 32^3 with TF32 on for the process, bit-equal to the live f32 pipeline,
+# and the same exported on the CPU and moved to the card at load, within
+# REF_F32_TOL of it;
+# tools/torch_serve_batch.py on 5 cases (a full batch and one of 1)
+SERVING_TIMED = 5
+SERVING_TIME_TOL = 0.02
+SERVING_PROGRAM_SHARE = 0.01
+SERVING_PARTIAL_TOL = 1e-6
+SERVING_REFINE_TIMED = 3
+SERVING_F32_SZ = 32
+SERVING_TOOL_CASES = 5
 
 _state = {"phase": "start", "t0": time.perf_counter()}
 
@@ -831,7 +873,8 @@ def read_metrics(exp):
 
 def glue_ops(torch, fn, batch, sz):
     """Run ``fn`` under a dispatch mode that sees every aten op, backward
-    included, and count: all ops; ops whose result is a coordinate buffer
+    included and inside the ``liftreg::`` kernel operators, and count: all
+    ops; ops whose result is a coordinate buffer
     (last dim 3 and batch * 3 * sz^3 elements); the warp's rescale, 1
     subtracted from a volume of batch * sz^3 elements that was multiplied
     by 2; casts of a (batch, 1, sz, sz, sz) volume to bf16, the moving
@@ -853,6 +896,17 @@ def glue_ops(torch, fn, batch, sz):
 
     class Count(TorchDispatchMode):
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func.namespace == "liftreg":
+                # a kernel's operator: count the ops of its implementation
+                # too (the plain version's glue on the CPU, the output's
+                # allocation on the card), with this mode on again below it
+                cuda = any(t.device.type == "cuda" for t in tree_leaves(
+                    (args, kwargs)) if isinstance(t, torch.Tensor))
+                key = torch._C.DispatchKey.CUDA if cuda \
+                    else torch._C.DispatchKey.CPU
+                with self:
+                    return func.redispatch(torch._C.DispatchKeySet(key),
+                                           *args, **(kwargs or {}))
             out = func(*args, **(kwargs or {}))
             counts["ops"] += 1
             for o in tree_leaves(out):
@@ -1133,6 +1187,286 @@ def learned_basis(torch, kernels, root, dataset_proc, profile_call=None,
             "tre_learned_mm": learned, "tre_identity_mm": identity}
 
 
+def serving_phase(torch, kernels, pipe, pca, args, proj, refined, root,
+                  serving_launches, time_tol=SERVING_TIME_TOL,
+                  f32_sz=SERVING_F32_SZ, device="cuda"):
+    """The serving phase (see the constants above): ``pipe`` and ``pca`` are
+    main_path's, ``args`` its (source, target, seg, seg), ``proj`` the
+    target projections of register_projections, ``refined`` ``{domain:
+    (pipeline, pca, args)}`` of the refine phases, ``root`` a directory for
+    the artifacts (removed at the end), ``serving_launches`` main_path's
+    launch counts. ``time_tol`` None, a small ``f32_sz`` and ``device``
+    rehearse it on the CPU. Returns the phase's numbers."""
+    import numpy as np
+
+    from liftreg_tpu_torch import RegistrationPipeline
+    from liftreg_tpu_torch.device import f32_precision
+    from liftreg_tpu_torch.serving import (ServingModel, export_serving,
+                                           flat, read_artifact)
+
+    _begin("serving")
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    out = {}
+    src, tgt, seg, _ = args
+    batch = src.shape[0]
+    try:
+        paths, export_s = {}, {}
+        for entry in ("register", "register_projections"):
+            paths[entry] = os.path.join(root, f"{entry}.liftreg")
+            t0 = time.perf_counter()
+            export_serving(pipe, pca, batch, paths[entry], entry=entry)
+            export_s[entry] = time.perf_counter() - t0
+        payload = read_artifact(paths["register"])
+        weight_bytes = sum(t.numel() * t.element_size() for t in
+                           list(flat(payload["params"]).values())
+                           + list(payload["pca"].values()))
+        program_bytes = len(payload["exported"])
+        del payload
+        out.update(export_s=export_s, file_bytes={
+            k: os.path.getsize(v) for k, v in paths.items()},
+            program_bytes=program_bytes, weight_bytes=weight_bytes,
+            program_share=program_bytes / weight_bytes)
+
+        t0 = time.perf_counter()
+        srv = ServingModel.load(paths["register"], device=device)
+        out["load_ms"] = (time.perf_counter() - t0) * 1e3
+        _zero(kernels)
+        t0 = time.perf_counter()
+        served = srv.register(*args)
+        sync()
+        out["first_call_ms"] = (time.perf_counter() - t0) * 1e3
+        out["launches"] = _counts(kernels)
+        live = pipe.register(pca, *args)
+        out["bit_equal"] = all(bool(torch.equal(a, b))
+                               for a, b in zip(served, live))
+
+        def steady(fn):
+            for _ in range(2):
+                fn()
+            sync()
+            t0 = time.perf_counter()
+            for _ in range(SERVING_TIMED):
+                fn()
+            sync()
+            return (time.perf_counter() - t0) * 1e3 / SERVING_TIMED
+
+        def live_call():
+            return pipe.register(pca, *args)
+
+        def served_call():
+            return srv.register(*args)
+
+        turns = [("live", live_call), ("served", served_call),
+                 ("served", served_call), ("live", live_call)]
+        times = {"live": [], "served": []}
+        for name, fn in turns:
+            times[name].append(steady(fn))
+        out["steady_ms"] = times
+        out["live_ms"] = statistics.mean(times["live"])
+        out["served_ms"] = statistics.mean(times["served"])
+        out["served_over_live"] = out["served_ms"] / out["live_ms"]
+
+        # partial batches: padded with their last row
+        out["partial_max_abs_diff"] = {}
+        out["partial_bit_equal"] = {}
+        for b_in in (1, 3):
+            part = srv.register(*(a[:b_in] for a in args))
+            out["partial_max_abs_diff"][b_in] = max(
+                _max_err(p, s_[:b_in]) for p, s_ in zip(part, served))
+            out["partial_bit_equal"][b_in] = all(
+                bool(torch.equal(p, s_[:b_in]))
+                for p, s_ in zip(part, served))
+        del srv, served, live
+
+        srv_p = ServingModel.load(paths["register_projections"],
+                                  device=device)
+        p_args = (src, proj, seg)
+        _zero(kernels)
+        served_p = srv_p.register_projections(*p_args)
+        sync()
+        out["projections_launches"] = _counts(kernels)
+        live_p = pipe.register_projections(pca, *p_args)
+        out["projections_bit_equal"] = all(
+            bool(torch.equal(a, b)) for a, b in zip(served_p, live_p))
+        del srv_p, served_p, live_p
+
+        # refined artifacts: the refiner rebuilt from meta
+        out["refined"] = {}
+        for domain, (pipe_r, pca_r, args_r) in refined.items():
+            path = os.path.join(root, f"refine_{domain}.liftreg")
+            export_serving(pipe_r, pca_r, batch, path)
+            srv_r = ServingModel.load(path, device=device)
+            _zero(kernels)
+            got = srv_r.register(*args_r)
+            sync()
+            served_launches = _counts(kernels)
+            _zero(kernels)
+            want = pipe_r.register(pca_r, *args_r)
+            sync()
+            live_launches = _counts(kernels)
+            row = {"phi_max_abs_diff": _max_err(got[1], want[1]),
+                   "warped_max_abs_diff": _max_err(got[0], want[0]),
+                   "bit_equal": all(bool(torch.equal(a, b))
+                                    for a, b in zip(got, want)),
+                   "launches_equal_live": served_launches == live_launches,
+                   "launches": served_launches,
+                   "history_first_last": [
+                       float(srv_r.last_refine["total_history"][0]),
+                       float(srv_r.last_refine["total_history"][-1])]}
+            calls = {"live": [], "served": []}
+            for name, fn in (("live", lambda: pipe_r.register(pca_r,
+                                                              *args_r)),
+                             ("served", lambda: srv_r.register(*args_r))):
+                fn()
+                sync()
+                for _ in range(SERVING_REFINE_TIMED):
+                    t0 = time.perf_counter()
+                    fn()
+                    sync()
+                    calls[name].append((time.perf_counter() - t0) * 1e3)
+            row["calls_ms"] = calls
+            row["live_ms"] = statistics.median(calls["live"])
+            row["served_ms"] = statistics.median(calls["served"])
+            out["refined"][domain] = row
+            del srv_r, got, want
+
+        # an f32 artifact with TF32 on for the process
+        sz = (f32_sz,) * 3
+        torch.manual_seed(12)
+        pipe32 = RegistrationPipeline(sz, latent_dim=8, device=device)
+        g = torch.Generator(device=device).manual_seed(12)
+        n32 = 3 * f32_sz ** 3
+        pca32 = {"vectors": torch.randn((8, n32), generator=g,
+                                        device=device) * 0.01,
+                 "mean": torch.randn((n32,), generator=g,
+                                     device=device) * 0.01}
+        args32 = [torch.rand((2, 1) + sz, generator=g, device=device)
+                  * -1000.0 for _ in "st"]
+        args32 += [(torch.rand((2, 1) + sz, generator=g, device=device)
+                    > 0.4).float()] * 2
+        path32 = os.path.join(root, "f32.liftreg")
+        export_serving(pipe32, pca32, 2, path32)
+        srv32 = ServingModel.load(path32, device=device)
+        flags = (torch.backends.cuda.matmul.allow_tf32,
+                 torch.backends.cudnn.allow_tf32)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            got32 = srv32.register(*args32)
+            want32 = pipe32.register(pca32, *args32)
+            # the program alone, without the f32 scope: what TF32 does
+            srv32._commit_weights()
+            bare = srv32._program(srv32._params, srv32._pca, srv32._consts,
+                                  *args32)
+            sync()
+            tf32_after = (torch.backends.cuda.matmul.allow_tf32,
+                          torch.backends.cudnn.allow_tf32)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = flags[0]
+            torch.backends.cudnn.allow_tf32 = flags[1]
+        with f32_precision():
+            scoped = srv32._program(srv32._params, srv32._pca,
+                                    srv32._consts, *args32)
+        # the same pipeline exported on the CPU, its program moved to the
+        # card at load (move_to_device_pass)
+        pipe_cpu = RegistrationPipeline(sz, latent_dim=8, device="cpu")
+        pipe_cpu.model.load_state_dict(pipe32.model.state_dict())
+        path_cpu = os.path.join(root, "f32_cpu.liftreg")
+        export_serving(pipe_cpu, {k: v.cpu() for k, v in pca32.items()}, 2,
+                       path_cpu)
+        moved = ServingModel.load(path_cpu, device=device).register(*args32)
+        out["f32"] = {
+            "bit_equal": all(bool(torch.equal(a, b))
+                             for a, b in zip(got32, want32)),
+            "caller_flags_kept": tf32_after == (True, True),
+            "unscoped_tf32_phi_max_abs_diff": _max_err(bare[1], want32[1]),
+            "scoped_bit_equal": all(bool(torch.equal(a, b))
+                                    for a, b in zip(scoped, want32)),
+            "exported_on_cpu_max_abs_diff": [_max_err(moved[1], want32[1]),
+                                             _max_err(moved[0], want32[0])]}
+        del srv32, pipe32, pipe_cpu
+
+        # tools/torch_serve_batch.py on 5 cases: a full batch and one of 1
+        cases, outs = os.path.join(root, "cases"), os.path.join(root, "out")
+        os.makedirs(cases)
+        rows = [k % batch for k in range(SERVING_TOOL_CASES)]
+        host = [a.cpu().numpy() for a in args]
+        ids = [f"case{k}" for k in range(SERVING_TOOL_CASES)]
+        for cid, r in zip(ids, rows):
+            np.save(os.path.join(cases, f"{cid}_source.npy"), host[0][r, 0])
+            np.save(os.path.join(cases, f"{cid}_target.npy"), host[1][r, 0])
+            np.save(os.path.join(cases, f"{cid}_source_seg.npy"),
+                    host[2][r, 0])
+            np.save(os.path.join(cases, f"{cid}_target_seg.npy"),
+                    host[3][r, 0])
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "tools/torch_serve_batch.py", "-a",
+             paths["register"], "-i", cases, "-o", outs]
+            + ([] if device == "cuda" else ["--device", device]),
+            capture_output=True, text=True, timeout=300)
+        out["tool_s"] = time.perf_counter() - t0
+        out["tool_rc"] = proc.returncode
+        _require(proc.returncode == 0, f"torch_serve_batch.py failed: "
+                 f"{proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+        srv = ServingModel.load(paths["register"], device=device)
+        tool_equal = True
+        for start in range(0, SERVING_TOOL_CASES, batch):
+            chunk = rows[start:start + batch]
+            warped, phi = srv.register(*(a[chunk] for a in args))
+            phi01 = ((phi + 1.0) / 2.0).cpu().numpy()
+            warped = warped.cpu().numpy()
+            for k, cid in enumerate(ids[start:start + batch]):
+                tool_equal &= bool(np.array_equal(
+                    np.load(os.path.join(outs, f"{cid}_warped.npy")),
+                    warped[k]))
+                tool_equal &= bool(np.array_equal(np.load(
+                    os.path.join(outs, f"{cid}_phi.npy")), phi01[k]))
+        out["tool_equal"] = tool_equal
+        del srv
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    _emit(**out, time_tol=time_tol,
+          program_share_limit=SERVING_PROGRAM_SHARE,
+          partial_tol=SERVING_PARTIAL_TOL, refine_tol=REFINE_REF_TOL)
+    _require(out["program_share"] < SERVING_PROGRAM_SHARE,
+             f"the program holds {out['program_bytes']} bytes")
+    _require(out["bit_equal"] and out["projections_bit_equal"],
+             "a served call differs from the live pipeline")
+    _require(out["launches"] == serving_launches,
+             f"served register launches {out['launches']}, expected "
+             f"{serving_launches}")
+    _require(out["projections_launches"]
+             == dict(serving_launches, drr_project=0),
+             f"served register_projections launches "
+             f"{out['projections_launches']}")
+    _require(max(out["partial_max_abs_diff"].values())
+             <= SERVING_PARTIAL_TOL,
+             f"padded batches differ: {out['partial_max_abs_diff']}")
+    for domain, row in out["refined"].items():
+        _require(row["phi_max_abs_diff"] <= REFINE_REF_TOL[0]
+                 and row["warped_max_abs_diff"] <= REFINE_REF_TOL[1]
+                 and row["launches_equal_live"]
+                 and row["history_first_last"][1]
+                 <= row["history_first_last"][0],
+                 f"the refined artifact ({domain}) disagrees: {row}")
+    _require(out["f32"]["bit_equal"] and out["f32"]["caller_flags_kept"]
+             and out["f32"]["exported_on_cpu_max_abs_diff"][0]
+             <= REF_F32_TOL[0]
+             and out["f32"]["exported_on_cpu_max_abs_diff"][1]
+             <= REF_F32_TOL[1],
+             f"the f32 artifact under TF32: {out['f32']}")
+    _require(out["tool_equal"], "torch_serve_batch.py's outputs differ")
+    if time_tol is not None:
+        _require(out["served_over_live"] <= 1.0 + time_tol,
+                 f"served register {out['served_ms']} ms against live "
+                 f"{out['live_ms']} ms")
+    return out
+
+
 def optreg_reference(torch, F, warp_kernel, card="cuda"):
     """One DenseRegisterer call on the card against the CPU (see the
     constants above), then with the card's coordinate gradient negated
@@ -1185,7 +1519,7 @@ def main():
     from liftreg_tpu_torch.ops import resample
     from liftreg_tpu_torch.ops import _build, drr, warp_kernel
     from liftreg_tpu_torch.ops.drr_kernel import (
-        backproject_taps, backproject_taps_plain, project,
+        backproject_taps, backproject_taps_plain, lift_encoder_input, project,
         project_adjoint_plan, project_adjoint_plan_plain, project_adjoint_taps,
         project_adjoint_taps_plain, project_taps, project_taps_plain)
     from liftreg_tpu_torch.ops.pca_kernel import (MAX_CHUNK, pca_expand,
@@ -1352,14 +1686,15 @@ def main():
     geom2b = (_edge_pix(torch, g, (3, W2, D2), rd, dev),
               _edge_pix(torch, g, (3, W2, H2), rh, dev))
     drr_errs["lift_ragged"] = lift_err(p2, geom2b)
-    # the lift into the encoder's bf16 input buffer: its f32 values rounded
-    # once, bit for bit, channel 0 untouched
-    lift_buf = torch.full((B, 5, SZ, SZ, SZ), 3.0, dtype=torch.bfloat16,
-                          device=dev)
-    backproject_taps(proj_in, *bwd_geom, out=lift_buf[:, 1:])
+    # the lift into the encoder's bf16 input buffer (liftreg::encoder_input,
+    # as the serving path runs it): its f32 values rounded once, bit for
+    # bit, and the moving CT in channel 0
+    lift_moving = att[:, None]
+    lift_buf = lift_encoder_input(lift_moving, proj_in, *bwd_geom,
+                                  dtype=torch.bfloat16)
     lift_bf16_equal = bool(torch.equal(
         lift_buf[:, 1:], backproject_taps(proj_in, *bwd_geom).bfloat16())
-        and (lift_buf[:, 0] == 3.0).all())
+        and torch.equal(lift_buf[:, :1], lift_moving.bfloat16()))
     drr_errs["lift_bf16_buffer_bit_equal"] = lift_bf16_equal
 
     def adjoint_err(cot, geom, vol_shape):
@@ -1783,6 +2118,16 @@ def main():
              and glue["register_refine_projection"]["tap_casts"] == 3,
              f"the tap tensor is built more than once per call: {glue}")
 
+    # -- serving: one-file artifacts of the main path ----------------------
+    r_args = (r_src, r_tgt, r_seg, r_seg)
+    serving_phase(
+        torch, KERNELS, pipe, pca, (src_hu, tgt_hu, seg, seg), proj,
+        {"image": (pipe_r, r_pca, r_args),
+         "projection": (pipe_p, r_pca, r_args)},
+        os.path.abspath(os.path.join("build", "chip_smoke_serving")),
+        launches)
+    torch.cuda.empty_cache()
+
     # -- the card against the CPU at a small size --------------------------
     _begin("reference")
     small, L_small = (32, 32, 32), 8
@@ -2076,19 +2421,19 @@ def main():
                         plane_chunk=model_t.backproject_chunk)
     train_errs, lift_bufs = {}, {}
     for dt in (torch.float32, torch.bfloat16):
-        # the encoder's input with channel 0 marked: the lift must leave it
-        buf = torch.full((TRAIN_B, 1 + proj_t.shape[1]) + tr.img_sz, 3.0,
-                         dtype=dt, device=dev)
-        model_t.lift(proj_t, poses_t, geom_t, out=buf[:, 1:])
-        lift_bufs[dt] = buf
+        # the encoder's input: the moving CT in channel 0, the lift after it
+        lift_bufs[dt] = lift_encoder_input(
+            batch_t["source"], proj_t, *geom_t, dtype=dt,
+            plane_chunk=model_t.backproject_chunk)
     train_errs["lift_f32_buffer"] = _max_err(lift_bufs[torch.float32][:, 1:],
                                              lift_want)
     # the bf16 buffer holds the f32 lift rounded once
     train_errs["lift_bf16_buffer_bit_equal"] = bool(torch.equal(
         lift_bufs[torch.bfloat16][:, 1:],
         lift_bufs[torch.float32][:, 1:].bfloat16()))
-    train_errs["lift_channel0_untouched"] = all(
-        bool((b[:, 0] == 3.0).all()) for b in lift_bufs.values())
+    train_errs["lift_channel0_moving"] = all(
+        torch.equal(b[:, :1], batch_t["source"].to(dt))
+        for dt, b in lift_bufs.items())
     del lift_bufs, lift_want
     with torch.no_grad():
         phi_t = model_t(batch_t, tr.pca)["phi"]
@@ -2123,7 +2468,7 @@ def main():
                "coord_grad_rel": WARP_GRAD_REL_TOL})
     _require(train_errs["lift_f32_buffer"] <= LIFT_TOL
              and train_errs["lift_bf16_buffer_bit_equal"]
-             and train_errs["lift_channel0_untouched"],
+             and train_errs["lift_channel0_moving"],
              f"the lift at the train step's shapes disagrees: {train_errs}")
     _require(all(train_errs[k] <= WARP_TOL for k in warp_keys),
              f"the warp at the train step's shapes disagrees: {train_errs}")
@@ -2759,14 +3104,20 @@ def main():
     lib_ms["drr_adjoint_plan"] = None
     ms["drr_backproject"] = _cuda_ms(
         lambda: backproject_taps(proj_in, *bwd_geom), 20)
-    # the serving path's variant: bf16 into the encoder's input buffer
-    lift_bf16_ms = _cuda_ms(lambda: backproject_taps(
-        proj_in, *bwd_geom, out=lift_buf[:, 1:]), 20)
+    # the serving path's variant: the encoder's bf16 input buffer, the
+    # moving CT in channel 0 and the lift after it
+    lift_bf16_ms = _cuda_ms(lambda: lift_encoder_input(
+        lift_moving, proj_in, *bwd_geom, dtype=torch.bfloat16), 20)
     plain_ms["drr_backproject"] = _cuda_ms(
         lambda: backproject_taps_plain(proj_in, *bwd_geom), 5)
     Bu, Bv = drr.backward_matrices(pipe_poses, (SZ,) * 3, res)
     lib_ms["drr_backproject"] = _cuda_ms(
         lambda: drr.backproject_with_mats(proj_in, Bu, Bv), 5)
+    # the serving path's variant as library calls: the same f32 chain
+    # after the moving CT, cast once to bf16
+    lift_bf16_lib_ms = _cuda_ms(lambda: torch.cat(
+        [lift_moving, drr.backproject_with_mats(proj_in, Bu, Bv)],
+        dim=1).bfloat16(), 5)
     del Bu, Bv
 
     M = coords.shape[1]
@@ -2820,11 +3171,14 @@ def main():
         for name, times in layout_ms.items()}
     del vol01, taps, t16, t32, coords, int_coords, grid, cot, cot5, cot_pca
     del phi
-    lift_bf16_bytes = nbytes["drr_backproject"] - B * 4 * SZ ** 3 * 2
+    # the lift's output in bf16, and the moving CT read (f32) and written
+    # (bf16) into channel 0
+    lift_bf16_bytes = nbytes["drr_backproject"] - B * 4 * SZ ** 3 * 2 \
+        + B * SZ ** 3 * 6
     lift_bf16 = {"ms": lift_bf16_ms,
                  "bound_ms": lift_bf16_bytes / HBM_BYTES_PER_S * 1e3,
-                 "bound_by": "bytes"}
-    del cot_bf16, att, proj_in, lift_buf, cot_proj, adj_plan
+                 "bound_by": "bytes", "library_ms": lift_bf16_lib_ms}
+    del cot_bf16, att, proj_in, lift_buf, lift_moving, cot_proj, adj_plan
     torch.cuda.empty_cache()
 
     def steady(p, pca_, args_, iters):
@@ -2966,7 +3320,8 @@ def main():
                            subspace_launches=subspace_launches[name])
     next(k for k in kernels if k["name"] == "drr_backproject").update(
         bf16_buffer_ms=lift_bf16["ms"],
-        bf16_buffer_bound_ms=lift_bf16["bound_ms"])
+        bf16_buffer_bound_ms=lift_bf16["bound_ms"],
+        bf16_buffer_library_ms=lift_bf16["library_ms"])
     for name, times in layout_times.items():
         next(k for k in kernels if k["name"] == name)["layouts"] = times
     print(smi, flush=True)

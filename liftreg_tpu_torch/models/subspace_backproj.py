@@ -15,7 +15,7 @@ from torch import nn
 from ..coords import identity_map
 from ..device import f32_precision, resolve_dtype
 from ..ops import drr, resample
-from ..ops.drr_kernel import backproject_taps
+from ..ops.drr_kernel import backproject_taps, lift_encoder_input
 from ..ops.pca_kernel import pca_expand_ad
 from .blocks import ConvBlock, FullyConnectBlock
 
@@ -97,7 +97,9 @@ class LiftRegSubspaceBackproj(nn.Module):
     gradient, and the port has one.
     An optional ``inputs["lift_geometry"]`` carries the lift's prebuilt
     ``drr.backward_geometry``, which must be built for the detector size of
-    ``inputs["target_proj"]``."""
+    ``inputs["target_proj"]``, and an optional ``inputs["identity_map"]``
+    the (3, D, W, H) identity map (else :func:`..coords.identity_map`'s
+    cached one): a served program takes both as inputs."""
 
     def __init__(self, img_sz, latent_dim=56, drr_feature_num=4,
                  enc_filters=(16, 32, 32, 32, 32, 32), compute_dtype=None,
@@ -115,32 +117,31 @@ class LiftRegSubspaceBackproj(nn.Module):
                                        self.img_sz, enc_filters,
                                        dtype=self.compute_dtype)
 
-    def lift(self, target_proj, poses, geometry=None, out=None):
-        """Backproject (B, P, pw, ph) projections into (B, P, D, W, H)
+    def lift(self, target_proj, poses, geometry=None):
+        """Backproject (B, P, pw, ph) projections into (B, P, D, W, H) f32
         feature volumes, without gradient (the reference detaches).
         ``geometry`` is ``drr.backward_geometry`` of the poses, built here
-        when not given; ``out`` receives the lift (see
-        :func:`..ops.drr_kernel.backproject_taps`)."""
+        when not given."""
         with torch.no_grad():
             if geometry is None:
                 geometry = drr.backward_geometry(poses, self.img_sz,
                                                  target_proj.shape[2:])
             return backproject_taps(target_proj.contiguous(), *geometry,
-                                    plane_chunk=self.backproject_chunk,
-                                    out=out)
+                                    plane_chunk=self.backproject_chunk)
 
     def encoder_input(self, moving, target_proj, poses, geometry=None):
         """The encoder's (B, 1+P, D, W, H) input in its compute type: the
         moving CT in channel 0 and the lift, written by the lift kernel,
         in channels 1..P; each value rounded once, as JAX's
-        ``concatenate(...).astype(compute_dtype)``."""
-        B, P = target_proj.shape[:2]
-        x = torch.empty((B, 1 + P) + self.img_sz,
-                        dtype=self.compute_dtype or torch.float32,
-                        device=moving.device)
-        x[:, :1].copy_(moving)
-        self.lift(target_proj, poses, geometry, out=x[:, 1:])
-        return x
+        ``concatenate(...).astype(compute_dtype)``. One operator
+        (``liftreg::encoder_input``) makes and fills the buffer."""
+        if geometry is None:
+            geometry = drr.backward_geometry(poses, self.img_sz,
+                                             target_proj.shape[2:])
+        return lift_encoder_input(moving, target_proj.contiguous(),
+                                  *geometry,
+                                  dtype=self.compute_dtype or torch.float32,
+                                  plane_chunk=self.backproject_chunk)
 
     @f32_precision()
     def forward(self, inputs, pca):
@@ -161,7 +162,10 @@ class LiftRegSubspaceBackproj(nn.Module):
         coefs = self.encoder(x)
 
         disp = expand_pca(coefs, pca["vectors"], pca["mean"], self.img_sz)
-        phi = disp + identity_map(self.img_sz, device=disp.device)[None]
+        idm = inputs.get("identity_map")
+        if idm is None:
+            idm = identity_map(self.img_sz, device=disp.device)
+        phi = disp + idm[None]
         warped = resample.warp_image(moving_cp, phi, zero_boundary=True,
                                      scale_intensity=True,
                                      taps_dtype=self.warp_taps_dtype)

@@ -16,6 +16,11 @@ coordinates.
 :func:`project_taps`, :func:`project_adjoint_taps` and
 :func:`backproject_taps` launch the kernels for CUDA tensors and run the
 plain versions for CPU tensors; they never fall back from one to the other.
+The serving path's two, the projector and the lift, are ``torch.library``
+operators (:mod:`._library`): ``liftreg::project``, ``liftreg::backproject``
+(the lift as a new f32 tensor) and ``liftreg::encoder_input``
+(:func:`lift_encoder_input`: the encoder's f32 or bf16 input buffer, made
+and filled by one operator, the lift rounded once to its dtype).
 ``.launches`` on each counts kernel launches, one per call; a projector call
 whose plane loop is split runs as two passes on the card (the chunks'
 partial sums, then their ordered sum), counted as one launch. The adjoint
@@ -24,8 +29,6 @@ row and voxel index, the run of pixels whose tap reaches it), which a
 caller with static poses builds once and passes in; without one,
 :func:`project_adjoint_taps` builds it first. :func:`project_taps_ad` is
 the projector under autograd: its backward is the adjoint.
-:func:`backproject_taps` can write into a given ``out``, f32 or bf16, such
-as the channels 1..P of the encoder's input buffer.
 :func:`project` (differentiable with respect to the volume) and
 :func:`backproject` take the poses instead of the geometry, as
 ``liftreg_tpu.ops.drr.project``/``backproject`` do.
@@ -34,7 +37,7 @@ from __future__ import annotations
 
 import torch
 
-from . import _build, drr
+from . import _build, _library, drr
 
 
 def project_taps_plain(vol, x_pix, z_pix, dx, plane_chunk=32):
@@ -124,12 +127,9 @@ def _plane_chunks(sms, B, P, W, res_d, res_h):
                min(-(-_PROJ_BLOCKS_PER_SM * sms // blocks), W // 8))
 
 
-def project_taps(vol, x_pix, z_pix, dx, plane_chunk=32):
-    """The projector kernel on CUDA tensors, the plain version on CPU
-    tensors (``plane_chunk`` only shapes the plain version's products)."""
-    tensors = {"vol": vol, "x_pix": x_pix, "z_pix": z_pix, "dx": dx}
-    device = _build.inputs_device("project_taps", tensors,
-                                  dict.fromkeys(tensors, _F32))
+def _project_shapes(vol, x_pix, z_pix, dx):
+    """(B, P, D, W, H, res_d, res_h) of a projector call, after checking
+    the operands' ranks and shapes."""
     if vol.dim() != 4 or x_pix.dim() != 3 or z_pix.dim() != 3 \
             or dx.dim() != 3:
         raise ValueError("project_taps: want vol (B, D, W, H), x_pix "
@@ -143,6 +143,16 @@ def project_taps(vol, x_pix, z_pix, dx, plane_chunk=32):
         raise ValueError(f"project_taps: shapes {tuple(vol.shape)}, "
                          f"{tuple(x_pix.shape)}, {tuple(z_pix.shape)}, "
                          f"{tuple(dx.shape)} do not agree")
+    return B, P, D, W, H, res_d, res_h
+
+
+def _project_impl(vol, x_pix, z_pix, dx, plane_chunk):
+    """``liftreg::project`` on the CPU (the plain version) and on CUDA (the
+    kernel)."""
+    tensors = {"vol": vol, "x_pix": x_pix, "z_pix": z_pix, "dx": dx}
+    device = _build.inputs_device("project_taps", tensors,
+                                  dict.fromkeys(tensors, _F32))
+    B, P, D, W, H, res_d, res_h = _project_shapes(vol, x_pix, z_pix, dx)
     if device.type == "cpu":
         return project_taps_plain(vol, x_pix, z_pix, dx, plane_chunk)
     out = torch.empty((B, P, res_d, res_h), dtype=torch.float32,
@@ -165,6 +175,22 @@ def project_taps(vol, x_pix, z_pix, dx, plane_chunk=32):
     _build.check(rc, "project_taps")
     project_taps.launches += 1
     return out
+
+
+def _project_fake(vol, x_pix, z_pix, dx, plane_chunk):
+    B, P, _, _, _, res_d, res_h = _project_shapes(vol, x_pix, z_pix, dx)
+    return vol.new_empty((B, P, res_d, res_h), dtype=torch.float32)
+
+
+_library.define("project(Tensor vol, Tensor x_pix, Tensor z_pix, Tensor dx, "
+                "int plane_chunk) -> Tensor", _project_impl, _project_fake)
+
+
+def project_taps(vol, x_pix, z_pix, dx, plane_chunk=32):
+    """The projector kernel on CUDA tensors, the plain version on CPU
+    tensors (``plane_chunk`` only shapes the plain version's products):
+    the operator ``liftreg::project``."""
+    return torch.ops.liftreg.project(vol, x_pix, z_pix, dx, plane_chunk)
 
 
 project_taps.launches = 0
@@ -306,48 +332,35 @@ def project_taps_ad(vol, x_pix, z_pix, dx, plane_chunk=32, plan=None):
     return _ProjectTaps.apply(vol, x_pix, z_pix, dx, plane_chunk, plan)
 
 
-def backproject_taps(proj, u_pix, v_pix, plane_chunk=16, out=None):
-    """The lift kernel on CUDA tensors, the plain version on CPU tensors
-    (``plane_chunk`` only shapes the plain version's products).
-
-    ``out``, if given, receives the lift: a (B, P, D, W, H) f32 or bf16
-    tensor whose rows are contiguous apart from the batch stride, such as
-    ``buf[:, 1:]`` of the encoder's (B, 1+P, D, W, H) input. Each value is
-    rounded once to its dtype (on the CPU: the plain result, converted).
-    Returns ``out``, or a new f32 tensor."""
-    tensors = {"proj": proj, "u_pix": u_pix, "v_pix": v_pix}
-    device = _build.inputs_device("backproject_taps", tensors,
-                                  dict.fromkeys(tensors, _F32))
+def _lift_shapes(proj, u_pix, v_pix):
+    """(B, P, D, W, H) of a lift, after checking the operands' ranks and
+    shapes."""
     if proj.dim() != 4 or u_pix.dim() != 3 or v_pix.dim() != 3:
         raise ValueError("backproject_taps: want proj (B, P, pw, ph), "
                          "u_pix (P, W, D), v_pix (P, W, H)")
-    B, P, pw, ph = proj.shape
+    B, P = proj.shape[:2]
     _, W, D = u_pix.shape
     H = v_pix.shape[2]
     if u_pix.shape[0] != P or v_pix.shape[:2] != (P, W):
         raise ValueError(f"backproject_taps: shapes {tuple(proj.shape)}, "
                          f"{tuple(u_pix.shape)}, {tuple(v_pix.shape)} do "
                          "not agree")
-    shape = (B, P, D, W, H)
-    if out is not None:
-        inner = (D * W * H, W * H, H, 1)
-        rows_ok = all(n == 1 or st == want for n, st, want in
-                      zip(shape[1:], out.stride()[1:], inner))
-        if tuple(out.shape) != shape or out.dtype not in OUT_DTYPES \
-                or out.device != device or not rows_ok \
-                or (B > 1 and out.stride(0) < P * D * W * H):
-            raise ValueError(
-                f"backproject_taps: out must be an f32/bf16 {shape} tensor "
-                f"on {device} with rows contiguous apart from the batch "
-                f"stride; got {tuple(out.shape)} {out.dtype} strides "
-                f"{out.stride()} on {out.device}")
+    return B, P, D, W, H
+
+
+def _lift_into(proj, u_pix, v_pix, plane_chunk, out):
+    """The lift written into ``out``, an f32 or bf16 (B, P, D, W, H) tensor
+    made by the operator (a new tensor, or channels 1..P of the encoder's
+    input), whose rows are contiguous apart from the batch stride: on the
+    CPU the plain version, converted; on CUDA the kernel, one launch."""
+    tensors = {"proj": proj, "u_pix": u_pix, "v_pix": v_pix}
+    device = _build.inputs_device("backproject_taps", tensors,
+                                  dict.fromkeys(tensors, _F32))
+    B, P, D, W, H = _lift_shapes(proj, u_pix, v_pix)
+    pw, ph = proj.shape[2:]
     if device.type == "cpu":
-        lifted = backproject_taps_plain(proj, u_pix, v_pix, plane_chunk)
-        if out is None:
-            return lifted
-        return out.copy_(lifted)
-    if out is None:
-        out = torch.empty(shape, dtype=torch.float32, device=device)
+        out.copy_(backproject_taps_plain(proj, u_pix, v_pix, plane_chunk))
+        return
     bstride = out.stride(0) if B > 1 else P * D * W * H
     _check_int32("backproject_taps", proj.numel(), u_pix.numel(),
                  v_pix.numel(), B * bstride)
@@ -360,10 +373,81 @@ def backproject_taps(proj, u_pix, v_pix, plane_chunk=16, out=None):
             D, W, H, pw, ph, stream)
     _build.check(rc, "backproject_taps")
     backproject_taps.launches += 1
+
+
+def _backproject_impl(proj, u_pix, v_pix, plane_chunk):
+    """``liftreg::backproject``: the lift as a new f32 tensor."""
+    out = torch.empty(_lift_shapes(proj, u_pix, v_pix), dtype=torch.float32,
+                      device=proj.device)
+    _lift_into(proj, u_pix, v_pix, plane_chunk, out)
     return out
 
 
+def _backproject_fake(proj, u_pix, v_pix, plane_chunk):
+    return proj.new_empty(_lift_shapes(proj, u_pix, v_pix),
+                          dtype=torch.float32)
+
+
+_library.define("backproject(Tensor proj, Tensor u_pix, Tensor v_pix, "
+                "int plane_chunk) -> Tensor", _backproject_impl,
+                _backproject_fake)
+
+
+def backproject_taps(proj, u_pix, v_pix, plane_chunk=16):
+    """The lift kernel on CUDA tensors, the plain version on CPU tensors
+    (``plane_chunk`` only shapes the plain version's products): the
+    operator ``liftreg::backproject``. Returns a new (B, P, D, W, H) f32
+    tensor; :func:`lift_encoder_input` writes the lift into the encoder's
+    input buffer instead."""
+    return torch.ops.liftreg.backproject(proj, u_pix, v_pix, plane_chunk)
+
+
 backproject_taps.launches = 0
+
+
+def _encoder_input_shape(moving, proj, u_pix, v_pix, dtype):
+    """(B, 1+P, D, W, H) of the encoder's input, after checking the
+    operands and the buffer's dtype."""
+    B, P, D, W, H = _lift_shapes(proj, u_pix, v_pix)
+    if tuple(moving.shape) != (B, 1, D, W, H) or dtype not in OUT_DTYPES:
+        raise ValueError(f"encoder_input: want moving {(B, 1, D, W, H)} and "
+                         f"an f32 or bf16 buffer; got {tuple(moving.shape)} "
+                         f"and {dtype}")
+    return B, 1 + P, D, W, H
+
+
+def _encoder_input_impl(moving, proj, u_pix, v_pix, plane_chunk, dtype):
+    """``liftreg::encoder_input``: a new (B, 1+P, D, W, H) buffer of
+    ``dtype``, the moving CT in channel 0 and the lift (one launch of the
+    lift kernel on CUDA) in channels 1..P."""
+    x = torch.empty(_encoder_input_shape(moving, proj, u_pix, v_pix, dtype),
+                    dtype=dtype, device=moving.device)
+    x[:, :1].copy_(moving)
+    _lift_into(proj, u_pix, v_pix, plane_chunk, x[:, 1:])
+    return x
+
+
+def _encoder_input_fake(moving, proj, u_pix, v_pix, plane_chunk, dtype):
+    return moving.new_empty(
+        _encoder_input_shape(moving, proj, u_pix, v_pix, dtype), dtype=dtype)
+
+
+_library.define("encoder_input(Tensor moving, Tensor proj, Tensor u_pix, "
+                "Tensor v_pix, int plane_chunk, ScalarType dtype) -> Tensor",
+                _encoder_input_impl, _encoder_input_fake)
+
+
+def lift_encoder_input(moving, proj, u_pix, v_pix, dtype=torch.float32,
+                       plane_chunk=16):
+    """The encoder's (B, 1+P, D, W, H) input of ``dtype`` (f32 or bf16):
+    ``moving`` (B, 1, D, W, H) in channel 0 and the lift of ``proj`` by
+    :func:`backproject_taps`' kernel (its plain version on the CPU) in
+    channels 1..P, each value rounded once to ``dtype``. The operator
+    ``liftreg::encoder_input``: it returns the buffer it fills, so an
+    exported program holds no in-place write; its lift launch counts in
+    ``backproject_taps.launches``."""
+    return torch.ops.liftreg.encoder_input(moving, proj, u_pix, v_pix,
+                                           plane_chunk, dtype)
 
 
 def project(vol, poses, resolution=None, spacing=(2.2, 2.2, 2.2),

@@ -10,8 +10,10 @@ of any length is masked (the TPU wrapper instead fell back to XLA there).
 
 :func:`pca_expand` launches the kernel for CUDA tensors and runs
 :func:`pca_expand_plain` for CPU tensors; it never falls back from one to
-the other. ``pca_expand.launches`` counts kernel launches: one per chunk
-of at most ``MAX_CHUNK`` batch rows.
+the other. It is the ``torch.library`` operator ``liftreg::pca_expand``
+(:mod:`._library`), whose CUDA implementation chunks the rows.
+``pca_expand.launches`` counts kernel launches: one per chunk of at most
+``MAX_CHUNK`` batch rows.
 
 The backward, ``dcoefs = bf16(g @ V^T)``, is the kernel's second entry
 (:func:`pca_grad`, plain version :func:`pca_grad_plain`); it rounds the f32
@@ -25,7 +27,7 @@ from __future__ import annotations
 
 import torch
 
-from . import _build
+from . import _build, _library
 
 #: the kernel keeps one accumulator row per batch row in registers, so the
 #: wrappers launch it once per chunk of at most this many batch rows (each
@@ -46,12 +48,9 @@ def pca_expand_plain(coefs, vectors, mean):
     return coefs.to(torch.bfloat16).float() @ vectors.float() + mean
 
 
-def _check(coefs, vectors, name, rows, **more):
-    """Device, dtypes and shapes of a call; returns (device, B, L, n).
-    ``more`` holds further f32 operands (the mean)."""
-    device = _build.inputs_device(
-        name, {"first operand": coefs, "vectors": vectors, **more},
-        {"first operand": _F32, "vectors": (torch.bfloat16,), "mean": _F32})
+def _shapes(coefs, vectors, name, rows):
+    """(B, L, n) of a call, after checking the operands' ranks and that
+    ``coefs.shape[1] == rows(L, n)``."""
     if coefs.dim() != 2 or vectors.dim() != 2:
         raise ValueError(f"{name}: want 2-D tensors; got "
                          f"{tuple(coefs.shape)}, {tuple(vectors.shape)}")
@@ -60,7 +59,16 @@ def _check(coefs, vectors, name, rows, **more):
     if coefs.shape[1] != rows(L, n):
         raise ValueError(f"{name}: shapes {tuple(coefs.shape)}, "
                          f"{tuple(vectors.shape)} do not agree")
-    return device, B, L, n
+    return B, L, n
+
+
+def _check(coefs, vectors, name, rows, **more):
+    """Device, dtypes and shapes of a call; returns (device, B, L, n).
+    ``more`` holds further f32 operands (the mean)."""
+    device = _build.inputs_device(
+        name, {"first operand": coefs, "vectors": vectors, **more},
+        {"first operand": _F32, "vectors": (torch.bfloat16,), "mean": _F32})
+    return (device,) + _shapes(coefs, vectors, name, rows)
 
 
 def _chunks(B):
@@ -68,13 +76,18 @@ def _chunks(B):
     return [(b0, min(b0 + MAX_CHUNK, B)) for b0 in range(0, B, MAX_CHUNK)]
 
 
-def pca_expand(coefs, vectors, mean):
-    """The kernel on CUDA tensors, the plain version on CPU tensors."""
-    device, B, L, n = _check(coefs, vectors, "pca_expand", lambda L, n: L,
-                             mean=mean)
+def _check_mean(mean, n):
     if mean.shape != (n,):
         raise ValueError(f"pca_expand: want mean ({n},); got "
                          f"{tuple(mean.shape)}")
+
+
+def _expand_impl(coefs, vectors, mean):
+    """``liftreg::pca_expand`` on the CPU (the plain version) and on CUDA
+    (the kernel, one launch per chunk of rows)."""
+    device, B, L, n = _check(coefs, vectors, "pca_expand", lambda L, n: L,
+                             mean=mean)
+    _check_mean(mean, n)
     if device.type == "cpu":
         return pca_expand_plain(coefs, vectors, mean)
     if min(B, MAX_CHUNK) * L * 4 > _MAX_SMEM:
@@ -94,6 +107,22 @@ def pca_expand(coefs, vectors, mean):
             _build.check(rc, "pca_expand")
             pca_expand.launches += 1
     return out
+
+
+def _expand_fake(coefs, vectors, mean):
+    B, L, n = _shapes(coefs, vectors, "pca_expand", lambda L, n: L)
+    _check_mean(mean, n)
+    return coefs.new_empty((B, n), dtype=torch.float32)
+
+
+_library.define("pca_expand(Tensor coefs, Tensor vectors, Tensor mean) "
+                "-> Tensor", _expand_impl, _expand_fake)
+
+
+def pca_expand(coefs, vectors, mean):
+    """The kernel on CUDA tensors, the plain version on CPU tensors: the
+    operator ``liftreg::pca_expand``."""
+    return torch.ops.liftreg.pca_expand(coefs, vectors, mean)
 
 
 pca_expand.launches = 0

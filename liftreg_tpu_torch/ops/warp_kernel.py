@@ -18,7 +18,9 @@ warp's loads reads neighbouring addresses.
 :func:`warp_trilinear` launches the kernel for CUDA tensors and runs
 :func:`warp_trilinear_plain` (the glue and the gather, as the port ran
 them before the kernel read phi) for CPU tensors; it never falls back from
-one to the other. ``warp_trilinear.launches`` counts kernel launches in
+one to the other. It is the ``torch.library`` operator
+``liftreg::warp_trilinear`` (:mod:`._library`); the gradients' entries are
+plain calls. ``warp_trilinear.launches`` counts kernel launches in
 either layout.
 
 The coordinate gradient (the TPU kernel's ``with_grad`` variant) is the
@@ -62,7 +64,7 @@ import math
 
 import torch
 
-from . import _build
+from . import _build, _library
 
 TAPS_DTYPES = (torch.bfloat16, torch.float32)
 _F32 = (torch.float32,)
@@ -243,11 +245,9 @@ def check_offsets(taps_shape, M):
                          "points exceed the kernels' 32-bit offsets")
 
 
-def warp_trilinear(taps, coords, border, normalized=False,
-                   scale_intensity=False):
-    """:func:`warp_trilinear_plain`'s function: the kernel on CUDA tensors,
-    the plain version on CPU tensors. ``scale_intensity`` needs
-    ``normalized``."""
+def _warp_impl(taps, coords, border, normalized, scale_intensity):
+    """``liftreg::warp_trilinear`` on the CPU (the plain version) and on
+    CUDA (the kernel)."""
     M = _check(taps, coords, "warp_trilinear", normalized, scale_intensity)
     if taps.device.type == "cpu":
         return warp_trilinear_plain(taps, coords, border, normalized,
@@ -271,6 +271,32 @@ def warp_trilinear(taps, coords, border, normalized=False,
     _build.check(rc, "warp_trilinear")
     warp_trilinear.launches += 1
     return out
+
+
+def _warp_fake(taps, coords, border, normalized, scale_intensity):
+    if scale_intensity and not normalized:
+        raise ValueError("warp_trilinear: scale_intensity needs normalized "
+                         "coordinates (phi)")
+    M = _points(taps, coords, normalized, "warp_trilinear")
+    out_shape = tuple(coords.shape[2:]) if normalized else (M,)
+    return taps.new_empty(tuple(taps.shape[:2]) + out_shape,
+                          dtype=torch.float32)
+
+
+_library.define("warp_trilinear(Tensor taps, Tensor coords, bool border, "
+                "bool normalized, bool scale_intensity) -> Tensor",
+                _warp_impl, _warp_fake)
+
+
+def warp_trilinear(taps, coords, border, normalized=False,
+                   scale_intensity=False):
+    """:func:`warp_trilinear_plain`'s function: the kernel on CUDA tensors,
+    the plain version on CPU tensors; the operator
+    ``liftreg::warp_trilinear``. ``scale_intensity`` needs
+    ``normalized``."""
+    return torch.ops.liftreg.warp_trilinear(taps, coords, bool(border),
+                                            bool(normalized),
+                                            bool(scale_intensity))
 
 
 warp_trilinear.launches = 0

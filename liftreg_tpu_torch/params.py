@@ -5,14 +5,22 @@ import numpy as np
 import torch
 
 
+def _np(a):
+    """A leaf as numpy: a bf16 tensor (a JAX file's bf16 array, read
+    without ``ml_dtypes``) widened to f32, which holds its values exactly."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().float().cpu().numpy()
+    return np.asarray(a)
+
+
 def _tensor(a):
-    return torch.from_numpy(np.array(a, dtype=np.float32, copy=True))
+    return torch.from_numpy(np.array(_np(a), dtype=np.float32, copy=True))
 
 
 def _conv(p):
     """A flax Conv's {kernel, bias}: (kd, kh, kw, Cin, Cout) ->
     (Cout, Cin, kd, kh, kw)."""
-    return (_tensor(np.transpose(np.asarray(p["kernel"]), (4, 3, 0, 1, 2))),
+    return (_tensor(np.transpose(_np(p["kernel"]), (4, 3, 0, 1, 2))),
             _tensor(p["bias"]))
 
 
@@ -20,7 +28,7 @@ def _kernel(k):
     """A flax Conv's or ConvTranspose's kernel (*k, Cin, Cout) ->
     (Cout, Cin, *k); the port runs ConvTranspose as flax computes it, so
     its kernel is not flipped."""
-    k = np.asarray(k)
+    k = _np(k)
     n = k.ndim - 2
     return _tensor(np.transpose(k, (n + 1, n) + tuple(range(n))))
 
@@ -36,7 +44,7 @@ def _block_state(params, stats, module, prefix, state):
         child = getattr(module, attr)
         key = f"{prefix}{attr}."
         if "kernel" in sub:
-            k = np.asarray(sub["kernel"])
+            k = _np(sub["kernel"])
             state[key + "weight"] = (_tensor(k.T) if k.ndim == 2
                                      else _kernel(k))
             if "bias" in sub:
@@ -102,7 +110,7 @@ def params_from_jax(tree, module=None):
     while f"FullyConnectBlock_{i}" in enc:
         p = enc[f"FullyConnectBlock_{i}"]["Dense_0"]
         state[f"encoder.fcs.{i}.linear.weight"] = _tensor(
-            np.asarray(p["kernel"]).T)
+            _np(p["kernel"]).T)
         state[f"encoder.fcs.{i}.linear.bias"] = _tensor(p["bias"])
         i += 1
     return state

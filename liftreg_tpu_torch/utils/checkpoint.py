@@ -8,10 +8,11 @@ names follow the JAX package's (``model_best.ckpt``,
 ``<prefix>_checkpoint.ckpt``).
 
 The JAX package writes flax ``msgpack_serialize`` files
-(``liftreg_tpu/utils/checkpoint.py``). :func:`read_msgpack` decodes the
-subset of msgpack that flax emits (maps, arrays, str, bin, ints, floats,
-nil, bools and flax's ndarray and numpy-scalar ext types) by hand: the
-card's machine has no ``msgpack`` package. :func:`from_jax_state` maps such
+(``liftreg_tpu/utils/checkpoint.py``). :func:`.msgpack_codec.read_msgpack`
+decodes the subset of msgpack that flax emits (maps, arrays, str, bin,
+ints, floats, nil, bools and flax's ndarray and numpy-scalar ext types) by
+hand, bf16 arrays without ``ml_dtypes``: the card's machine need not have
+either package. :func:`from_jax_state` maps such
 a state into the port's layout: the params through
 :func:`..params.params_from_jax`, and the Adam moments through the same
 mapping.
@@ -19,12 +20,11 @@ mapping.
 from __future__ import annotations
 
 import os
-import struct
 
-import numpy as np
 import torch
 
 from ..params import params_from_jax
+from .msgpack_codec import read_msgpack
 
 FORMAT = "liftreg_tpu_torch"
 PHASES = ("train", "val", "debug", "test")
@@ -51,96 +51,6 @@ def save_checkpoint(state: dict, is_best: bool, save_path: str, prefix: str,
     tmp = out + ".tmp"
     torch.save(payload, tmp)
     os.replace(tmp, out)
-    return out
-
-
-# -- msgpack, the subset flax emits -----------------------------------------
-
-_EXT_NDARRAY, _EXT_NPSCALAR = 1, 3
-
-
-class _Reader:
-    def __init__(self, data):
-        self.data = data
-        self.pos = 0
-
-    def take(self, n):
-        if self.pos + n > len(self.data):
-            raise ValueError("truncated msgpack data")
-        out = self.data[self.pos:self.pos + n]
-        self.pos += n
-        return out
-
-    def unpack(self, fmt):
-        return struct.unpack(fmt, self.take(struct.calcsize(fmt)))[0]
-
-    def obj(self):
-        b = self.take(1)[0]
-        if b <= 0x7f:
-            return b
-        if b >= 0xe0:
-            return b - 0x100
-        if 0x80 <= b <= 0x8f:
-            return self.map(b & 0x0f)
-        if 0x90 <= b <= 0x9f:
-            return self.array(b & 0x0f)
-        if 0xa0 <= b <= 0xbf:
-            return bytes(self.take(b & 0x1f)).decode("utf-8")
-        simple = {0xc0: None, 0xc2: False, 0xc3: True}
-        if b in simple:
-            return simple[b]
-        sized = {0xc4: (">B", "bin"), 0xc5: (">H", "bin"), 0xc6: (">I", "bin"),
-                 0xd9: (">B", "str"), 0xda: (">H", "str"), 0xdb: (">I", "str"),
-                 0xdc: (">H", "array"), 0xdd: (">I", "array"),
-                 0xde: (">H", "map"), 0xdf: (">I", "map"),
-                 0xc7: (">B", "ext"), 0xc8: (">H", "ext"), 0xc9: (">I", "ext")}
-        if b in sized:
-            fmt, kind = sized[b]
-            n = self.unpack(fmt)
-            if kind == "bin":
-                return bytes(self.take(n))
-            if kind == "str":
-                return bytes(self.take(n)).decode("utf-8")
-            if kind == "array":
-                return self.array(n)
-            if kind == "map":
-                return self.map(n)
-            return self.ext(n)
-        fixed = {0xca: ">f", 0xcb: ">d", 0xcc: ">B", 0xcd: ">H", 0xce: ">I",
-                 0xcf: ">Q", 0xd0: ">b", 0xd1: ">h", 0xd2: ">i", 0xd3: ">q"}
-        if b in fixed:
-            return self.unpack(fixed[b])
-        if 0xd4 <= b <= 0xd8:               # fixext 1, 2, 4, 8, 16
-            return self.ext(1 << (b - 0xd4))
-        raise ValueError(f"msgpack type byte 0x{b:02x} is not supported")
-
-    def array(self, n):
-        return [self.obj() for _ in range(n)]
-
-    def map(self, n):
-        out = {}
-        for _ in range(n):
-            k = self.obj()
-            out[k] = self.obj()
-        return out
-
-    def ext(self, n):
-        code = self.unpack(">b")
-        data = self.take(n)
-        if code not in (_EXT_NDARRAY, _EXT_NPSCALAR):
-            raise ValueError(f"msgpack ext type {code} is not supported")
-        shape, dtype, buf = _Reader(data).obj()
-        arr = np.frombuffer(buf, dtype=np.dtype(dtype)).reshape(shape).copy()
-        return arr[()] if code == _EXT_NPSCALAR else arr
-
-
-def read_msgpack(data: bytes):
-    """Decode one msgpack object (flax ``msgpack_serialize`` output) into
-    dicts, lists, numpy arrays and Python scalars."""
-    reader = _Reader(memoryview(data))
-    out = reader.obj()
-    if reader.pos != len(data):
-        raise ValueError("trailing bytes after the msgpack object")
     return out
 
 

@@ -39,6 +39,7 @@ from liftreg_tpu_torch.ops import drr
 from liftreg_tpu_torch.losses.similarity import lncc_loss
 from liftreg_tpu_torch.ops.drr_kernel import (backproject_taps,
                                               backproject_taps_plain,
+                                              lift_encoder_input,
                                               project_adjoint_plan,
                                               project_adjoint_plan_plain,
                                               project_adjoint_taps,
@@ -207,13 +208,14 @@ def test_drr_backproject_kernel_matches_plain(device, geometry, views, B,
     torch.testing.assert_close(got, backproject_taps_plain(proj, u_pix, v_pix),
                                rtol=1e-5, atol=1e-6)
     # into a bf16 encoder buffer: the f32 values rounded once, bit for bit
-    buf = torch.full((B, 1 + views) + tuple(vol_shape), 3.0,
-                     dtype=torch.bfloat16, device=device)
-    backproject_taps(proj, u_pix, v_pix, out=buf[:, 1:])
+    moving = torch.rand((B, 1) + tuple(vol_shape), generator=g,
+                        device=device)
+    buf = lift_encoder_input(moving, proj, u_pix, v_pix,
+                             dtype=torch.bfloat16)
     torch.cuda.synchronize()
     assert backproject_taps.launches == before + 2
     assert torch.equal(buf[:, 1:], got.bfloat16())
-    assert bool((buf[:, 0] == 3.0).all())
+    assert torch.equal(buf[:, :1], moving.bfloat16())
 
 
 def _sorted_pix(g, shape, n, device, integer=False):
@@ -592,6 +594,50 @@ def test_model_alone_keeps_f32_with_tf32_on(device):
                                atol=1e-5, rtol=0)
     torch.testing.assert_close(outs["cuda"]["warped"], outs["cpu"]["warped"],
                                atol=1e-4, rtol=0)
+
+
+def test_f32_artifact_keeps_f32_with_tf32_on(device, tmp_path):
+    """A serving artifact of the f32 pipeline, exported and served on the
+    card while the caller has TF32 on for convolutions and products: the
+    served call equals the live pipeline on the card bit for bit and agrees
+    with the CPU at the pipeline's f32 tolerance (phi atol 1e-5, warped
+    atol 1e-4; TF32 convolutions would be off by ~1e-3); the caller's flags
+    are the same after the call. The exported graph does not keep
+    ``f32_precision``: ``ServingModel`` runs every call under it."""
+    from liftreg_tpu_torch import RegistrationPipeline
+    from liftreg_tpu_torch.serving import ServingModel, export_serving
+    sz, L, B = (32, 32, 32), 8, 2
+    g = torch.Generator().manual_seed(12)
+    pca = {"vectors": torch.randn((L, 3 * 32 ** 3), generator=g) * 0.01,
+           "mean": torch.randn((3 * 32 ** 3,), generator=g) * 0.01}
+    args = [torch.rand((B, 1) + sz, generator=g) * -1000.0 for _ in "st"]
+    args += [(torch.rand((B, 1) + sz, generator=g) > 0.4).float()] * 2
+    torch.manual_seed(12)
+    pipes = {w: RegistrationPipeline(sz, latent_dim=L, device=w)
+             for w in ("cpu", "cuda")}
+    pipes["cuda"].model.load_state_dict(pipes["cpu"].model.state_dict())
+    card_pca = {k: v.to(device) for k, v in pca.items()}
+    path = export_serving(pipes["cuda"], card_pca, B,
+                          str(tmp_path / "f32.liftreg"))
+    srv = ServingModel.load(path)
+    saved = _tf32_flags()
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        caller = _tf32_flags()
+        card_args = [a.to(device) for a in args]
+        served = srv.register(*card_args)
+        live = pipes["cuda"].register(card_pca, *card_args)
+        torch.cuda.synchronize()
+        assert _tf32_flags() == caller
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved[0]
+        torch.backends.cudnn.allow_tf32 = saved[1]
+    cpu = pipes["cpu"].register(pca, *args)
+    for a, b in zip(served, live):
+        assert torch.equal(a, b)
+    torch.testing.assert_close(served[1].cpu(), cpu[1], atol=1e-5, rtol=0)
+    torch.testing.assert_close(served[0].cpu(), cpu[0], atol=1e-4, rtol=0)
 
 
 def test_train_step_on_card_matches_cpu(device, tmp_path):

@@ -20,6 +20,7 @@ from liftreg_tpu.ops.pallas_drr import (backproject_with_mats_pallas,
 from liftreg_tpu_torch.ops import drr
 from liftreg_tpu_torch.ops.drr_kernel import (backproject_taps,
                                               backproject_taps_plain,
+                                              lift_encoder_input,
                                               project_taps,
                                               project_taps_plain)
 
@@ -128,31 +129,35 @@ def test_wrappers_check_shapes():
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_lift_into_buffer_is_plain_rounded_once(dtype):
-    """backproject_taps(out=buf[:, 1:]) writes the plain lift, rounded once
-    to the buffer's dtype, and leaves channel 0 alone (exact equality)."""
+    """lift_encoder_input writes the plain lift into channels 1..P, rounded
+    once to the buffer's dtype, and the moving CT into channel 0 (exact
+    equality)."""
     rng = np.random.default_rng(11)
     vol_shape, det, P = (12, 10, 14), (18, 16), 3
     proj = torch.from_numpy(rng.uniform(-1, 1, (2, P) + det)
                             .astype(np.float32))
+    moving = torch.from_numpy(rng.uniform(-1, 1, (2, 1) + vol_shape)
+                              .astype(np.float32))
     poses = torch.from_numpy(drr.synthesize_poses(30.0, P, vol_shape[1]))
     geometry = drr.backward_geometry(poses, vol_shape, det)
-    buf = torch.full((2, 1 + P) + vol_shape, 7.0, dtype=dtype)
-    got = backproject_taps(proj, *geometry, out=buf[:, 1:])
-    assert got.data_ptr() == buf[:, 1:].data_ptr()
+    buf = lift_encoder_input(moving, proj, *geometry, dtype=dtype)
+    assert buf.dtype == dtype and buf.shape == (2, 1 + P) + vol_shape
     want = backproject_taps_plain(proj, *geometry).to(dtype)
     assert torch.equal(buf[:, 1:], want)
-    assert bool((buf[:, 0] == 7.0).all())
+    assert torch.equal(buf[:, :1], moving.to(dtype))
 
 
 def test_lift_rejects_bad_buffers():
+    """lift_encoder_input refuses a buffer of another dtype and a moving CT
+    whose shape does not match the lift's."""
     proj = torch.zeros((2, 3, 8, 8))
     poses = torch.from_numpy(drr.synthesize_poses(30.0, 3, 6))
     geometry = drr.backward_geometry(poses, (5, 6, 7), (8, 8))
-    for out in (torch.zeros((2, 3, 5, 6, 7), dtype=torch.float16),
-                torch.zeros((2, 3, 5, 6, 8))[..., :7],
-                torch.zeros((2, 4, 5, 6, 7))):
+    for moving, dtype in ((torch.zeros((2, 1, 5, 6, 7)), torch.float16),
+                          (torch.zeros((2, 1, 5, 6, 8)), torch.float32),
+                          (torch.zeros((2, 2, 5, 6, 7)), torch.bfloat16)):
         with pytest.raises(ValueError):
-            backproject_taps(proj, *geometry, out=out)
+            lift_encoder_input(moving, proj, *geometry, dtype=dtype)
 
 
 @pytest.mark.parametrize("compute_dtype", [None, torch.bfloat16])

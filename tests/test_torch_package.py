@@ -1,5 +1,6 @@
-"""Package rules of liftreg_tpu_torch: no JAX, no liftreg_tpu, CUDA by
-default with no silent CPU fallback."""
+"""Package rules of liftreg_tpu_torch: no JAX, no liftreg_tpu, no
+``msgpack`` or ``ml_dtypes`` (the card's machine need not have them), CUDA
+by default with no silent CPU fallback."""
 import re
 from pathlib import Path
 
@@ -12,15 +13,15 @@ from liftreg_tpu_torch.ops import _build
 from liftreg_tpu_torch.pca import load_pca
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|flax|liftreg_tpu)\b",
-                       re.MULTILINE)
+FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|flax|liftreg_tpu|ml_dtypes|"
+                       r"msgpack)\b", re.MULTILINE)
 
 
 def test_no_jax_or_reference_imports():
     files = sorted((ROOT / "liftreg_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     tools = sorted((ROOT / "tools").glob("torch_*.py"))
-    assert len(tools) >= 11
+    assert len(tools) >= 17
     files += tools
     assert len(files) > 10
     bad = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"

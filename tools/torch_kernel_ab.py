@@ -39,7 +39,20 @@ after 1 warm-up on the host clock, their median; then one more step under
 the same for LiftReg (``subspace_backproj``) and ``LiftRegSubspace`` at the
 reference config (``configs/cur_task_setting.json``: 160^3, B = 30, 4 views
 on 240^2, latent 56, f32, NCC with the subspace loss), each of 3 steps
-after 1 warm-up, their median.
+after 1 warm-up, their median. ``optreg_step_96`` is one level of
+per-pair registration at 96^3 (B = 2, a 20^3 grid, 60 steps, bf16 taps,
+smooth seeded volumes), where the tree has it: ms a step of each of 3
+calls after 1 warm-up, their median (the step is host-bound there: it
+shows a change in the host's cost per launch); ``host_us_a_call`` the host
+microseconds a call of each forward wrapper (projector, lift, PCA
+expansion, warp) at 8^3, 2000 calls after 100 warm-ups.
+
+    python3 tools/torch_kernel_ab.py --optreg-op-turns [CALLS]
+
+times the 96^3 optreg step of this checkout alone, its warp through the
+``liftreg::`` operator and through the operator's implementation called
+directly, in turns, CALLS calls each (default 40;
+:func:`optreg_op_turns`).
 Needs a CUDA card and nvcc; imports nothing of JAX.
 """
 import importlib.util
@@ -231,6 +244,13 @@ def _time_tree(root):
         RegNet2D3D = None
     if RegNet2D3D is not None:
         out.update(_regnet_step(torch, cs, drr, RegNet2D3D, dev))
+    try:
+        from liftreg_tpu_torch import optreg  # noqa: F401
+    except ImportError:
+        optreg = None
+    if optreg is not None:
+        out.update(_optreg_step(torch, cs, dev))
+    out.update(_host_us(torch, cs, dev))
     from liftreg_tpu_torch.models import get_model
     for key, name in (("train_step", "subspace_backproj"),
                       ("subspace_step", "subspace")):
@@ -377,9 +397,126 @@ def _subspace_step(torch, cs, drr, model_cls, key, dev):
     return {f"{key}_calls": steps, key: median, f"{key}_peak_gib": peak}
 
 
+def _optreg_level(torch, cs, dev, sz=96, level=(20, 60, 0.02), batch=2):
+    """One pyramid level of per-pair registration (``optreg.make_level``,
+    as ``tools/torch_profile_optreg.py`` profiles it) at ``sz``^3, B = 2,
+    bf16 taps, on smooth seeded volumes: a function of no arguments that
+    runs it, and its n + 1 gradient evaluations (steps)."""
+    import torch.nn.functional as F
+    from liftreg_tpu_torch import optreg
+    grid, steps, lr = level
+    g = torch.Generator(device=dev).manual_seed(9)
+    moving = cs._smooth_field(torch, F, g, (batch, 1) + (sz,) * 3, 6, dev)
+    target = torch.roll(moving, shifts=(1, -2, 1), dims=(2, 3, 4))
+    fn = optreg.make_level((sz,) * 3, grid, n_steps=steps, lr=lr,
+                           warp_taps_dtype=torch.bfloat16)
+    z0 = torch.zeros((batch, 3) + (grid,) * 3, device=dev)
+    return lambda: fn(z0, moving, target), steps + 1
+
+
+def _optreg_step(torch, cs, dev, sz=96):
+    """:func:`_optreg_level`'s ms a step of each of 10 calls after 1
+    warm-up, their median."""
+    run, steps = _optreg_level(torch, cs, dev, sz)
+    calls, median, _ = _median_step(torch, run, 10)
+    key = f"optreg_step_{sz}"
+    return {f"{key}_calls": [c / steps for c in calls], key: median / steps}
+
+
+def optreg_op_turns(calls=40):
+    """The 96^3 optreg step (:func:`_optreg_level`) with the warp's forward
+    called through the ``liftreg::warp_trilinear`` operator and through
+    the operator's implementation directly, in one process, in turns (op,
+    direct, direct, op, ...; 1 warm-up each): ms a step of each call, the
+    medians and the means, and the means' difference with its standard
+    error. The step is host-bound, so this is the operator's
+    registration's cost to it."""
+    sys.path.insert(0, str(ROOT))
+    import torch
+    from liftreg_tpu_torch.ops import warp_kernel
+    cs = chip_smoke_module()
+    run, steps = _optreg_level(torch, cs, torch.device("cuda"))
+    op = warp_kernel.warp_trilinear
+
+    def direct(taps, coords, border, normalized=False,
+               scale_intensity=False):
+        return warp_kernel._warp_impl(taps, coords, bool(border),
+                                      bool(normalized), bool(scale_intensity))
+
+    direct.launches = 0
+    times = {"op": [], "direct": []}
+    try:
+        for i in range(-2, 2 * calls):
+            name = "op" if i % 4 in (0, 3) else "direct"
+            warp_kernel.warp_trilinear = op if name == "op" else direct
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            if i >= 0:
+                times[name].append((time.perf_counter() - t0) * 1e3 / steps)
+    finally:
+        warp_kernel.warp_trilinear = op
+    if direct.launches == 0 or op.launches == 0:
+        raise RuntimeError("optreg_op_turns: a path launched no warp")
+    med = {k: sorted(v)[calls // 2] for k, v in times.items()}
+    mean = {k: sum(v) / calls for k, v in times.items()}
+    var = {k: sum((t - mean[k]) ** 2 for t in v) / (calls - 1)
+           for k, v in times.items()}
+    print(json.dumps({"optreg_step_96_turns": times, "calls": calls,
+                      "median_op": med["op"], "median_direct": med["direct"],
+                      "mean_op": mean["op"], "mean_direct": mean["direct"],
+                      "op_minus_direct_ms": mean["op"] - mean["direct"],
+                      "se_ms": ((var["op"] + var["direct"]) / calls) ** 0.5,
+                      "op_over_direct": mean["op"] / mean["direct"] - 1.0}),
+          flush=True)
+
+
+def _host_us(torch, cs, dev, calls=2000):
+    """Host microseconds a call of each forward wrapper on a tiny input
+    (8^3, B = 1: the launch is all there is), ``calls`` calls after 100
+    warm-ups and one synchronize at the end: the cost of the call path
+    (the wrapper, and where the tree registers them, the dispatcher's hop
+    into the operator's Python implementation)."""
+    from liftreg_tpu_torch.ops import drr
+    from liftreg_tpu_torch.ops.drr_kernel import backproject_taps, project_taps
+    from liftreg_tpu_torch.ops.pca_kernel import pca_expand
+    from liftreg_tpu_torch.ops.warp_kernel import warp_trilinear
+    g = torch.Generator(device=dev).manual_seed(3)
+    sz = (8, 8, 8)
+    poses = torch.from_numpy(drr.synthesize_poses(30.0, 2, 8)).to(dev)
+    fwd = drr.forward_geometry(poses, sz, (12, 12), (2.2, 2.2, 2.2))
+    bwd = drr.backward_geometry(poses, sz, (12, 12))
+    vol = torch.rand((1,) + sz, generator=g, device=dev)
+    proj = torch.rand((1, 2, 12, 12), generator=g, device=dev)
+    taps = torch.rand((1, 1) + sz, generator=g, device=dev).bfloat16()
+    phi = torch.rand((1, 3) + sz, generator=g, device=dev) * 2.0 - 1.0
+    coefs = torch.rand((1, 8), generator=g, device=dev)
+    V = torch.rand((8, 3 * 512), generator=g, device=dev).bfloat16()
+    mean = torch.rand((3 * 512,), generator=g, device=dev)
+    fns = {"drr_project": lambda: project_taps(vol, *fwd),
+           "drr_backproject": lambda: backproject_taps(proj, *bwd),
+           "pca_expand": lambda: pca_expand(coefs, V, mean),
+           "warp_trilinear": lambda: warp_trilinear(
+               taps, phi, False, normalized=True, scale_intensity=True)}
+    out = {}
+    for name, fn in fns.items():
+        for _ in range(100):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        out[name] = (time.perf_counter() - t0) * 1e6 / calls
+    return {"host_us_a_call": out}
+
+
 def main(argv):
     if len(argv) == 3 and argv[1] == "--one":
         _time_tree(os.path.abspath(argv[2]))
+        return 0
+    if len(argv) in (2, 3) and argv[1] == "--optreg-op-turns":
+        optreg_op_turns(*map(int, argv[2:]))
         return 0
     if len(argv) < 2:
         print(__doc__, file=sys.stderr)
