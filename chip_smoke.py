@@ -156,7 +156,8 @@ line with its elapsed seconds:
    image gradient, its plain version and grid_sampler_3d_backward's input
    gradient at C = 3, 160^3, B = 1 (and the kernel and the library call
    on the identity and on a 0.9-voxel field, as RegNet2D3D's inverse
-   iteration warps); the RegNet2D3D and LiftRegSubspace
+   iteration warps; the kernel and its plain version with bf16 taps, beside
+   their bound); the RegNet2D3D and LiftRegSubspace
    step times and peaks (measured in their phases);
    image_grad_overflow: the share of the image gradient's points that
    took its overflow path, at the timed shape and fields and at
@@ -184,12 +185,36 @@ line with its elapsed seconds:
    learned_basis_eval runs it in test mode and prints the test case's
    learned and identity TRE; learned_basis_codec says whether the native
    codec or the numpy/zlib path ran and round-trips a case through
-   compress_in_memory;
+   compress_in_memory; optreg_oracle runs tools/torch_optreg_oracle.py on
+   the 4 train pairs (default levels, B = 1, bf16 taps: 206 warps and 203
+   coordinate gradients a pair, each pair's counts zeroed just before and
+   read just after; finite errors, no pair's similarity worse at the end)
+   and optreg_objective_ab tools/torch_optreg_objective_ab.py on them
+   (NCC and LNCC, unmasked and lung-masked, each one call at B = 4: 164
+   and 162 a variant; the masked variants read the 8 segmentation files,
+   just before the first of them), with each pair's and variant's errors
+   and seconds;
 13. optreg_reference: one DenseRegisterer call at 32^3 (B = 2, two levels
    of 5 steps, bf16 taps) on the card against the CPU (the best grid, phi,
    disp, the warped volume and both histories), and with the card's
    coordinate gradient negated along one axis, which the histories must
-   catch.
+   catch;
+14. dirlab_chain: two synthetic raw int16 cases at DIR-Lab's tabulated
+   COPD shapes and spacings (copd1 121 x 512 x 512, copd2 102 x 512 x 512)
+   in DIR-Lab's folder layout, 300 landmark pairs each (1-indexed xyz of
+   the raw grid, eBH = iBH + a seeded offset) and an expectations file
+   with their closed-form initial distances, through
+   tools/torch_dirlab_parity.py --raw --identity --enforce_landmark_count
+   --epochs 2 as a subprocess (160^3, latent 56, 4 views, B = 2):
+   PARITY OK, one CSV row a case with a finite TRE and a Dice in [0, 1],
+   each stage's launches exact (the chain's summary line: the projector 10
+   times, a train step lift + warp + coordinate gradient, a validation or
+   test batch lift + warp, nothing else), each stage's seconds, the host's
+   peak RSS and the bytes written;
+15. dirlab_parity: the harness in process on the chain's output, against
+   an experiment TRE 1 mm off (tol 0.5 mm) and an initial distance 1 mm
+   off: each must exit 1 with that case's FAIL row; the chain's files are
+   removed at the end.
 
 Then the nvidia-smi line, one JSON line of per-kernel numbers for the
 nine kernels (``launches``: for the image gradient one RegNet2D3D step's,
@@ -199,7 +224,11 @@ main_path's, ``image_refine_launches`` from refine's,
 ``train_launches``, ``train_bf16_launches``, ``regnet_launches`` and
 ``subspace_launches`` from one train step of each; ``optreg_call_launches``
 from one DenseRegisterer call of learned_basis and
-``optreg_step_launches`` from one of its level steps), and last
+``optreg_step_launches`` from one of its level steps;
+``oracle_pair_launches`` and ``objective_ab_variant_launches`` from one
+pair of optreg_oracle and one variant of optreg_objective_ab,
+``dirlab_launches`` from the whole of dirlab_chain; the image gradient's
+``bf16_taps_*`` times), and last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero; so does a
 missing card, and a watchdog after 15 minutes.
 """
@@ -389,6 +418,32 @@ OPTREG_REF_SZ = 32
 OPTREG_REF_LEVELS = ((5, 5, 0.04), (10, 5, 0.02))
 OPTREG_REF_TOL = {"z": 1e-4, "phi": 1e-4, "disp": 1e-4, "warped": 1e-3,
                   "total_history": 1e-6, "sim_history": 1e-6}
+# optreg_oracle / optreg_objective_ab: tools/torch_optreg_oracle.py on the
+# 4 train pairs of learned_basis's dataset (DenseRegisterer's default
+# levels, B = 1, bf16 taps) and tools/torch_optreg_objective_ab.py on the
+# same 4 pairs at its default levels (four variants, each one call at
+# B = 4); each DenseRegisterer call's counts zeroed just before it and read
+# just after, and exact
+OBJECTIVE_AB_LEVELS = "10:80:0.04,20:80:0.02"
+OBJECTIVE_AB_VARIANTS = ("ncc", "lncc", "ncc_masked", "lncc_masked")
+
+# dirlab_chain: two synthetic raw int16 cases at DIR-Lab's tabulated COPD
+# shapes and spacings (copd1 121 x 512 x 512, copd2 102 x 512 x 512), in
+# DIR-Lab's folder layout, each with 300 landmark pairs (1-indexed integer
+# xyz in the raw voxel grid, inside the lungs; eBH = iBH + a seeded integer
+# offset), through tools/torch_dirlab_parity.py --raw as a user runs it:
+# preprocessing, DRRs, a placeholder basis, 2 epochs of training, test mode
+# and TRE at its defaults (160^3, latent 56, 4 views, B = 2). The identity
+# map's TRE must equal the closed-form initial distance within
+# DIRLAB_INITIAL_TOL mm (f32 landmark coordinates of ~350 mm carry ~3e-5 mm
+# a coordinate). dirlab_parity: the experiment against a TRE 1 mm off
+# (tol 0.5 mm) and the identity against a distance 1 mm off must fail
+DIRLAB_CASES = ("copd1", "copd2")
+DIRLAB_LANDMARKS = 300
+DIRLAB_EPOCHS = 2
+DIRLAB_INITIAL_TOL = 0.01
+DIRLAB_SEED = 5
+
 # image_grad_bf16_check: the image gradient of bf16 taps (the f32 kernel's
 # sums, cast to bf16 once) against its plain version, within the f32
 # tolerance and one bf16 step (2^-7 of the value)
@@ -1019,7 +1074,7 @@ def image_grad_bf16_check(torch, F, warp_kernel, device):
     return excess
 
 
-def start_learned_dataset(root, sz=SZ):
+def start_learned_dataset(root):
     """Start tools/torch_make_synthetic_dataset.py writing learned_basis's
     dataset under ``root`` in a process of its own, on the CPU (its
     phantoms are host work: ~105 s at 160^3 beside the card, ~215 s on the
@@ -1027,11 +1082,11 @@ def start_learned_dataset(root, sz=SZ):
     threads; returns the process."""
     n_train, n_val, n_test = LEARNED_SPLITS
     cmd = [sys.executable, "tools/torch_make_synthetic_dataset.py", "-o",
-           root, "--size", str(sz), "--n_train", str(n_train), "--n_val",
+           root, "--size", str(SZ), "--n_train", str(n_train), "--n_val",
            str(n_val), "--n_test", str(n_test), "--n_proj", "4", "--latent",
            str(LEARNED_RANK), "--seed", str(LEARNED_SEED),
            "--deformation_rank", str(LEARNED_RANK), "--texture",
-           "anatomical", "--deformation_smooth", str(sz // 4),
+           "anatomical", "--deformation_smooth", str(SZ // 4),
            "--deformation_magnitude", str(LEARNED_MAGNITUDE), "--device",
            "cpu"]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
@@ -1042,14 +1097,12 @@ def start_learned_dataset(root, sz=SZ):
     return proc
 
 
-def learned_basis(torch, kernels, root, dataset_proc, profile_call=None,
-                  sz=SZ, device="cuda"):
+def learned_basis(torch, kernels, root, dataset_proc, profile_call=None):
     """The learned-basis workflow on the card at 160^3 (see the constants
     above), as its tools run it, on the dataset that ``dataset_proc``
     (:func:`start_learned_dataset`) writes. Emits one line per step;
     returns the launches of one DenseRegisterer call and of one of its
-    level steps, and the TRE. ``sz`` and ``device`` rehearse it small on
-    the CPU."""
+    level steps, and the TRE."""
     import numpy as np
 
     from liftreg_tpu_torch import native, optreg
@@ -1065,28 +1118,26 @@ def learned_basis(torch, kernels, root, dataset_proc, profile_call=None,
     _begin("learned_basis_dataset")
     n_train, n_val, n_test = LEARNED_SPLITS
     out, _ = dataset_proc.communicate(timeout=600)
-    _emit(size=sz, splits=LEARNED_SPLITS, rank=LEARNED_RANK,
-          magnitude=LEARNED_MAGNITUDE, smooth=sz // 4,
+    _emit(size=SZ, splits=LEARNED_SPLITS, rank=LEARNED_RANK,
+          magnitude=LEARNED_MAGNITUDE, smooth=SZ // 4,
           seconds_since_start=time.perf_counter() - dataset_proc.started,
           returncode=dataset_proc.returncode, output_tail=out[-400:])
     _require(dataset_proc.returncode == 0,
              f"the dataset tool exited {dataset_proc.returncode}")
 
     _begin("learned_basis_optreg")
-    reg = optreg.DenseRegisterer((sz,) * 3)
+    reg = optreg.DenseRegisterer((SZ,) * 3)
     warps, grads = reg.launches()
     n_calls = -(-n_train // OPTREG_B)
     calls = []
     _zero(kernels)
     t0 = time.perf_counter()
     fields = disp_from_optreg(root, batch=OPTREG_B, verbose=False,
-                              record=calls, device=device)
+                              record=calls, device="cuda")
     seconds = time.perf_counter() - t0
     got = _counts(kernels)
-    want = {k: 0 for k in kernels}
-    if device == "cuda":
-        want.update(warp_trilinear=n_calls * warps,
-                    warp_coord_grad=n_calls * grads)
+    want = dict({k: 0 for k in kernels}, warp_trilinear=n_calls * warps,
+                warp_coord_grad=n_calls * grads)
     steps = sum(n + 1 for _, n, _ in reg.levels)
     call_launches = {k: v // n_calls for k, v in got.items()}
     # a level step: one gradient evaluation (its warp and coordinate
@@ -1113,10 +1164,10 @@ def learned_basis(torch, kernels, root, dataset_proc, profile_call=None,
     if profile_call is not None:
         _begin("profile_optreg_level")
         g_lvl, n_lvl, lr_lvl = OPTREG_PROFILE_LEVEL
-        level = optreg.make_level((sz,) * 3, g_lvl, n_steps=n_lvl,
+        level = optreg.make_level((SZ,) * 3, g_lvl, n_steps=n_lvl,
                                   lr=lr_lvl, warp_taps_dtype=torch.bfloat16)
-        moving, target = (t.to(device) for t in pairs(root, OPTREG_B))
-        z0 = torch.zeros((OPTREG_B, 3) + (g_lvl,) * 3, device=device)
+        moving, target = (t.to("cuda") for t in pairs(root, OPTREG_B))
+        z0 = torch.zeros((OPTREG_B, 3) + (g_lvl,) * 3, device="cuda")
         level(z0, moving, target)                       # warm-up
         profile_call(lambda: level(z0, moving, target), steps=n_lvl + 1,
                      level=OPTREG_PROFILE_LEVEL, batch=OPTREG_B)
@@ -1139,12 +1190,12 @@ def learned_basis(torch, kernels, root, dataset_proc, profile_call=None,
     _begin("learned_basis_train")
     exp = os.path.join(root, "exp_subspace")
     # "epoch" is the last epoch's index: one epoch of n_train / 2 steps
-    setting = default_task_setting(root, exp, sz, overrides={"train": {
+    setting = default_task_setting(root, exp, SZ, overrides={"train": {
         "epoch": 0, "save_fig": False,
         "model": {"latent_dim": n_train, "pca_path": pca_dir,
                   "pca_dtype": "bfloat16", "warp_taps_dtype": "bfloat16"}}})
     t0 = time.perf_counter()
-    RegistrationTrainer(setting, device=device).run()
+    RegistrationTrainer(setting, device="cuda").run()
     train_s = time.perf_counter() - t0
     losses = read_metrics(exp).get("Train/total_loss", {})
     ckpt = os.path.join(exp, "checkpoints", "model_best.ckpt")
@@ -1158,10 +1209,10 @@ def learned_basis(torch, kernels, root, dataset_proc, profile_call=None,
 
     _begin("learned_basis_eval")
     setting["train"].update(mode="test", test_from=ckpt, save_3d_img=True)
-    RegistrationTrainer(setting, device=device).run()
-    results = eval_copd_highres(root, exp, dim=(sz,) * 3, device=device)
+    RegistrationTrainer(setting, device="cuda").run()
+    results = eval_copd_highres(root, exp, dim=(SZ,) * 3, device="cuda")
     learned = float(np.mean([r["dist"] for r in results]))
-    identity = identity_tre(root, root, sz, device)
+    identity = identity_tre(root, root, SZ, "cuda")
     _emit(tre_learned_mm=learned, tre_identity_mm=identity,
           cases=[r["id"] for r in results])
     _require(len(results) == n_test and math.isfinite(learned)
@@ -1183,8 +1234,11 @@ def learned_basis(torch, kernels, root, dataset_proc, profile_call=None,
           library=os.path.relpath(native.library_path()),
           round_trip_equal=same, raw_bytes=raw, packed_bytes=stored)
     _require(same, "compress_in_memory changed a sample")
+    tools = optreg_tools(torch, kernels, root)
     return {"call": call_launches, "step": step_launches,
-            "tre_learned_mm": learned, "tre_identity_mm": identity}
+            "tre_learned_mm": learned, "tre_identity_mm": identity,
+            "oracle_pair": tools["oracle_pair"],
+            "ab_variant": tools["ab_variant"]}
 
 
 def serving_phase(torch, kernels, pipe, pca, args, proj, refined, root,
@@ -1503,6 +1557,317 @@ def optreg_reference(torch, F, warp_kernel, card="cuda"):
     return errs
 
 
+@contextlib.contextmanager
+def counted_optreg_calls(torch, kernels, calls):
+    """Within the block, each DenseRegisterer call zeroes the kernels'
+    counts just before it and reads them just after: ``calls`` receives
+    one dict per call (its launches, seconds and batch)."""
+    from liftreg_tpu_torch import optreg
+    call = optreg.DenseRegisterer.__call__
+
+    def counted(self, moving, target):
+        torch.cuda.synchronize()
+        _zero(kernels)
+        t0 = time.perf_counter()
+        out = call(self, moving, target)
+        torch.cuda.synchronize()
+        calls.append({"launches": _counts(kernels),
+                      "seconds": time.perf_counter() - t0,
+                      "batch": int(moving.shape[0])})
+        return out
+
+    optreg.DenseRegisterer.__call__ = counted
+    try:
+        yield
+    finally:
+        optreg.DenseRegisterer.__call__ = call
+
+
+def optreg_tools(torch, kernels, root):
+    """The per-pair oracle and the objective A/B on learned_basis's
+    dataset, as their tools run; returns the launches of one oracle pair
+    and of one A/B variant."""
+    import numpy as np
+
+    from liftreg_tpu_torch import optreg
+    from tools import torch_optreg_objective_ab, torch_optreg_oracle
+    from tools.torch_build_pca import parse_levels
+
+    n_train = LEARNED_SPLITS[0]
+    zero = {k: 0 for k in kernels}
+
+    _begin("optreg_oracle")
+    warps, grads = optreg.DenseRegisterer((SZ,) * 3).launches()
+    want = dict(zero, warp_trilinear=warps, warp_coord_grad=grads)
+    calls, record = [], []
+    oracle_calls = calls
+    with counted_optreg_calls(torch, kernels, calls):
+        mean = torch_optreg_oracle.main(
+            ["--data", root, "--phase", "train", "--n", str(n_train)],
+            record=record)
+    pairs = [{"id": r["id"], "rel_err": r["rel_err"], "gt_mm": r["gt_mm"],
+              "pred_mm": r["pred_mm"], "err_mm": r["err_mm"],
+              "sim_first_last": [float(r["sim_history"][0]),
+                                 float(r["sim_history"][-1])],
+              "seconds": c["seconds"], "launches": c["launches"]}
+             for r, c in zip(record, calls)]
+    _emit(pairs=pairs, mean_rel_err=mean, expected_launches=want,
+          seconds_per_pair=[c["seconds"] for c in calls],
+          batch=[c["batch"] for c in calls])
+    _require(len(calls) == len(record) == n_train
+             and all(c["batch"] == 1 for c in calls),
+             f"{len(calls)} oracle calls for {n_train} pairs")
+    _require(all(c["launches"] == want for c in calls),
+             f"oracle launches {[c['launches'] for c in calls]}, "
+             f"expected {want} a pair")
+    _require(all(math.isfinite(p["rel_err"]) for p in pairs)
+             and math.isfinite(mean), f"oracle errors {pairs}")
+    _require(all(last <= first for first, last in
+                 (p["sim_first_last"] for p in pairs)),
+             f"an oracle pair ended worse than it started: {pairs}")
+
+    _begin("optreg_objective_ab")
+    ab_levels = parse_levels(OBJECTIVE_AB_LEVELS)
+    warps, grads = optreg.DenseRegisterer((SZ,) * 3,
+                                          levels=ab_levels).launches()
+    want_ab = dict(zero, warp_trilinear=warps, warp_coord_grad=grads)
+    calls = []
+    with counted_optreg_calls(torch, kernels, calls):
+        results = torch_optreg_objective_ab.main(
+            ["--data", root, "--n", str(n_train), "--levels",
+             OBJECTIVE_AB_LEVELS])
+    # a masked variant that did not apply its lung masks would register
+    # the unmasked volumes and repeat its unmasked variant's errors
+    masks_applied = {v: bool((results[v] != results[v[:-len("_masked")]])
+                             .all())
+                     for v in results if v.endswith("_masked")}
+    variants = {v: {"rel_err_per_pair": [float(x) for x in results[v]],
+                    "mean": float(results[v].mean()),
+                    "seconds": c["seconds"], "launches": c["launches"]}
+                for v, c in zip(results, calls)}
+    _emit(variants=variants, levels=OBJECTIVE_AB_LEVELS,
+          batch=[c["batch"] for c in calls], expected_launches=want_ab,
+          best=min(results, key=lambda k: results[k].mean()),
+          masks_applied=masks_applied)
+    _require(tuple(results) == OBJECTIVE_AB_VARIANTS
+             and len(calls) == len(OBJECTIVE_AB_VARIANTS)
+             and all(c["batch"] == n_train for c in calls),
+             f"A/B variants {list(results)} in calls "
+             f"{[c['batch'] for c in calls]}")
+    _require(all(c["launches"] == want_ab for c in calls),
+             f"A/B launches {[c['launches'] for c in calls]}, expected "
+             f"{want_ab} a variant")
+    _require(all(bool(np.isfinite(r).all()) for r in results.values()),
+             f"A/B errors {variants}")
+    _require(len(masks_applied) == 2 and all(masks_applied.values()),
+             f"a masked variant repeats its unmasked errors: {variants}")
+    return {"oracle_pair": oracle_calls[0]["launches"],
+            "ab_variant": calls[0]["launches"]}
+
+
+def write_raw_dirlab_case(raw, case, shape, seed):
+    """One raw DIR-Lab case, ``{raw}/{case}/{case}/{case}_{iBH,eBH}CT.img``
+    (<i2, z-major), as tests/test_preprocessing_cli.py's make_raw_case
+    draws it (noise everywhere, a body ellipsoid at 1054 and two lung
+    ellipsoids at 174 before the -1024 shift, seeded noise on each), both
+    phases the same volume. Returns the lung ellipsoids' (centre, radii)
+    in voxels, (z, y, x)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    d, w, h = shape
+    zz, yy, xx = (a.astype(np.float32) for a in np.ogrid[0:d, 0:w, 0:h])
+    vol = np.abs(rng.normal(scale=5, size=shape)).astype(np.float32)
+    body = (((zz - d / 2) / (d * 0.45)) ** 2 + ((yy - w / 2) / (w * 0.38)) ** 2
+            + ((xx - h / 2) / (h * 0.38)) ** 2) < 1
+    vol[body] = 1054.0 + rng.normal(scale=15, size=int(body.sum()))
+    lungs = [((d / 2, w / 2, h * fx), (d * 0.3, w * 0.22, h * 0.12))
+             for fx in (0.35, 0.65)]
+    lung = np.zeros(shape, bool)
+    for (cz, cy, cx), (rz, ry, rx) in lungs:
+        lung |= (((zz - cz) / rz) ** 2 + ((yy - cy) / ry) ** 2
+                 + ((xx - cx) / rx) ** 2) < 1
+    vol[lung] = 174.0 + rng.normal(scale=20, size=int(lung.sum()))
+    case_dir = os.path.join(raw, case, case)
+    os.makedirs(case_dir)
+    for tag in ("iBHCT", "eBHCT"):
+        vol.astype("<i2").tofile(os.path.join(case_dir,
+                                              f"{case}_{tag}.img"))
+    return lungs
+
+
+def write_dirlab_landmarks(lm_dir, case, shape, lungs, n, seed):
+    """``n`` landmark pairs in DIR-Lab's format (tab-separated 1-indexed
+    integer x y z of the raw voxel grid): iBH uniform in the lung
+    ellipsoids, eBH = iBH + a seeded integer offset (up to 6 voxels in z,
+    16 in y and x), inside the volume. Returns (iBH, eBH), (n, 3) xyz."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    pts = []
+    while len(pts) < n:
+        (cz, cy, cx), (rz, ry, rx) = lungs[len(pts) % len(lungs)]
+        u = rng.uniform(-1.0, 1.0, 3)
+        if (u ** 2).sum() < 1.0:
+            pts.append(np.rint([cx + u[2] * rx, cy + u[1] * ry,
+                                cz + u[0] * rz]) + 1.0)
+    ibh = np.asarray(pts)
+    offset = np.stack([rng.integers(-16, 17, n), rng.integers(-16, 17, n),
+                       rng.integers(-6, 7, n)], axis=1)
+    d, w, h = shape
+    ebh = np.clip(ibh + offset, 1, [h, w, d])
+    os.makedirs(lm_dir, exist_ok=True)
+    for tag, p in (("iBH", ibh), ("eBH", ebh)):
+        np.savetxt(os.path.join(lm_dir, f"{case}_300_{tag}_xyz_r1.txt"), p,
+                   fmt="%d", delimiter="\t")
+    return ibh, ebh
+
+
+def dirlab_chain(torch, kernels, root):
+    """Raw DIR-Lab bytes to evaluate_result.csv through
+    tools/torch_dirlab_parity.py --raw, as a subprocess (see the constants
+    above); returns the chain's summary, the closed-form initial distances
+    and the CSV's rows."""
+    import numpy as np
+
+    from liftreg_tpu_torch.utils.tre import COPD_SPACING
+    from tools.torch_preprocessing import COPD_SHAPE
+
+    _begin("dirlab_chain")
+    raw, lm = os.path.join(root, "raw"), os.path.join(root, "landmarks")
+    out = os.path.join(root, "out")
+    t0 = time.perf_counter()
+    initial = {}
+    for i, case in enumerate(DIRLAB_CASES):
+        shape = tuple(COPD_SHAPE[case])
+        lungs = write_raw_dirlab_case(raw, case, shape, DIRLAB_SEED + i)
+        ibh, ebh = write_dirlab_landmarks(lm, case, shape, lungs,
+                                          DIRLAB_LANDMARKS, DIRLAB_SEED + i)
+        initial[case] = float(np.mean(np.linalg.norm(
+            (ibh - ebh) * np.asarray(COPD_SPACING[case]), axis=1)))
+    initial["mean"] = float(np.mean([initial[c] for c in DIRLAB_CASES]))
+    raw_s = time.perf_counter() - t0
+    raw_bytes = sum(os.path.getsize(os.path.join(d, f))
+                    for d, _, files in os.walk(raw) for f in files)
+    expect = os.path.join(root, "expectations.json")
+    with open(expect, "w") as f:
+        json.dump({"initial_tre_mm": initial,
+                   "initial_tol_mm": DIRLAB_INITIAL_TOL,
+                   "published": {"per_case_tre_mm": dict.fromkeys(
+                       DIRLAB_CASES), "mean_tre_mm": None, "tol_mm": 0.5},
+                   "landmarks_per_case": DIRLAB_LANDMARKS}, f)
+    cmd = [sys.executable, "tools/torch_dirlab_parity.py", "--raw", raw,
+           "--landmarks", lm, "--out", out, "--identity",
+           "--enforce_landmark_count", "--epochs", str(DIRLAB_EPOCHS),
+           "--expected", expect]
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            env=dict(os.environ, LIFTREG_NO_TB="1"))
+    _state.setdefault("children", []).append(proc)
+    stdout, stderr = proc.communicate(timeout=WATCHDOG_S)
+    chain_s = time.perf_counter() - t0
+    _require(proc.returncode == 0,
+             f"the chain exited {proc.returncode}: {stdout[-3000:]}"
+             f"{stderr[-3000:]}")
+    summary = next(json.loads(line)["dirlab_e2e"]
+                   for line in stdout.splitlines()
+                   if line.startswith('{"dirlab_e2e"'))
+    report = stdout[stdout.rindex("-- identity-map TRE"):]
+    with open(os.path.join(out, "exp", "evaluate_result.csv")) as f:
+        rows = list(csv.DictReader(f))
+    # exact launches: the DRRs of every case of every split, side by side;
+    # a train step lifts, warps and takes the coordinate gradient once, a
+    # validation or test batch lifts and warps once
+    ds = os.path.join(out, "dataset")
+    n_drr = 2 * sum(len(np.load(os.path.join(ds, p, "data_id.npy")))
+                    for p in ("train", "debug", "val", "test"))
+    steps, vals = summary["train_steps"], summary["val_batches"]
+    tests = summary["test_batches"]
+    zero = {k: 0 for k in kernels}
+    want = {stage: dict(zero) for stage in summary["launches"]}
+    want["drr"].update(drr_project=n_drr)
+    want["train"].update(drr_backproject=steps + vals,
+                         warp_trilinear=steps + vals, warp_coord_grad=steps)
+    want["test"].update(drr_backproject=tests, warp_trilinear=tests)
+    sec = summary["seconds"]
+    _emit(cases=list(DIRLAB_CASES),
+          shapes={c: COPD_SHAPE[c] for c in DIRLAB_CASES},
+          spacings={c: COPD_SPACING[c] for c in DIRLAB_CASES},
+          write_raw_s=raw_s, raw_bytes=raw_bytes, chain_s=chain_s,
+          stage_seconds=sec,
+          preprocess_seconds_per_case=summary["preprocess_seconds"],
+          train_step_ms=summary["train_step_ms"], train_steps=steps,
+          val_batches=vals, test_batches=tests, drr_projections=n_drr,
+          launches=summary["launches"], expected_launches=want,
+          peak_rss_bytes=summary["peak_rss_bytes"],
+          host_peak_rss_gib=max((v / 2 ** 30 for v in
+                                 summary["peak_rss_bytes"].values()
+                                 if v is not None), default=None),
+          bytes_written=summary["bytes_written"], size=summary["size"],
+          latent=summary["latent"], views=summary["views"],
+          batch=summary["batch"], initial_tre_mm=initial,
+          csv=rows, report=report.splitlines())
+    _require("PARITY OK" in stdout, f"the chain's parity: {report}")
+    _require(summary["launches"] == want,
+             f"chain launches {summary['launches']}, expected {want}")
+    _require(steps == vals == DIRLAB_EPOCHS + 1 and tests == 1,
+             f"{steps} train steps, {vals} validation and {tests} test "
+             f"batches")
+    _require(sorted(r["id"] for r in rows) == list(DIRLAB_CASES)
+             and all(math.isfinite(float(r["dist"])) for r in rows)
+             and all(0.0 <= float(r["dice"]) <= 1.0 for r in rows),
+             f"evaluate_result.csv: {rows}")
+    return {"summary": summary, "initial": initial, "rows": rows,
+            "launches": {k: sum(s[k] for s in summary["launches"].values())
+                         for k in kernels}}
+
+
+def dirlab_parity(root, chain):
+    """The parity harness on the chain's dataset and experiment, in
+    process: the experiment against a table where one case's TRE is its
+    CSV TRE + 1 mm (tol 0.5 mm), and the identity against a table where
+    one case's initial distance is 1 mm off, must each exit 1 with that
+    case's FAIL row."""
+    import io
+
+    from tools.torch_dirlab_parity import main as parity_main
+
+    _begin("dirlab_parity")
+    out = os.path.join(root, "out")
+    base = ["--data", os.path.join(out, "dataset")]
+    tre = {r["id"]: float(r["dist"]) for r in chain["rows"]}
+    first, second = DIRLAB_CASES
+    runs = {}
+    for name, table, args in (
+            ("exp_tre_plus_1mm", {"published": {
+                "per_case_tre_mm": {first: tre[first] + 1.0, second: None},
+                "mean_tre_mm": None, "tol_mm": 0.5}},
+             ["--exp", os.path.join(out, "exp")]),
+            ("identity_minus_1mm", {
+                "initial_tre_mm": dict(chain["initial"],
+                                       **{second: chain["initial"][second]
+                                          - 1.0}, mean=None),
+                "initial_tol_mm": DIRLAB_INITIAL_TOL},
+             ["--identity"])):
+        path = os.path.join(root, f"{name}.json")
+        with open(path, "w") as f:
+            json.dump(table, f)
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            rc = parity_main(base + args + ["--expected", path])
+        lines = text.getvalue().splitlines()
+        bad = first if name.startswith("exp") else second
+        fail_rows = [ln for ln in lines if ln.endswith("FAIL")]
+        runs[name] = {"rc": rc, "fail_rows": fail_rows,
+                      "last": lines[-1] if lines else ""}
+        _require(rc == 1 and len(fail_rows) == 1
+                 and fail_rows[0].startswith(bad),
+                 f"{name}: exit {rc}, report {lines[-8:]}")
+    _emit(runs=runs)
+    return runs
+
+
+
 def main():
     timer = threading.Timer(WATCHDOG_S, _expire)
     timer.daemon = True
@@ -1551,6 +1916,8 @@ def main():
                                                 "chip_smoke_learned"))
     shutil.rmtree(learned_root, ignore_errors=True)
     learned_proc = start_learned_dataset(learned_root)
+    dirlab_root = os.path.abspath(os.path.join("build", "chip_smoke_dirlab"))
+    shutil.rmtree(dirlab_root, ignore_errors=True)
 
     _begin("build")
     fresh = not _build.library_path().is_file()
@@ -3071,7 +3438,21 @@ def main():
     ig_bytes = (ig_phi.numel() + ig_cot.numel() + ig_vol.numel()) * 4
     ig_ops = (IMG_GRAD_OPS_PER_POINT + WARP_PHI_OPS
               + IMG_GRAD_OPS_PER_TERM * 8 * 3) * ig_points
-    del ig_vol, ig_phi, ig_cot, ig_grid
+    # the same with bf16 taps (the kernel's f32 sums, cast to bf16 once),
+    # beside the library call on f32 taps above; its output is bf16
+    ig_vol16 = ig_vol.to(torch.bfloat16)
+    ig16_bytes = ig_bytes - ig_vol.numel() * 2
+    image_grad_bf16 = {
+        "ms": _cuda_ms(lambda: warp_image_grad(
+            ig_vol16, ig_phi, ig_cot, False, **ig_flags), 20),
+        "plain_ms": _cuda_ms(lambda: warp_image_grad_plain(
+            ig_vol16, ig_phi, ig_cot, False, **ig_flags), 3),
+        "bound_ms": max(ig16_bytes / HBM_BYTES_PER_S,
+                        ig_ops / PEAK_F32_FLOPS) * 1e3,
+        "bound_by": ("bytes" if ig16_bytes / HBM_BYTES_PER_S
+                     >= ig_ops / PEAK_F32_FLOPS else "operations"),
+        "library_f32_ms": lib_ms["warp_image_grad"]}
+    del ig_vol, ig_vol16, ig_phi, ig_cot, ig_grid
 
     ms["drr_project"] = _cuda_ms(lambda: project_taps(att, *fwd_geom), 20)
     plain_ms["drr_project"] = _cuda_ms(
@@ -3212,6 +3593,7 @@ def main():
 
     _emit(kernel_ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
           image_grad_fields=image_grad_fields,
+          image_grad_bf16_taps=image_grad_bf16,
           warp_layouts=layout_times, lift_bf16_buffer=lift_bf16,
           register_ms=register_ms, register_per_s=B * 1e3 / register_ms,
           peak_memory_gib=peak_gib, register_refine_ms=refine_ms,
@@ -3264,6 +3646,11 @@ def main():
     finally:
         shutil.rmtree(learned_root, ignore_errors=True)
     optreg_reference(torch, F, warp_kernel)
+    try:
+        chain = dirlab_chain(torch, KERNELS, dirlab_root)
+        dirlab_parity(dirlab_root, chain)
+    finally:
+        shutil.rmtree(dirlab_root, ignore_errors=True)
     replaces = {
         "pca_expand": "liftreg_tpu/ops/pallas_pca.py:30",
         "pca_grad": "liftreg_tpu/ops/pallas_pca.py:78",
@@ -3311,6 +3698,10 @@ def main():
             "library_ms": lib_ms[name]})
         kernels[-1].update(optreg_call_launches=learned["call"][name],
                            optreg_step_launches=learned["step"][name],
+                           oracle_pair_launches=learned["oracle_pair"][name],
+                           objective_ab_variant_launches=learned[
+                               "ab_variant"][name],
+                           dirlab_launches=chain["launches"][name],
                            projection_launches=projection_launches[name],
                            image_refine_launches=refine_launches[name],
                            serving_launches=launches[name],
@@ -3324,6 +3715,11 @@ def main():
         bf16_buffer_library_ms=lift_bf16["library_ms"])
     for name, times in layout_times.items():
         next(k for k in kernels if k["name"] == name)["layouts"] = times
+    next(k for k in kernels if k["name"] == "warp_image_grad").update(
+        bf16_taps_ms=image_grad_bf16["ms"],
+        bf16_taps_plain_ms=image_grad_bf16["plain_ms"],
+        bf16_taps_bound_ms=image_grad_bf16["bound_ms"],
+        bf16_taps_library_f32_ms=image_grad_bf16["library_f32_ms"])
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

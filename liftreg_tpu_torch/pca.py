@@ -58,7 +58,10 @@ def fit_pca(disp_fields, n_components, chunk=8, scale_by_stddev=False):
     if n_components > M:
         raise ValueError(f"n_components={n_components} > samples={M}")
     mean = X.mean(axis=0)
-    Xc = X - mean
+    # centred in place: X is this function's own f64 copy, and a second
+    # (M, K) f64 array is ~11 GB for 112 fields at 160^3
+    X -= mean
+    Xc = X
     gram = np.zeros((M, M), dtype=np.float64)
     for i in range(0, M, chunk):
         gram[i:i + chunk] = Xc[i:i + chunk] @ Xc.T

@@ -12,6 +12,7 @@ import argparse
 import enum
 import os
 import sys
+import time
 
 import numpy as np
 
@@ -72,10 +73,12 @@ def read_dct_data_list(data_folder_path):
 
 def preprocess(data_folder_path, preprocessed_path, file_type, case_num=200,
                target_size=(160, 160, 160), target_spacing=(2.2, 2.2, 2.2),
-               shape_override=None, spacing_override=None):
+               shape_override=None, spacing_override=None, seconds=None):
     """``shape_override``/``spacing_override`` replace the public DirLab
     per-case tables for every case (raw z,y,x shape / z,y,x spacing in mm) —
-    used for non-DirLab raw layouts and small-scale rehearsals."""
+    used for non-DirLab raw layouts and small-scale rehearsals.
+    ``seconds``, a dict, receives each case's seconds (host clock, its
+    files written)."""
     if not os.path.exists(data_folder_path):
         print(f"Did not find data list file at {data_folder_path}")
         return []
@@ -91,6 +94,7 @@ def preprocess(data_folder_path, preprocessed_path, file_type, case_num=200,
 
     ids = []
     for i, case in enumerate(file_list):
+        t0 = time.perf_counter()
         cid = case["id"]
         ids.append(cid)
         print(f"Preprocessing {i}/{len(file_list)} {cid}")
@@ -110,6 +114,8 @@ def preprocess(data_folder_path, preprocessed_path, file_type, case_num=200,
         np.save(os.path.join(preprocessed_path, f"{cid}_target_seg.npy"), tgt_seg)
         np.save(os.path.join(preprocessed_path, f"{cid}_prop.npy"),
                 {"origin": origin, "spacing": new_spacing})
+        if seconds is not None:
+            seconds[cid] = time.perf_counter() - t0
     return ids
 
 
