@@ -113,6 +113,26 @@ line with its elapsed seconds:
    on the same files listed 3 times, its batches read by the host
    DataLoader (cache_on_device false) and then from the card-resident
    cache, each under torch.profiler: ms a step and the device's idle share;
+   data_parallel: the trainer on a data mesh (liftreg_tpu_torch.parallel,
+   one process a rank) at the reference config on the train dataset's
+   first 6 and 5 cases (B = 6 and 5; 2 epochs of one step after a
+   validation of 3 cases, then a resume for a third), against the
+   one-process trainer at the same global batch: (a) one NCCL rank, its 2
+   steps bit-equal to one card's (losses, parameters, Adam's moments)
+   under deterministic algorithms; (b) 2 gloo ranks sharing the card
+   (one pad row at B = 5): each logged loss within DP_LOSS_REL, the
+   parameters and moments within DP_PARAM_TOL and DP_MOMENT_RTOL, the
+   ranks' parameters bit-equal after the resume, each rank's launches
+   exact, one step's collectives 2 calls of between the parameters' f32
+   bytes and 1.1 times them plus 4096, and at B = 6 the step ms of each
+   rank beside one process's (3 after a step alone); (c) a refined
+   register (image domain, 30 steps, early stop) of B = 4 on the 2 ranks
+   against one process: the same steps on both ranks and in one process,
+   phi and warped within REFINE_REF_TOL; (d) negative controls: the
+   gradients averaged over the ranks must break the moments' limit, and
+   the refiner with no collective (each rank's early stop its own) must
+   stop the ranks at different steps; with 2 or more cards, (b) at B = 6
+   again over NCCL, one card a rank (else the line says it did not run);
    evaluate: a test split of 3 cases added to the train dataset (300
    landmark pairs each in DIR-Lab's layout, lung segmentations, a
    _prop.npy), and the port's eval CLI as a subprocess on the train
@@ -222,7 +242,9 @@ for the others refine_projection's register, which runs all eight;
 ``projection_launches`` from that register, ``serving_launches`` from
 main_path's, ``image_refine_launches`` from refine's,
 ``train_launches``, ``train_bf16_launches``, ``regnet_launches`` and
-``subspace_launches`` from one train step of each; ``optreg_call_launches``
+``subspace_launches`` from one train step of each,
+``data_parallel_rank_launches`` each rank's of one 2-rank step of
+data_parallel; ``optreg_call_launches``
 from one DenseRegisterer call of learned_basis and
 ``optreg_step_launches`` from one of its level steps;
 ``oracle_pair_launches`` and ``objective_ab_variant_launches`` from one
@@ -470,6 +492,33 @@ SERVING_PARTIAL_TOL = 1e-6
 SERVING_REFINE_TIMED = 3
 SERVING_F32_SZ = 32
 SERVING_TOOL_CASES = 5
+
+# data_parallel: the reference config (160^3, 4 views on 240^2, latent 56,
+# f32, NCC) on the train phase's dataset, through the trainer of a data
+# mesh (liftreg_tpu_torch.parallel) at global batches of 6 and 5 rows (on 2
+# ranks one pad row): 2 epochs of one step, each after a validation of 3
+# cases (padded to 6 rows), then a resume of the last checkpoint for a
+# third; held against the one-process trainer at the same global batch
+DP_BATCHES = (6, 5)
+DP_EPOCHS = 1                  # epochs 0 and 1; the resume runs epoch 2
+DP_TIMED_STEPS = 3
+# each logged loss within 1e-4 relative of the one-process run's; the
+# parameters after the 3 Adam steps within TRAIN_REF_TOL (the ranks sum
+# the weight gradients of their halves of the batch, in another order than
+# one process); Adam's moments, which carry the gradients (a gradient
+# averaged over the ranks instead of summed halves mu, while Adam's steps
+# would hardly see it), within 1e-3 of each leaf's largest value
+DP_LOSS_REL = 1e-4
+DP_PARAM_TOL = TRAIN_REF_TOL
+DP_MOMENT_RTOL = 1e-3
+# the sharded refined register: 160^3, B = 4 (rows 2 and 3, rank 1's,
+# aligned and masked out entirely, so that their objective is flat and a
+# rank alone would stop at another step), f32 encoder and taps, bf16
+# basis, image domain, 30 steps, early stop after 3 steps without an
+# improvement of 1e-4; phi and warped within REFINE_REF_TOL of the
+# one-process call
+DP_REFINE_PATIENCE = 3
+DP_REFINE_TOL = 1e-4
 
 _state = {"phase": "start", "t0": time.perf_counter()}
 
@@ -1868,6 +1917,386 @@ def dirlab_parity(root, chain):
 
 
 
+def _kernel_table():
+    """The kernels' wrappers by name; each counts its launches."""
+    from liftreg_tpu_torch.ops.drr_kernel import (backproject_taps,
+                                                  project_adjoint_plan,
+                                                  project_adjoint_taps,
+                                                  project_taps)
+    from liftreg_tpu_torch.ops.pca_kernel import pca_expand, pca_grad
+    from liftreg_tpu_torch.ops.warp_kernel import (warp_coord_grad,
+                                                   warp_image_grad,
+                                                   warp_trilinear)
+    return {"pca_expand": pca_expand, "pca_grad": pca_grad,
+            "warp_trilinear": warp_trilinear,
+            "warp_coord_grad": warp_coord_grad,
+            "warp_image_grad": warp_image_grad,
+            "drr_project": project_taps,
+            "drr_project_adjoint": project_adjoint_taps,
+            "drr_adjoint_plan": project_adjoint_plan,
+            "drr_backproject": backproject_taps}
+
+
+def _trainer_state(tr):
+    """A trainer's parameters and Adam moments, on the host."""
+    host = lambda d: {k: v.detach().cpu().numpy().copy()  # noqa: E731
+                      for k, v in d.items()}
+    return {"params": host(tr.params), "mu": host(tr.opt_state["mu"]),
+            "nu": host(tr.opt_state["nu"])}
+
+
+def dp_train(mesh, job):
+    """One rank's (or, with a mesh of one process, the one-process)
+    training run of data_parallel: ``job["cfg"]``'s epochs, then a new
+    trainer resuming ``job["resume_cfg"]`` for one more, each with its
+    kernels' launches counted; with ``job["timed"]`` one step alone (its
+    launches, collective bytes and calls) and that many timed. The runs
+    (not the timed steps) use torch's deterministic algorithms where
+    ``job["deterministic"]``."""
+    import torch
+    from liftreg_tpu_torch.train import RegistrationTrainer
+    kernels = _kernel_table()
+    os.environ["LIFTREG_NO_TB"] = "1"
+    torch.use_deterministic_algorithms(bool(job.get("deterministic")),
+                                       warn_only=True)
+    try:
+        _zero(kernels)
+        tr = RegistrationTrainer(job["cfg"], mesh=mesh)
+        tr.run()
+        torch.cuda.synchronize()
+        out = {"steps": tr.global_step["train"],
+               "vals": tr.global_step["val"], "launches": _counts(kernels),
+               "state_run": _trainer_state(tr),
+               "param_bytes": 4 * sum(p.numel()
+                                      for p in tr.params.values())}
+        if job.get("resume_cfg") is None:
+            return out
+        del tr
+        tr = RegistrationTrainer(job["resume_cfg"], mesh=mesh)
+        out["resumed"] = {"start_epoch": tr.start_epoch,
+                          "global_step": dict(tr.global_step)}
+        tr.run()
+        out["state"] = _trainer_state(tr)
+        torch.use_deterministic_algorithms(False)
+        if job.get("timed"):
+            batch, names = next(iter(tr._iter_device("train",
+                                                     tr.cur_epoch)))
+            mesh.barrier()
+            torch.cuda.synchronize()
+            _zero(kernels)
+            bytes0, calls0 = mesh.collective_bytes, mesh.collective_calls
+            tr.step(batch, names)
+            torch.cuda.synchronize()
+            out.update(step_launches=_counts(kernels),
+                       step_bytes=mesh.collective_bytes - bytes0,
+                       step_calls=mesh.collective_calls - calls0)
+            step_ms = []
+            for _ in range(job["timed"]):
+                mesh.barrier()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                tr.step(batch, names)
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+            out["step_ms"] = step_ms
+            out["finite"] = all(bool(l["finite"])
+                                for _, l in tr._pending_losses)
+            tr._pending_losses.clear()
+        return out
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def dp_train_averaged(mesh, job):
+    """:func:`dp_train` with the ranks' gradients averaged instead of
+    summed (a negative control)."""
+    from liftreg_tpu_torch.train import trainer as trainer_mod
+    summed = trainer_mod.loss_and_grads
+
+    def averaged(*args):
+        losses, grads = summed(*args)
+        return losses, {k: g / mesh.size for k, g in grads.items()}
+
+    trainer_mod.loss_and_grads = averaged
+    try:
+        return dp_train(mesh, job)
+    finally:
+        trainer_mod.loss_and_grads = summed
+
+
+def dp_refine_inputs(torch, F, device):
+    """data_parallel's refined register: refine_inputs of seed 7 with rows
+    2 and 3 aligned (target = source) and their lung masks empty."""
+    g = torch.Generator(device=device).manual_seed(7)
+    src, tgt, seg, pca = refine_inputs(torch, F, g, device)
+    tgt[2:] = src[2:]
+    seg[2:] = 0.0
+    return src, tgt, seg, pca
+
+
+def dp_register(mesh, job):
+    """A refined register (:func:`dp_refine_inputs`, seeded weights) of this
+    rank's rows with the mesh's refiner, and with a mesh of no collective
+    (each rank's early stop its own: a negative control). With
+    ``job["reference"]`` the path of the one-process call's phi and warped,
+    their largest differences on these rows; without, this call's output is
+    saved there (the one-process call, in the script's own process)."""
+    import torch
+    import torch.nn.functional as F
+    from liftreg_tpu_torch import RegistrationPipeline
+    from liftreg_tpu_torch.parallel import Mesh
+    src, tgt, seg, pca = dp_refine_inputs(torch, F, mesh.device)
+    rows = mesh.rows(src.shape[0])
+
+    def register(m):
+        torch.manual_seed(0)
+        pipe = RegistrationPipeline(
+            (SZ,) * 3, latent_dim=LATENT, refine_steps=REFINE_STEPS,
+            refine_early_stop_patience=DP_REFINE_PATIENCE,
+            refine_early_stop_tol=DP_REFINE_TOL, mesh=m)
+        warped, phi = pipe.register(pca, src[rows], tgt[rows], seg[rows],
+                                    seg[rows])
+        torch.cuda.synchronize()
+        return warped, phi, pipe.last_refine
+
+    warped, phi, res = register(mesh)
+    out = {"steps_run": res["steps_run"],
+           "total_history": res["total_history"].tolist(),
+           "inputs_sum": [float(t.double().sum()) for t in
+                          (src, tgt, seg, pca["vectors"])]}
+    if mesh.group is None:
+        torch.save({"phi": phi, "warped": warped}, job["reference"])
+        return out
+    ref = torch.load(job["reference"], map_location=mesh.device)
+    out["max_abs_err"] = {"phi": _max_err(phi, ref["phi"][rows]),
+                          "warped": _max_err(warped, ref["warped"][rows])}
+    del ref, warped, phi
+    out["rank_local_steps_run"] = register(Mesh(
+        rank=mesh.rank, size=mesh.size, device=mesh.device))[2]["steps_run"]
+    return out
+
+
+#: data_parallel's jobs by name, for dp_rank
+DP_JOBS = {"train": dp_train, "train_averaged": dp_train_averaged,
+           "register": dp_register}
+
+
+def dp_rank(mesh, jobs):
+    """One rank of data_parallel: its results of ``jobs``, each a dict with
+    the name of its function in DP_JOBS under ``"fn"``."""
+    return [DP_JOBS[job["fn"]](mesh, job) for job in jobs]
+
+
+def _dp_job(data_root, train_ids, val_ids, root, b, name, **kw):
+    """A dp_train job: the reference config at a global batch of ``b`` on
+    the first ``b`` training cases and the validation cases, its epochs
+    and then the resume of its last checkpoint, written under
+    ``root/out_<name>``."""
+    droot = os.path.join(root, f"data_b{b}")
+    if not os.path.isdir(droot):
+        split_root(droot, data_root, {"train": list(train_ids[:b]),
+                                      "val": list(val_ids)})
+    out = os.path.join(root, f"out_{name}")
+    cfg = train_setting(TRAIN_CONFIG, droot, out, epoch=DP_EPOCHS)
+    cfg["train"]["dataloader"]["batch_size"] = b
+    prefix = f"epoch_{DP_EPOCHS}" if cfg["train"].get("debug_on") \
+        else "latest"
+    resume = json.loads(json.dumps(cfg))
+    resume["train"].update(epoch=DP_EPOCHS + 1, continue_train=True,
+                           continue_from=os.path.join(
+                               out, "checkpoints",
+                               f"{prefix}_checkpoint.ckpt"))
+    return dict(fn="train", cfg=cfg, resume_cfg=resume, out=out, **kw)
+
+
+def _dp_errors(ref_job, ref, job, got, state="state"):
+    """A run against the one-process run: each logged loss's and validation
+    score's largest relative difference (over the steps and epochs ``job``
+    logged; ``state="state"``: all of the one-process run's), the
+    parameters' largest absolute difference and the moments' largest
+    difference relative to each leaf's largest value (after the resume, or
+    with ``"state_run"`` before it), and whether all are bit-equal."""
+    import numpy as np
+    out = {}
+    if job is not None:
+        mr, mg = read_metrics(ref_job["out"]), read_metrics(job["out"])
+        rel, equal = 0.0, True
+        for tag in ("Train/total_loss", "Train/sim_loss", "Train/reg_loss",
+                    "Val_metrics/score"):
+            _require(mg[tag] and set(mg[tag]) <= set(mr[tag])
+                     and (state != "state" or set(mg[tag]) == set(mr[tag])),
+                     f"{tag} logged at {sorted(mg[tag])}, the one-process "
+                     f"run at {sorted(mr[tag])}")
+            for k, v in mg[tag].items():
+                rel = max(rel, abs(v - mr[tag][k]) / max(abs(mr[tag][k]),
+                                                         1e-12))
+                equal = equal and v == mr[tag][k]
+        out.update(loss_rel_err=rel, losses_bit_equal=equal)
+    a, b = ref[state], got[state]
+    out["param_max_abs_err"] = max(float(np.abs(a["params"][k]
+                                                - b["params"][k]).max())
+                                   for k in a["params"])
+    out["moment_rel_err"] = max(
+        float(np.abs(a[m][k] - b[m][k]).max()
+              / max(float(np.abs(a[m][k]).max()), 1e-30))
+        for m in ("mu", "nu") for k in a[m])
+    out["state_bit_equal"] = all(np.array_equal(a[m][k], b[m][k])
+                                 for m in ("params", "mu", "nu")
+                                 for k in a[m])
+    return out
+
+
+def _dp_check_ranks(name, job, ranks, ref_job, ref, kernels):
+    """The checks of one distributed training run's ranks against the
+    one-process run at the same global batch; returns its line."""
+    import numpy as np
+    r0 = ranks[0]
+    line = _dp_errors(ref_job, ref, job, r0)
+    line["ranks_params_bit_equal"] = all(
+        np.array_equal(r["state"]["params"][k], r0["state"]["params"][k])
+        for r in ranks for k in r0["state"]["params"])
+    _require(line["loss_rel_err"] <= DP_LOSS_REL,
+             f"{name}: a logged loss {line['loss_rel_err']} from the "
+             "one-process run's")
+    _require(line["param_max_abs_err"] <= DP_PARAM_TOL
+             and line["moment_rel_err"] <= DP_MOMENT_RTOL,
+             f"{name}: parameters {line['param_max_abs_err']} or moments "
+             f"{line['moment_rel_err']} from the one-process run's")
+    _require(line["ranks_params_bit_equal"],
+             f"{name}: the ranks' parameters differ after the resume")
+    for rank, r in enumerate(ranks):
+        expected = dict({k: 0 for k in kernels},
+                        drr_backproject=r["steps"] + r["vals"],
+                        warp_trilinear=r["steps"] + r["vals"],
+                        warp_coord_grad=r["steps"])
+        _require(r["launches"] == expected and r["steps"] == DP_EPOCHS + 1,
+                 f"{name}: rank {rank} launched {r['launches']} in "
+                 f"{r['steps']} steps, expected {expected}")
+        _require(r["resumed"] == ref["resumed"],
+                 f"{name}: rank {rank} resumed at {r['resumed']}, the "
+                 f"one-process run at {ref['resumed']}")
+        if "step_launches" in r:
+            one_step = dict({k: 0 for k in kernels}, drr_backproject=1,
+                            warp_trilinear=1, warp_coord_grad=1)
+            _require(r["step_launches"] == one_step and r["finite"],
+                     f"{name}: rank {rank}'s step launched "
+                     f"{r['step_launches']}")
+            bound = 1.1 * r["param_bytes"] + 4096
+            _require(r["step_calls"] == 2 and r["param_bytes"]
+                     <= r["step_bytes"] <= bound,
+                     f"{name}: rank {rank}'s step put {r['step_bytes']} "
+                     f"bytes into {r['step_calls']} collectives (parameters"
+                     f" {r['param_bytes']} bytes, bound {bound})")
+    return line
+
+
+def data_parallel(torch, F, dev, data_root, train_ids, val_ids, root):
+    """The data_parallel phase (see the module's docstring): returns
+    ``{"line": the phase's JSON fields, "rank_launches": each kernel's
+    launches on each rank of one 2-rank step}``."""
+    import statistics as stats
+    from liftreg_tpu_torch.parallel import launch, make_mesh
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    kernels = _kernel_table()
+    job = lambda b, name, **kw: _dp_job(  # noqa: E731
+        data_root, train_ids, val_ids, root, b, name, **kw)
+    seconds = {}
+
+    # the one-process runs: the trainer of one card, and one register call
+    t0 = time.perf_counter()
+    one = make_mesh(1, dev)
+    ref_jobs = {b: job(b, f"one_b{b}", deterministic=b == DP_BATCHES[0],
+                       timed=DP_TIMED_STEPS if b == DP_BATCHES[0] else 0)
+                for b in DP_BATCHES}
+    ref = {b: dp_train(one, ref_jobs[b]) for b in DP_BATCHES}
+    b6 = DP_BATCHES[0]
+    _require(ref[b6]["finite"], "a non-finite one-process step")
+    reg_path = os.path.join(root, "register_reference.pt")
+    reg_ref = dp_register(one, {"reference": reg_path})
+    torch.cuda.empty_cache()
+    seconds["one_process"] = time.perf_counter() - t0
+
+    # (a) the distributed trainer on one NCCL rank: its 2 steps bit-equal to
+    # one card's
+    t0 = time.perf_counter()
+    ja = dict(job(b6, "nccl1", deterministic=True), resume_cfg=None)
+    a = launch(dp_rank, 1, device=dev, backend="nccl", args=([ja],))[0][0]
+    nccl1 = _dp_errors(ref_jobs[b6], ref[b6], ja, a, state="state_run")
+    _require(nccl1["losses_bit_equal"] and nccl1["state_bit_equal"],
+             f"one NCCL rank is not bit-equal to one card: {nccl1}")
+    seconds["nccl_1_rank"] = time.perf_counter() - t0
+
+    # (b)-(d) two gloo ranks sharing the card: each batch's run and resume,
+    # a run with averaged gradients, and the sharded refined register
+    t0 = time.perf_counter()
+    jobs = [job(b, f"gloo2_b{b}", timed=DP_TIMED_STEPS if b == b6 else 0)
+            for b in DP_BATCHES]
+    jobs.append(dict(job(b6, "gloo2_averaged"), fn="train_averaged",
+                     resume_cfg=None))
+    jobs.append({"fn": "register", "reference": reg_path})
+    res = launch(dp_rank, 2, device=dev, backend="gloo", args=(jobs,))
+    seconds["gloo_2_ranks"] = time.perf_counter() - t0
+    gloo = {}
+    for k, b in enumerate(DP_BATCHES):
+        gloo[b] = _dp_check_ranks(f"2 gloo ranks, B={b}", jobs[k],
+                                  [r[k] for r in res], ref_jobs[b], ref[b],
+                                  kernels)
+    ranks6 = [r[0] for r in res]
+    # (d) the averaged gradients must break the moments' limit
+    averaged = _dp_errors(None, ref[b6], None, res[0][len(DP_BATCHES)],
+                          state="state_run")
+    _require(averaged["moment_rel_err"] > DP_MOMENT_RTOL,
+             f"gradients averaged over the ranks passed: {averaged}")
+    # (c) the sharded refined register, and (d) its rank-local early stop
+    regs = [r[-1] for r in res]
+    register = {"steps_run": [r["steps_run"] for r in regs],
+                "one_process_steps_run": reg_ref["steps_run"],
+                "rank_local_steps_run": [r["rank_local_steps_run"]
+                                         for r in regs],
+                "max_abs_err": [r["max_abs_err"] for r in regs],
+                "tol": REFINE_REF_TOL}
+    _require(all(r["inputs_sum"] == reg_ref["inputs_sum"] for r in regs),
+             "the ranks drew other register inputs than this process")
+    _require(register["steps_run"] == [reg_ref["steps_run"]] * 2,
+             f"the refinement's steps: {register}")
+    _require(all(e["phi"] <= REFINE_REF_TOL[0]
+                 and e["warped"] <= REFINE_REF_TOL[1]
+                 for e in register["max_abs_err"]),
+             f"the sharded register is off the one-process call: {register}")
+    _require(len(set(register["rank_local_steps_run"])) > 1,
+             "a rank-local early stop passed: "
+             f"{register['rank_local_steps_run']}")
+
+    line = {"seconds_by_run": seconds, "nccl_1_rank": nccl1,
+            "gloo_2_ranks": {str(b): v for b, v in gloo.items()},
+            "averaged_gradients_control": averaged,
+            "register": register,
+            "step_ms": {"one_process_b6": ref[b6]["step_ms"],
+                        "gloo_2_ranks_b6": [r["step_ms"] for r in ranks6]},
+            "step_ms_median": {
+                "one_process_b6": stats.median(ref[b6]["step_ms"]),
+                "gloo_2_ranks_b6": [stats.median(r["step_ms"])
+                                    for r in ranks6]},
+            "collective_bytes_per_step": [r["step_bytes"] for r in ranks6],
+            "collective_calls_per_step": [r["step_calls"] for r in ranks6],
+            "param_bytes": ranks6[0]["param_bytes"]}
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        t0 = time.perf_counter()
+        jn = job(b6, "nccl2", timed=DP_TIMED_STEPS)
+        rn = [r[0] for r in launch(dp_rank, 2, args=([jn],))]
+        line["nccl_2_cards"] = _dp_check_ranks(
+            "2 NCCL ranks", jn, rn, ref_jobs[b6], ref[b6], kernels)
+        line["nccl_2_cards"]["step_ms"] = [r["step_ms"] for r in rn]
+        seconds["nccl_2_cards"] = time.perf_counter() - t0
+    else:
+        line["nccl_2_cards"] = f"not run: {cards} card visible"
+    shutil.rmtree(root, ignore_errors=True)
+    return {"line": line, "rank_launches": {
+        k: [r["step_launches"][k] for r in ranks6] for k in kernels}}
+
+
 def main():
     timer = threading.Timer(WATCHDOG_S, _expire)
     timer.daemon = True
@@ -1900,14 +2329,7 @@ def main():
     from liftreg_tpu_torch.pipeline import normalize_hu
     from liftreg_tpu_torch.refine import make_projection_refiner, make_refiner
 
-    KERNELS = {"pca_expand": pca_expand, "pca_grad": pca_grad,
-               "warp_trilinear": warp_trilinear,
-               "warp_coord_grad": warp_coord_grad,
-               "warp_image_grad": warp_image_grad,
-               "drr_project": project_taps,
-               "drr_project_adjoint": project_adjoint_taps,
-               "drr_adjoint_plan": project_adjoint_plan,
-               "drr_backproject": backproject_taps}
+    KERNELS = _kernel_table()
 
     dev = torch.device("cuda")
 
@@ -2965,6 +3387,12 @@ def main():
         del tl, epoch
         torch.cuda.empty_cache()
 
+    # -- the trainer and refinement on a data mesh ---------------------------
+    _begin("data_parallel")
+    dp = data_parallel(torch, F, dev, data_root, train_ids, val_ids,
+                       os.path.join(train_root, "dp"))
+    _emit(**dp["line"])
+
     # -- evaluation of the train phase's experiment ------------------------
     _begin("evaluate")
     from liftreg_tpu_torch.utils import tre
@@ -3708,7 +4136,9 @@ def main():
                            train_launches=train_launches[name],
                            train_bf16_launches=bf16_launches[0][name],
                            regnet_launches=regnet_launches[name],
-                           subspace_launches=subspace_launches[name])
+                           subspace_launches=subspace_launches[name],
+                           data_parallel_rank_launches=dp[
+                               "rank_launches"][name])
     next(k for k in kernels if k["name"] == "drr_backproject").update(
         bf16_buffer_ms=lift_bf16["ms"],
         bf16_buffer_bound_ms=lift_bf16["bound_ms"],

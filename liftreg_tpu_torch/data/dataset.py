@@ -12,6 +12,11 @@ does, so the order of the batches is the same. :class:`DeviceDatasetCache`
 and :class:`DeviceDataLoader` keep a whole split on the card and gather
 each batch there. :func:`pad_batch` is the JAX package's
 ``parallel/mesh.py`` padding of a short batch, without the sharding.
+Both loaders take ``pad_to`` and ``shard=(rank, ranks)``: every rank of
+a data mesh draws the same order (one seed), pads each batch by index to
+``pad_to`` rows, as the JAX trainer pads to a multiple of its mesh, and
+loads only its own rows ``[rank * b, (rank + 1) * b)``, ``b = pad_to /
+ranks``; ``names`` lists the real samples of the whole batch.
 ``compress_in_memory`` keeps each case packed by the native codec
 (:mod:`..native`, the JAX codec's format) and unpacks it as it is read.
 """
@@ -242,20 +247,57 @@ class DeviceDatasetCache:
         return {k: v.index_select(0, idx) for k, v in self.arrays.items()}
 
 
+def _batches(n, batch_size, shuffle, drop_last, rng):
+    idx = np.arange(n)
+    if shuffle:
+        rng.shuffle(idx)
+    batches = [idx[i:i + batch_size] for i in range(0, n, batch_size)]
+    if drop_last:
+        batches = [b for b in batches if len(b) == batch_size]
+    return batches
+
+
+def _rows(b, pad_to, shard):
+    """This rank's indices of batch ``b`` padded to ``pad_to`` by its last
+    index (``pad_to`` None: ``b`` as it is)."""
+    if pad_to is None:
+        return b
+    full = np.concatenate([b, np.repeat(b[-1:], pad_to - len(b))]) \
+        if len(b) < pad_to else b
+    rank, ranks = shard
+    n = pad_to // ranks
+    return full[rank * n:(rank + 1) * n]
+
+
+def _check_shard(batch_size, pad_to, shard):
+    rank, ranks = shard
+    if ranks > 1 and (pad_to is None or pad_to % ranks):
+        raise ValueError(f"pad_to {pad_to} must be a multiple of the "
+                         f"{ranks} ranks")
+    if pad_to is not None and pad_to < batch_size:
+        raise ValueError(f"pad_to {pad_to} < batch_size {batch_size}")
+    if not 0 <= rank < ranks:
+        raise ValueError(f"rank {rank} of {ranks}")
+
+
 class DeviceDataLoader:
     """Loader over a :class:`DeviceDatasetCache` with the semantics of
     :class:`DataLoader` (shuffle / drop_last), plus padding by index:
     every batch has exactly ``pad_to`` rows (a short final batch repeats
-    its last index) while ``names`` lists only the real samples."""
+    its last index) while ``names`` lists only the real samples. With
+    ``shard`` a rank gathers its rows of each batch; the cache holds the
+    whole split all the same, since the shuffled order puts any sample in
+    any rank's rows."""
 
     def __init__(self, cache, batch_size=1, shuffle=False, seed=0,
-                 drop_last=False, pad_to=None):
+                 drop_last=False, pad_to=None, shard=(0, 1)):
         self.cache = cache
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.pad_to = pad_to or batch_size
-        assert self.pad_to >= batch_size
+        self.shard = tuple(shard)
+        _check_shard(batch_size, self.pad_to, self.shard)
         self._rng = np.random.default_rng(seed)
 
     def __len__(self):
@@ -265,31 +307,27 @@ class DeviceDataLoader:
         return -(-n // self.batch_size)
 
     def __iter__(self):
-        idx = np.arange(len(self.cache))
-        if self.shuffle:
-            self._rng.shuffle(idx)
-        batches = [idx[i:i + self.batch_size]
-                   for i in range(0, len(idx), self.batch_size)]
-        if self.drop_last:
-            batches = [b for b in batches if len(b) == self.batch_size]
-        for b in batches:
+        for b in _batches(len(self.cache), self.batch_size, self.shuffle,
+                          self.drop_last, self._rng):
             names = [self.cache.names[int(i)] for i in b]
-            full = np.concatenate(
-                [b, np.repeat(b[-1:], self.pad_to - len(b))]) \
-                if len(b) < self.pad_to else b
-            yield self.cache.gather(full), names
+            yield self.cache.gather(_rows(b, self.pad_to, self.shard)), names
 
 
 class DataLoader:
-    """Minimal batching loader with shuffling and background prefetch."""
+    """Minimal batching loader with shuffling and background prefetch; with
+    ``pad_to`` each batch is padded by index to that many rows, and with
+    ``shard`` a rank stacks only its rows of it."""
 
     def __init__(self, dataset, batch_size=1, shuffle=False, seed=0,
-                 drop_last=False, prefetch=2):
+                 drop_last=False, prefetch=2, pad_to=None, shard=(0, 1)):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.prefetch = prefetch
+        self.pad_to = pad_to
+        self.shard = tuple(shard)
+        _check_shard(batch_size, pad_to, self.shard)
         self._rng = np.random.default_rng(seed)
 
     def __len__(self):
@@ -298,25 +336,19 @@ class DataLoader:
             return n // self.batch_size
         return -(-n // self.batch_size)
 
-    def _indices(self):
-        idx = np.arange(len(self.dataset))
-        if self.shuffle:
-            self._rng.shuffle(idx)
-        return idx
-
     def __iter__(self):
-        idx = self._indices()
-        batches = [idx[i:i + self.batch_size]
-                   for i in range(0, len(idx), self.batch_size)]
-        if self.drop_last:
-            batches = [b for b in batches if len(b) == self.batch_size]
+        batches = _batches(len(self.dataset), self.batch_size, self.shuffle,
+                           self.drop_last, self._rng)
 
         q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
         stop = object()
 
         def producer():
             for b in batches:
-                q.put(_stack_batch([self.dataset[int(i)] for i in b]))
+                batch, _ = _stack_batch([
+                    self.dataset[int(i)]
+                    for i in _rows(b, self.pad_to, self.shard)])
+                q.put((batch, [self.dataset.name_list[int(i)] for i in b]))
             q.put(stop)
 
         t = threading.Thread(target=producer, daemon=True)

@@ -19,7 +19,7 @@ import functools
 import numpy as np
 
 from ..ops import fd
-from .similarity import get_similarity
+from .similarity import RankShare, _batch_mean, get_similarity
 
 
 def sigmoid_decay(ep, static=5, k=5):
@@ -32,7 +32,8 @@ def sigmoid_decay(ep, static=5, k=5):
 def displacement_reg(disp, reduction="mean", weights=None):
     """Mean (or per-sample-mean-then-sum) of ``||grad disp||^2`` with
     spacing ``2/(N-1)``; ``reduction="none"`` returns the per-sample vector.
-    ``weights`` (B,) zero out pad rows in either reduction."""
+    ``weights`` (B,) zero out pad rows in either reduction; a
+    :class:`.similarity.RankShare` gives this rank's share of either."""
     sp = [2.0 / (n - 1.0) for n in disp.shape[2:]]
     l2 = fd.grad_norm_sq(disp, sp)
     per_sample = l2.reshape(l2.shape[0], -1).mean(dim=1)
@@ -42,10 +43,10 @@ def displacement_reg(disp, reduction="mean", weights=None):
         if reduction == "mean":
             return l2.mean()
         return per_sample.sum()
-    w = weights.to(per_sample.dtype)
+    share = RankShare.of(weights)
     if reduction == "mean":
-        return (per_sample * w).sum() / w.sum().clamp(min=1.0)
-    return (per_sample * w).sum()
+        return _batch_mean(per_sample, share)
+    return (per_sample * share.local.to(per_sample.dtype)).sum()
 
 
 @dataclasses.dataclass

@@ -11,6 +11,7 @@ The clamps of the variances use ``torch.maximum``, whose gradient at a tie
 is 1/2 as ``jnp.maximum``'s is."""
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import numpy as np
@@ -20,13 +21,38 @@ import torch.nn.functional as F
 from ..device import f32_precision
 
 
+@dataclasses.dataclass(frozen=True)
+class RankShare:
+    """The weights of one rank's rows of a global batch that ``ranks``
+    processes hold in equal parts (:mod:`..parallel.mesh`): ``local`` (b,)
+    this rank's, ``total`` the whole batch's weight ``max(sum, 1)`` (a
+    host number, or a 0-dim tensor for one tensor of the whole batch's).
+    Given as ``weights``, a loss returns this rank's share of the global
+    batch's weighted mean, and the shares of the ranks sum to it: each
+    rank's rows over ``total``, and a ``1 - mean`` form's 1 split as ``1
+    / ranks`` a rank."""
+    local: torch.Tensor
+    total: float | torch.Tensor
+    ranks: int = 1
+
+    @classmethod
+    def of(cls, weights):
+        """``weights`` as a share: a (B,) tensor is the whole batch's, on
+        one rank (the JAX package's form of the argument); None stays
+        None."""
+        if weights is None or isinstance(weights, cls):
+            return weights
+        return cls(weights, weights.sum().clamp(min=1.0))
+
+
 def _batch_mean(per_sample, weights):
     """Mean over the batch axis; with ``weights`` (B,) a weighted mean, so
-    zero-weight pad rows contribute nothing."""
+    zero-weight pad rows contribute nothing; with a :class:`RankShare`
+    this rank's share of the global weighted mean."""
     if weights is None:
         return per_sample.mean()
-    w = weights.to(per_sample.dtype)
-    return (per_sample * w).sum() / w.sum().clamp(min=1.0)
+    share = RankShare.of(weights)
+    return (per_sample * share.local.to(per_sample.dtype)).sum() / share.total
 
 
 def _reduce(per_sample_cc, weights, reduction):
@@ -34,7 +60,9 @@ def _reduce(per_sample_cc, weights, reduction):
     per-sample vector ``1 - cc_i``."""
     if reduction == "none":
         return 1.0 - per_sample_cc
-    return 1.0 - _batch_mean(per_sample_cc, weights)
+    share = RankShare.of(weights)
+    one = 1.0 if share is None else 1.0 / share.ranks
+    return one - _batch_mean(per_sample_cc, share)
 
 
 def ncc_loss(pred, target, weights=None, reduction="mean"):

@@ -45,7 +45,15 @@ class BatchNorm(nn.Module):
     ``batch_stats`` ``mean``/``var``. With ``train`` the batch's mean and
     biased variance (in f32) normalise and update the running averages by
     ``ra = momentum * ra + (1 - momentum) * stat`` (flax's momentum; torch's
-    is 1 minus it); without, the running averages normalise."""
+    is 1 minus it); without, the running averages normalise.
+
+    ``mesh`` (:func:`..parallel.mesh.attach`): in training the statistics
+    are those of the global batch of the mesh's ranks, pad rows included,
+    as flax's are under the JAX mesh: one differentiable ``all_reduce`` of
+    the per-channel sums of x and x^2; the running averages stay equal on
+    every rank."""
+
+    mesh = None
 
     def __init__(self, features, momentum=0.99, eps=1e-5):
         super().__init__()
@@ -60,8 +68,12 @@ class BatchNorm(nn.Module):
         if train:
             dims = [0] + list(range(2, x.dim()))
             xf = x.float()
-            mean = xf.mean(dim=dims)
-            var = ((xf * xf).mean(dim=dims) - mean * mean).clamp(min=0.0)
+            sums = torch.stack([xf.sum(dim=dims), (xf * xf).sum(dim=dims)])
+            count = xf.numel() // xf.shape[1]
+            if self.mesh is not None:
+                sums, count = self.mesh.sum(sums), count * self.mesh.size
+            mean, mean2 = sums / count
+            var = (mean2 - mean * mean).clamp(min=0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.mul_(m).add_((1.0 - m) * mean.detach())

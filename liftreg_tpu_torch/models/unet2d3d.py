@@ -42,7 +42,11 @@ class RegNet2D3D(nn.Module):
     and stores each step of the inverse iteration for the backward (its
     coordinates: 7 maps of 3 * 160^3 f32, under 1 GB at B = 1).
     ``backproject_chunk`` and ``project_chunk`` shape only the plain
-    versions' products."""
+    versions' products. ``mesh`` (:func:`..parallel.mesh.attach`): the
+    re-projections' min-max normalisation takes the extremes of the mesh's
+    global batch, as ``jnp.min``/``max`` do under the JAX mesh."""
+
+    mesh = None
 
     def __init__(self, img_sz, drr_feature_num=4,
                  enc_filters=(16, 32, 32, 32, 32),
@@ -153,7 +157,8 @@ class RegNet2D3D(nn.Module):
         def compute_proj(vol):
             p = project_taps_ad(vol[:, 0].contiguous(), *geometry,
                                 plane_chunk=self.project_chunk, plan=plan)
-            lo, hi = p.amin(), p.amax()
+            lo, hi = (p.amin(), p.amax()) if self.mesh is None \
+                else self.mesh.extremes(p)
             return (p - lo) / (hi - lo) * 2.0 - 1.0
 
         return {

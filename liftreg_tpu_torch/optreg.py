@@ -49,10 +49,11 @@ def upsample_grid(z, img_sz):
 
 
 def make_level(img_sz, grid_sz, sim="ncc", sim_opts=None, n_steps=60,
-               lr=0.02, reg_factor=1e-3, warp_taps_dtype=None):
+               lr=0.02, reg_factor=1e-3, warp_taps_dtype=None, mesh=None):
     """One pyramid level: Adam over a (B, 3, g, g, g) control grid.
 
-    Arguments as ``liftreg_tpu.optreg.make_level`` (without ``mesh``).
+    Arguments as ``liftreg_tpu.optreg.make_level``; with ``mesh`` each
+    rank registers its rows (:func:`.refine._build_refine`).
     Returns ``refine(z0, moving, target) -> dict`` with the contract of
     :func:`.refine._build_refine` (``coefs`` the best control grid per
     sample, ``phi`` and ``warped`` at full resolution,
@@ -75,7 +76,7 @@ def make_level(img_sz, grid_sz, sim="ncc", sim_opts=None, n_steps=60,
                                                          reduction="none")
         return total, (sim_loss, phi, warped)
 
-    steps = _build_refine(_losses, lr, n_steps)
+    steps = _build_refine(_losses, lr, n_steps, mesh=mesh)
 
     def refine(z0, moving, target):
         # the moving image is not differentiated: its taps, once a level
@@ -88,7 +89,8 @@ def make_level(img_sz, grid_sz, sim="ncc", sim_opts=None, n_steps=60,
 
 class DenseRegisterer:
     """Multi-level dense 3D-3D registration, as
-    ``liftreg_tpu.optreg.DenseRegisterer`` (without ``mesh``).
+    ``liftreg_tpu.optreg.DenseRegisterer`` (``mesh``: each rank registers
+    its rows of the mesh's batch).
 
     ``levels``: ``(grid, n_steps, lr)`` per level, coarse to fine; between
     levels the best iterate is resized to the next grid as the warm start.
@@ -99,7 +101,8 @@ class DenseRegisterer:
     control grid)."""
 
     def __init__(self, img_sz, levels=DEFAULT_LEVELS, sim="ncc",
-                 sim_opts=None, reg_factor=1e-3, warp_taps_dtype=None):
+                 sim_opts=None, reg_factor=1e-3, warp_taps_dtype=None,
+                 mesh=None):
         self.img_sz = tuple(int(s) for s in img_sz)
         self.levels = tuple((int(g), int(n), float(lr))
                             for g, n, lr in levels)
@@ -107,7 +110,7 @@ class DenseRegisterer:
             lambda g, n, lr: make_level(
                 self.img_sz, g, sim=sim, sim_opts=sim_opts, n_steps=n,
                 lr=lr, reg_factor=reg_factor,
-                warp_taps_dtype=warp_taps_dtype))
+                warp_taps_dtype=warp_taps_dtype, mesh=mesh))
 
     def launches(self):
         """Warp forwards and coordinate gradients of one call on the card:

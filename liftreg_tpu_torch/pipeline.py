@@ -99,6 +99,13 @@ class RegistrationPipeline:
     ``last_refine`` holds its output dict from the last call.
     ``settings`` holds every constructor argument that changes the result
     (a served artifact's meta carries them).
+
+    ``mesh`` (:mod:`.parallel.mesh`): the pipeline is one rank's, which
+    registers its rows of a batch that the mesh's ranks hold in equal
+    parts (:func:`.parallel.shard_batch`), on the mesh's device unless
+    ``device`` says otherwise; the refinement is the mesh's
+    (:func:`.refine.make_refiner`). ``mesh.gather_rows`` gives the whole
+    batch's phi or warped volume on every rank.
     """
 
     def __init__(self, img_sz=(160, 160, 160), latent_dim=56, n_proj=4,
@@ -108,8 +115,9 @@ class RegistrationPipeline:
                  refine_sim="ncc", refine_sim_opts=None,
                  refine_reg_factor=1e-3, refine_domain="image",
                  refine_early_stop_patience=None, refine_early_stop_tol=1e-4,
-                 device=None):
-        self.device = resolve_device(device)
+                 device=None, mesh=None):
+        self.device = resolve_device(device) \
+            if device is not None or mesh is None else mesh.device
         self.img_sz = tuple(int(s) for s in img_sz)
         self.spacing = tuple(float(s) for s in spacing)
         self.resolution = tuple(int(r) for r in resolution) \
@@ -155,7 +163,7 @@ class RegistrationPipeline:
         if refine_steps:
             self.refiner = build_refiner(self.img_sz, self.poses,
                                          self.resolution, self.spacing,
-                                         refine_domain, **opts)
+                                         refine_domain, mesh=mesh, **opts)
 
     def constants(self):
         """The tensors that every call reads besides the weights: the

@@ -11,6 +11,15 @@ of the warped attenuation against measured projections instead, and so
 also differentiates through the projector (its adjoint kernel). The loop
 runs eagerly; each step's autograd graph is freed before the next step.
 
+With ``mesh`` (:mod:`.parallel.mesh`) each rank refines its own rows of a
+batch that the mesh's ranks hold in equal parts, and computes what the
+JAX refiner computes on the whole (padded) batch under its mesh: the
+objective is the mean over the global batch (each rank divides by the
+global B, which Adam's eps can see), the early stop asks whether any row
+of any rank improved (one ``all_reduce`` a step), the histories are
+global means (one ``all_reduce`` at the end), and the projection
+domain's ``"minmax"`` normalisation takes the global extremes.
+
 Typical use::
 
     refiner = make_refiner((160, 160, 160), n_steps=30)
@@ -63,7 +72,7 @@ class Adam:
 
 
 def _build_refine(losses_fn, lr, n_steps, early_stop_patience=None,
-                  early_stop_tol=1e-4):
+                  early_stop_tol=1e-4, mesh=None):
     """The refinement loop: n_steps + 1 gradient evaluations (z_0, the
     unrefined prediction, through z_n; the last update is evaluated, not
     dropped) of ``losses_fn(z, *args) -> (per_sample_total (B,),
@@ -76,12 +85,21 @@ def _build_refine(losses_fn, lr, n_steps, early_stop_patience=None,
     total by more than ``early_stop_tol`` for ``k`` consecutive steps;
     history entries past the exit hold NaN and ``steps_run`` counts the
     evaluations made.
+
+    ``mesh``: the rows are this rank's of the mesh's global batch (the
+    module's docstring); every rank runs the same number of steps.
     """
 
     @f32_precision()
     def refine(coefs0, *args):
         z = coefs0.detach().float().clone()
         B = z.shape[0]
+        n_total = B * (1 if mesh is None else mesh.size)
+
+        def batch_mean(v):
+            """The mean over the global batch: this rank's share of it."""
+            return v.sum() / n_total
+
         opt = Adam(z, lr)
         best_z = z.clone()
         best_total = torch.full((B,), math.inf, device=z.device)
@@ -92,13 +110,15 @@ def _build_refine(losses_fn, lr, n_steps, early_stop_patience=None,
             with torch.enable_grad():
                 zg = z.detach().requires_grad_(True)
                 per_total, (per_sim, _, _) = losses_fn(zg, *args)
-                total = per_total.mean()
+                total = batch_mean(per_total)
                 (g,) = torch.autograd.grad(total, zg)
             per_total = per_total.detach()
             if early_stop_patience is not None:
                 # significant movement of any sample's best; the best
                 # tracking itself stays strict
                 improved = (per_total < best_total - early_stop_tol).any()
+                if mesh is not None:
+                    improved = mesh.any(improved)
                 stale = 0 if bool(improved) else stale + 1
             better = per_total < best_total
             # the (B,) mask over z's trailing dims: (B, L) coefficients, or
@@ -108,7 +128,7 @@ def _build_refine(losses_fn, lr, n_steps, early_stop_patience=None,
             best_total = torch.where(better, per_total, best_total)
             z = opt.step(z, g)
             totals.append(total.detach())
-            sims.append(per_sim.detach().mean())
+            sims.append(batch_mean(per_sim.detach()))
             steps_run += 1
             if early_stop_patience is not None \
                     and stale >= early_stop_patience:
@@ -116,18 +136,23 @@ def _build_refine(losses_fn, lr, n_steps, early_stop_patience=None,
 
         with torch.no_grad():
             sel_total, (sel_sim, phi, warped) = losses_fn(best_z, *args)
+            totals, sims = torch.stack(totals), torch.stack(sims)
+            sel = torch.stack([batch_mean(sel_total), batch_mean(sel_sim)])
+            if mesh is not None:
+                totals, sims, sel = mesh.all_reduce(torch.cat(
+                    [totals, sims, sel])).split([steps_run, steps_run, 2])
         nan = torch.full((n_steps + 1 - steps_run,), math.nan,
                          device=z.device)
-        totals = torch.cat([torch.stack(totals), nan])
-        sims = torch.cat([torch.stack(sims), nan])
+        totals = torch.cat([totals, nan])
+        sims = torch.cat([sims, nan])
         out = {
             "coefs": best_z,
             "phi": phi,
             "warped": warped,
             # entries 0..n-1: the batch-mean objective of z_0..z_{n-1}; the
             # last entry: that of the selected iterates
-            "total_history": torch.cat([totals[:-1], sel_total.mean()[None]]),
-            "sim_history": torch.cat([sims[:-1], sel_sim.mean()[None]]),
+            "total_history": torch.cat([totals[:-1], sel[:1]]),
+            "sim_history": torch.cat([sims[:-1], sel[1:]]),
             "total_per_sample": sel_total,
             "sim_per_sample": sel_sim,
         }
@@ -140,10 +165,11 @@ def _build_refine(losses_fn, lr, n_steps, early_stop_patience=None,
 
 def make_refiner(img_sz, sim="ncc", sim_opts=None, n_steps=30, lr=0.05,
                  reg_factor=1e-3, warp_taps_dtype=None, fast_vjp=False,
-                 early_stop_patience=None, early_stop_tol=1e-4):
+                 early_stop_patience=None, early_stop_tol=1e-4, mesh=None):
     """Build the refinement function for one volume geometry.
 
-    Arguments as ``liftreg_tpu.refine.make_refiner`` (without ``mesh``).
+    Arguments as ``liftreg_tpu.refine.make_refiner``; ``mesh`` a
+    :class:`.parallel.mesh.Mesh` whose ranks each refine their rows.
     ``fast_vjp`` is accepted and changes nothing: the JAX package's two
     warp VJPs give the same gradient, and the port has one.
 
@@ -171,7 +197,7 @@ def make_refiner(img_sz, sim="ncc", sim_opts=None, n_steps=30, lr=0.05,
 
     steps = _build_refine(_losses, lr, n_steps,
                           early_stop_patience=early_stop_patience,
-                          early_stop_tol=early_stop_tol)
+                          early_stop_tol=early_stop_tol, mesh=mesh)
 
     def refine(coefs0, pca, moving, target):
         # the moving image's taps are the same in every step: built once
@@ -192,13 +218,14 @@ def make_projection_refiner(img_sz, poses, resolution,
                             sim_opts=None, n_steps=30, lr=0.05,
                             reg_factor=1e-3, proj_norm="drr",
                             warp_taps_dtype=None, fast_vjp=False,
-                            early_stop_patience=None, early_stop_tol=1e-4):
+                            early_stop_patience=None, early_stop_tol=1e-4,
+                            mesh=None):
     """Projection-domain refinement: the objective needs no target CT, only
     the measured projections.
 
-    Arguments as ``liftreg_tpu.refine.make_projection_refiner`` (without
-    ``mesh``; ``fast_vjp`` is accepted and changes nothing, as in
-    :func:`make_refiner`). ``poses`` (P, 3) numpy or tensor in voxel units;
+    Arguments as ``liftreg_tpu.refine.make_projection_refiner`` and
+    :func:`make_refiner` (``fast_vjp`` is accepted and changes nothing).
+    ``poses`` (P, 3) numpy or tensor in voxel units;
     the projector's geometry is built once here, on the poses' device, and
     moved to the inputs' device if they lie elsewhere; the plan of its
     adjoint (:func:`.ops.drr_kernel.project_adjoint_plan`) is built once a
@@ -238,7 +265,8 @@ def make_projection_refiner(img_sz, poses, resolution,
         if proj_norm == "drr":
             return drr.normalize_drr(p)
         if proj_norm == "minmax":
-            lo, hi = p.amin(), p.amax()
+            lo, hi = (p.amin(), p.amax()) if mesh is None \
+                else mesh.extremes(p)
             return (p - lo) / (hi - lo) * 2.0 - 1.0
         return p
 
@@ -256,7 +284,7 @@ def make_projection_refiner(img_sz, poses, resolution,
 
     steps = _build_refine(_losses, lr, n_steps,
                           early_stop_patience=early_stop_patience,
-                          early_stop_tol=early_stop_tol)
+                          early_stop_tol=early_stop_tol, mesh=mesh)
 
     def refine(coefs0, pca, moving_atten, target_proj):
         taps = resample.warp_taps(moving_atten, scale_intensity=False,

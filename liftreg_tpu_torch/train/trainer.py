@@ -31,8 +31,22 @@ not, it prints one line saying so and writes every other output: the
 maps, the 3D volumes, the metrics.
 
 It runs on the CUDA card unless the caller passes ``device="cpu"``;
-without a card and without that it raises. Batches are not sharded: one
-card, and ``n_devices`` other than None or 1 raises.
+without a card and without that it raises.
+
+With ``n_devices`` N > 1 (or a ``mesh``) it is one rank of a data mesh
+(:mod:`..parallel.mesh`; start the ranks with ``parallel.launch`` or
+``main --n_devices N``) and computes what the JAX trainer computes on an
+N-device mesh: every batch is padded to ``ceil(B / N) * N`` rows (pad
+rows weighted 0 in the losses, but counted in batch-norm statistics and
+RegNet2D3D's min-max normalisation, as under the JAX mesh), each rank
+loads and runs its own rows, its losses are its shares of the global
+weighted means (:class:`..losses.similarity.RankShare`), and after the
+backward one ``all_reduce`` sums the flat f32 gradients and one the loss
+scalars, so that Adam, the rollback of a non-finite step and the logged
+losses are the same on every rank. Validation gathers the ranks' outputs
+and every rank computes the metrics of the whole batch (the learning-rate
+schedule reads them); rank 0 alone writes logs, figures and checkpoints,
+and a resume or warm start is read on rank 0 and broadcast.
 """
 from __future__ import annotations
 
@@ -46,12 +60,13 @@ import torch
 
 from ..data.dataset import (DataLoader, DeviceDataLoader, DeviceDatasetCache,
                             get_dataset, pad_batch)
-from ..device import f32_precision, resolve_device, resolve_dtype
+from ..device import f32_precision, resolve_dtype
 from ..losses.registration import get_loss
-from ..losses.similarity import ncc_loss
+from ..losses.similarity import RankShare, ncc_loss
 from ..models import get_model
 from ..ops.fd import compute_jacobi_map
 from ..ops.resample import warp_image
+from ..parallel import mesh as mesh_lib
 from ..pca import load_pca
 from ..utils import visualize
 from ..utils.checkpoint import resume_train, save_checkpoint
@@ -62,7 +77,8 @@ from ..utils.metrics import get_multi_metric
 from .base import TrainerBase
 from .optim import apply_updates, build_optimizer
 
-__all__ = ["MetricsLogger", "RegistrationTrainer", "load_pca"]
+__all__ = ["MetricsLogger", "RegistrationTrainer", "load_pca",
+           "loss_and_grads"]
 
 
 class MetricsLogger:
@@ -93,6 +109,16 @@ class MetricsLogger:
         self.jsonl.close()
         if self.tb is not None:
             self.tb.close()
+
+
+class _NoLogger:
+    """The logger of a rank other than 0, which writes no log."""
+
+    def add_scalar(self, tag, value, step):
+        pass
+
+    def close(self):
+        pass
 
 
 # Reference-schema config keys this trainer accepts but does not consume,
@@ -154,17 +180,51 @@ def _to_device(tree, device):
     return tree
 
 
+def _tensors(tree):
+    """The tensors of nested dicts, in order."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _tensors(v)]
+    return []
+
+
+def loss_and_grads(model, loss, params, batch, pca, reg_factor, weights,
+                   mesh):
+    """One rank's forward, loss and backward of its rows of the batch,
+    then the mesh's two reductions: one ``all_reduce`` of the gradients'
+    flat f32 buffer and one of the loss scalars. ``weights`` is the
+    rows' :class:`..losses.similarity.RankShare`; ``params`` the model's
+    named parameters. Returns ``(losses, grads)`` of the global batch,
+    detached, the same on every rank."""
+    keys = list(params)
+    with f32_precision():
+        out = model(batch, pca)
+        losses = loss(out, reg_factor, weights=weights)
+        grads = torch.autograd.grad(losses["total_loss"],
+                                    [params[k] for k in keys])
+    del out
+    with torch.no_grad():
+        flat = mesh.all_reduce(torch.cat([g.reshape(-1) for g in grads]))
+        grads = [f.view_as(g) for f, g in zip(
+            flat.split([g.numel() for g in grads]), grads)]
+        values = mesh.all_reduce(torch.stack(
+            [v.detach().float() for v in losses.values()]))
+    return dict(zip(losses, values.unbind())), dict(zip(keys, grads))
+
+
 class RegistrationTrainer(TrainerBase):
     """Construct from a ``ParameterDict`` or a plain nested dict with the
     ``cur_task_setting.json`` schema. ``device`` None means the CUDA card
     (raises without one); ``"cpu"`` runs the kernels' plain versions."""
 
     def __init__(self, setting, n_devices: Optional[int] = None,
-                 device=None):
-        if n_devices not in (None, 1):
-            raise ValueError(f"n_devices={n_devices}: the port trains on one "
-                             "card and does not shard batches")
-        self.device = resolve_device(device)
+                 device=None, mesh: Optional[mesh_lib.Mesh] = None):
+        # the mesh is needed before the loaders, for the mesh-divisible
+        # batch and this rank's rows of it
+        self.mesh = mesh if mesh is not None \
+            else mesh_lib.make_mesh(n_devices, device)
+        self.device = self.mesh.device
         get = lambda d, k, default=None: (d[k] if k in d else default)  # noqa: E731
         # every key read is recorded, so that construction can report the
         # keys it accepted but never consumed
@@ -188,9 +248,17 @@ class RegistrationTrainer(TrainerBase):
                                         option=dataset_setting)
                          for p in phases}
         shuffle_idx = {"train": 0, "val": 1, "test": 3, "debug": 2}
-        # train drops the partial final batch; eval phases pad it
+        # train drops the partial final batch; eval phases pad it. Every
+        # batch is padded to a multiple of the mesh's ranks
         self.batch_size = batch_size
-        self._target_b = batch_size
+        n_mesh = self.mesh.size
+        self._target_b = -(-batch_size // n_mesh) * n_mesh
+        self._local_b = self._target_b // n_mesh
+        if self._target_b != batch_size and self.mesh.rank == 0:
+            print(f"note: batch_size {batch_size} is not divisible by the "
+                  f"{n_mesh}-rank mesh; padding every batch to "
+                  f"{self._target_b}")
+        shard = (self.mesh.rank, n_mesh)
 
         cache_cfg = get(train_setting, "cache_on_device", "auto")
         use_cache = (cache_cfg if isinstance(cache_cfg, bool)
@@ -204,12 +272,12 @@ class RegistrationTrainer(TrainerBase):
                 self.loaders[p] = DeviceDataLoader(
                     cache, batch_size=batch_size,
                     shuffle=bool(shuffle[shuffle_idx[p]]),
-                    drop_last=drop_last, pad_to=self._target_b)
+                    drop_last=drop_last, pad_to=self._target_b, shard=shard)
             else:
                 self.loaders[p] = DataLoader(
                     self.datasets[p], batch_size=batch_size,
                     shuffle=bool(shuffle[shuffle_idx[p]]),
-                    drop_last=drop_last)
+                    drop_last=drop_last, pad_to=self._target_b, shard=shard)
 
         self.img_sz = tuple(get(dataset_setting, "img_after_resize",
                                 (160, 160, 160)))
@@ -275,6 +343,9 @@ class RegistrationTrainer(TrainerBase):
             torch.manual_seed(int(get(train_setting, "seed", 2021)))
             self.model = model_cls(**model_kwargs)
         self.model.to(self.device)
+        if n_mesh > 1:
+            # batch norm and RegNet2D3D's normalisation over the global batch
+            mesh_lib.attach(self.model, self.mesh)
         pca_path = model_cfg.get("pca_path", "")
         pca_dtype = resolve_dtype(model_cfg.get("pca_dtype"), "pca_dtype")
         self.pca = load_pca(pca_path, dtype=pca_dtype, device=self.device) \
@@ -299,17 +370,19 @@ class RegistrationTrainer(TrainerBase):
         self.start_epoch = 0
         self.global_step = {p: 0 for p in ("train", "val", "debug", "test")}
         # warm start: parameters from a checkpoint (of either package),
-        # everything else fresh
+        # everything else fresh. Checkpoints are read on rank 0, whose state
+        # every rank takes below
+        read = resume_train if self.mesh.rank == 0 else lambda path: None
         init_from = get(train_setting, "init_params_from", "")
         if self.mode == "train" and init_from:
-            restored = resume_train(init_from)
+            restored = read(init_from)
             if restored:
                 self._load_params(init_from, restored[2]["params"])
                 print(f"=> warm start: params from '{init_from}' "
                       "(epoch/optimizer/schedule state fresh)", flush=True)
         if self.mode == "train" and get(train_setting, "continue_train", False):
             path = train_setting["continue_from"]
-            restored = resume_train(path)
+            restored = read(path)
             if restored:
                 self.start_epoch, self.global_step, state = restored
                 self._load_params(path, state["params"])
@@ -322,18 +395,32 @@ class RegistrationTrainer(TrainerBase):
                     self.lr_scheduler.base_lr = continue_lr
         elif self.mode == "test":
             path = train_setting["test_from"]
-            restored = resume_train(path)
+            restored = read(path)
             if restored:
                 self.start_epoch, self.global_step, state = restored
                 self._load_params(path, state["params"])
+        self._take_rank0_state()
 
         self.cur_epoch = self.start_epoch
         self.iter_count = 0
-        self.writer = MetricsLogger(self.log_path) if self.mode == "train" \
-            else None
+        self.writer = None if self.mode != "train" \
+            else MetricsLogger(self.log_path) if self.mesh.rank == 0 \
+            else _NoLogger()
         self.config_warnings = self._audit_config_keys(setting)
 
     # ------------------------------------------------------------------
+    def _take_rank0_state(self):
+        """Every rank takes rank 0's parameters, buffers, optimizer state,
+        schedule and counters (broadcast from rank 0)."""
+        if self.mesh.group is None:
+            return
+        self.start_epoch, self.global_step, self.lr_scheduler = \
+            self.mesh.broadcast_object(
+                (self.start_epoch, self.global_step, self.lr_scheduler))
+        for t in _tensors(self.model.state_dict()) \
+                + _tensors(self.opt_state):
+            self.mesh.broadcast(t)
+
     def _load_params(self, path, state_dict):
         """Tolerant restore: entries missing from the checkpoint keep their
         values; a checkpoint that matches fewer than half of the model's
@@ -401,22 +488,24 @@ class RegistrationTrainer(TrainerBase):
         return total
 
     # ------------------------------------------------------------------
+    def _weights(self, n_valid):
+        """This rank's share of a padded batch whose first ``n_valid`` rows
+        are real: pad rows carry no gradient."""
+        w = (torch.arange(self._target_b, device=self.device)
+             < n_valid).float()
+        return RankShare(w[self.mesh.rows(self._target_b)],
+                         float(min(n_valid, self._target_b)), self.mesh.size)
+
     def _train_step(self, batch, reg_factor, n_valid):
-        """Forward, loss, backward and optimizer update of one batch; the
-        update is kept only where the loss is finite (decided on the
-        card). Returns the losses as device scalars, with ``finite``."""
-        keys = list(self.params)
-        # pad rows carry no gradient
-        weights = (torch.arange(self._target_b, device=self.device)
-                   < n_valid).float()
-        with f32_precision():
-            out = self.model(batch, self.pca)
-            losses = self.loss(out, reg_factor, weights=weights)
-            grads = torch.autograd.grad(losses["total_loss"],
-                                        [self.params[k] for k in keys])
-        del out
+        """Forward, loss, backward and optimizer update of one batch (this
+        rank's rows; ``n_valid`` real rows in the global batch); the update
+        is kept only where the global loss is finite (decided on the
+        card, the same on every rank). Returns the global losses as device
+        scalars, with ``finite``."""
+        losses, grads = loss_and_grads(
+            self.model, self.loss, self.params, batch, self.pca, reg_factor,
+            self._weights(n_valid), self.mesh)
         with torch.no_grad():
-            grads = dict(zip(keys, grads))
             updates, new_state = self.tx.update(grads, self.opt_state,
                                                 self.params)
             new_params = apply_updates(self.params, updates)
@@ -424,7 +513,6 @@ class RegistrationTrainer(TrainerBase):
             for k, p in self.params.items():
                 p.copy_(torch.where(finite, new_params[k], p))
             self.opt_state = _where_tree(finite, new_state, self.opt_state)
-        losses = {k: v.detach() for k, v in losses.items()}
         losses["finite"] = finite
         return losses
 
@@ -457,13 +545,13 @@ class RegistrationTrainer(TrainerBase):
             yield prev
 
     def set_input(self, batch_names, epoch):
-        """Pad a short batch to the batch size (a card-resident loader's
-        batches come padded) and put it on the trainer's device."""
+        """Pad a short batch to this rank's rows (the loaders' batches come
+        padded) and put it on the trainer's device."""
         batch, names = batch_names
         b = next(v.shape[0] for v in batch.values()
                  if hasattr(v, "ndim") and v.ndim > 0)
-        if b != self._target_b:
-            batch, _ = pad_batch(batch, self._target_b)
+        if b != self._local_b:
+            batch, _ = pad_batch(batch, self._local_b)
         batch = {k: torch.as_tensor(v).to(self.device, non_blocking=True)
                  for k, v in batch.items()}
         return batch, names
@@ -489,7 +577,7 @@ class RegistrationTrainer(TrainerBase):
         return metrics
 
     def _maybe_profile(self):
-        if not self.profile_dir:
+        if not self.profile_dir or self.mesh.rank != 0:
             return
         step = self.global_step["train"]
         if step == 3 and self._profiler is None:
@@ -607,22 +695,30 @@ class RegistrationTrainer(TrainerBase):
 
     def val_step(self, batch, names, phase, save_fig=False, debug_on=False):
         eval_out, out = self._eval_step(batch)
-        # drop the pad rows: metrics, figures and saved maps cover only the
-        # real samples
         nv = len(names)
-        eval_out = {k: v[:nv] for k, v in eval_out.items()}
-        out = {k: (v[:nv] if hasattr(v, "ndim") and v.ndim > 0
-                   and v.shape[0] > nv else v) for k, v in out.items()}
-        batch = {k: (v[:nv] if hasattr(v, "ndim") and v.ndim > 0
-                     and v.shape[0] > nv else v) for k, v in batch.items()}
         losses = None
         if phase == "val" and debug_on:
-            reg_factor = self.loss.factor(self.cur_epoch)
+            # the global means over the real rows
             with torch.no_grad():
-                losses = {k: float(v) for k, v in
-                          self.loss(out, reg_factor).items()}
+                losses = self.loss(out, self.loss.factor(self.cur_epoch),
+                                   weights=self._weights(nv))
+                values = self.mesh.all_reduce(torch.stack(
+                    [v.float() for v in losses.values()]))
+            losses = dict(zip(losses, values.tolist()))
+        # the ranks' rows of the outputs, and of what the metrics and
+        # figures read of the batch
+        eval_out = {k: self.mesh.gather_rows(v) for k, v in eval_out.items()}
+        keys = ("source", "target", "source_label", "target_label") \
+            if save_fig else ("target_label",)
+        batch = {k: self.mesh.gather_rows(batch[k]) for k in keys
+                 if k in batch}
+        # drop the pad rows: metrics, figures and saved maps cover only the
+        # real samples
+        eval_out = {k: v[:nv] for k, v in eval_out.items()}
+        batch = {k: (v[:nv] if hasattr(v, "ndim") and v.ndim > 0
+                     and v.shape[0] > nv else v) for k, v in batch.items()}
         metrics = self._compute_metrics(eval_out, batch)
-        if save_fig:
+        if save_fig and self.mesh.rank == 0:
             self._save_fig(eval_out, batch, names, phase)
             if self.save_3d_img:
                 self._save_fig_3d(eval_out, names, phase)
@@ -679,6 +775,10 @@ class RegistrationTrainer(TrainerBase):
         return lr
 
     def save_model(self, prefix, is_best):
+        """Write a checkpoint (rank 0 only); returns its path, or None on
+        the other ranks."""
+        if self.mesh.rank != 0:
+            return None
         state = {"epoch": self.cur_epoch, "params": self.model.state_dict(),
                  "opt_state": self.opt_state,
                  "global_step": self.global_step,
@@ -759,11 +859,12 @@ class RegistrationTrainer(TrainerBase):
         if self._profiler is not None:
             self._stop_profile()
         elapsed = time.time() - since
-        print("Training complete in {:.0f}m {:.0f}s".format(
-            elapsed // 60, elapsed % 60))
-        print("Best val score : {:4f} is at epoch {}".format(best_score,
-                                                             best_epoch))
-        print(f"Best val metrics:{best_metrics}")
+        if self.mesh.rank == 0:
+            print("Training complete in {:.0f}m {:.0f}s".format(
+                elapsed // 60, elapsed % 60))
+            print("Best val score : {:4f} is at epoch {}".format(
+                best_score, best_epoch))
+            print(f"Best val metrics:{best_metrics}")
         for k, v in best_metrics.items():
             self.writer.add_scalar(f"Best_metrics/{k}", v, 0)
         self.writer.close()
@@ -777,8 +878,9 @@ class RegistrationTrainer(TrainerBase):
             nb += 1
             for k, v in metrics.items():
                 running[k] = running.get(k, 0.0) + v
-        for k, v in running.items():
-            print(f"{k}: {v / max(nb, 1)}")
         elapsed = time.time() - since
-        print("Testing complete in {:.0f}m {:.0f}s".format(
-            elapsed // 60, elapsed % 60))
+        if self.mesh.rank == 0:
+            for k, v in running.items():
+                print(f"{k}: {v / max(nb, 1)}")
+            print("Testing complete in {:.0f}m {:.0f}s".format(
+                elapsed // 60, elapsed % 60))

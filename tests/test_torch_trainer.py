@@ -18,8 +18,11 @@ summed in another order).
 Also: a non-finite batch rolls back parameters and moments and ends in
 ``SystemExit(42)`` with a checkpoint; a partial evaluation batch is
 padded, from the card-resident loader and from the host loader; resume
-restores epoch, steps and parameters; the CLI trains 2 epochs end to end;
-the config audit; and the default device needs a card.
+restores epoch, steps and parameters; the CLI trains 2 epochs end to end,
+in one process and with ``--n_devices 2 --device cpu`` on two gloo ranks
+(per-step losses within 1e-5 relative of the one-process run's, the same
+batches split across the ranks); the config audit; and the default device
+needs a card, and more ranks than visible cards raise.
 """
 import json
 import os
@@ -198,9 +201,18 @@ def test_cli_trains_two_epochs(runs, tmp_path):
     assert sorted(m["Val_metrics/score"]) == [0, 1]
     assert os.path.isfile(os.path.join(exp, "cur_task_setting.json"))
     assert os.path.isfile(tmp_path / "profile" / "trace.json")
-    with pytest.raises(SystemExit):
-        main(["-o", str(out), "-d", runs["root"], "-e", "cli", "-s",
-              str(sdir), "--device", "cpu", "--n_devices", "2"])
+    # the same run on a data mesh of two gloo ranks, one row each
+    two = main(["-o", str(tmp_path / "out2"), "-d", runs["root"], "-e",
+                "cli", "-s", str(sdir), "--device", "cpu", "--n_devices",
+                "2"])
+    assert two["global_step"]["train"] == STEPS
+    assert sorted(os.listdir(two["check_point_path"])) == ckpts
+    m2 = read_metrics(os.path.dirname(two["check_point_path"]))
+    for key in LOSS_KEYS:
+        want = m[f"Train/{key}"]
+        assert sorted(m2[f"Train/{key}"]) == sorted(want)
+        for step, v in want.items():
+            assert m2[f"Train/{key}"][step] == pytest.approx(v, rel=1e-5)
 
 
 def test_config_audit_and_registry(runs, tmp_path):
@@ -215,8 +227,24 @@ def test_config_audit_and_registry(runs, tmp_path):
         is RegistrationTrainer
     with pytest.raises(KeyError):
         get_network("nope")
-    with pytest.raises(ValueError):
-        RegistrationTrainer(cfg, n_devices=2, device="cpu")
+
+
+def test_more_ranks_than_cards_raise(runs, tmp_path, monkeypatch):
+    """Two ranks with one visible card raise before any experiment folder
+    is made, from the trainer and from the CLI."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    cfg = setting(runs["root"], str(tmp_path / "exp"))
+    with pytest.raises(RuntimeError, match="2-device mesh but only 1"):
+        RegistrationTrainer(cfg, n_devices=2)
+    from liftreg_tpu_torch.main import main
+    sdir = tmp_path / "setting"
+    sdir.mkdir()
+    (sdir / "cur_task_setting.json").write_text(json.dumps(cfg))
+    with pytest.raises(RuntimeError, match="2-device mesh but only 1"):
+        main(["-o", str(tmp_path / "out"), "-d", runs["root"], "-e", "cli",
+              "-s", str(sdir), "--n_devices", "2"])
+    assert not os.path.exists(tmp_path / "out")
 
 
 def test_default_device_needs_cuda(runs, tmp_path, monkeypatch):
