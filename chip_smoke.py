@@ -50,7 +50,8 @@ line with its elapsed seconds:
    refine_projection: the same with refine_domain="projection" (each step
    differentiates the projector through its adjoint kernel), through
    register and then register_projections, each with its counts zeroed
-   just before and read just after and checked exactly, and each case no
+   just before and read just after and checked exactly (the adjoint's
+   plan once, at the refiner's first call, and kept), and each case no
    worse than unrefined;
 6. glue_check: one register call without refinement and one with each
    domain's refinement under a dispatch mode that sees every aten op: no
@@ -103,10 +104,28 @@ line with its elapsed seconds:
    forward warping the batch's masked source with f32 and bf16 taps, and
    the coordinate gradient of both;
    train_bf16: 3 steps with configs/fast_train's dtypes (bf16 encoder,
-   basis and taps, s2d_encoder) at the same batch: each step also launches
-   the PCA expansion and its backward once per 8 rows, which are held
-   against their plain versions on the bf16 model's coefficients and
-   basis at B = 30;
+   basis and taps, s2d_encoder: each step runs the encoder's first two
+   stages as space-to-depth convolutions, counted) at the same batch: each
+   step also launches the PCA expansion and its backward once per 8 rows,
+   which are held against their plain versions on the bf16 model's
+   coefficients and basis at B = 30; then 3 steps of the same trainer with
+   those stages plain, timed beside them;
+   s2d: the encoder's first two stages as space-to-depth convolutions
+   (liftreg_tpu_torch/models/s2d.py) against the plain ConvBlock pair on
+   the same seeded parameters (tools/torch_s2d_stages.py): 160^3, 5 -> 16
+   -> 32 channels, f32 and bf16, B = 30 and 4, cudnn.benchmark off and
+   on: the forward's and each parameter gradient's difference within
+   S2D_REL_TOL and S2D_GRAD_REL_TOL, and ms of each form's forward and
+   forward + backward beside its bound; one reference train step (f32,
+   B = 30) with s2d_encoder on against the train phase's plain step from
+   the same parameters on the same batch: the losses within
+   S2D_STEP_LOSS_REL, each leaf's gradient within S2D_STEP_GRAD_RTOL, the
+   s2d stages run once, the step's launches exact, 3 steps timed and the
+   peak memory; register at main_path's config with s2d_encoder on
+   against the plain pipeline: phi and warped within S2D_REGISTER_TOL,
+   launches exact, the s2d stages run once, both timed in turns;
+   profile_train_s2d: one reference step with s2d_encoder on under
+   torch.profiler (as profile_train);
    profile_train: one reference step under torch.profiler (as in 10);
    then the training run's trainer and batch are freed;
    train_host_loader / train_device_loader: one epoch of 3 reference steps
@@ -252,7 +271,7 @@ pair of optreg_oracle and one variant of optreg_objective_ab,
 ``dirlab_launches`` from the whole of dirlab_chain; the image gradient's
 ``bf16_taps_*`` times), and last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero; so does a
-missing card, and a watchdog after 15 minutes.
+missing card, and a watchdog after 18 minutes.
 """
 import contextlib
 import csv
@@ -269,7 +288,7 @@ import threading
 import time
 import weakref
 
-WATCHDOG_S = 900
+WATCHDOG_S = 1080
 # H100 SXM data sheet: HBM3 rate, dense bf16 tensor-core and f32 peaks
 HBM_BYTES_PER_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
@@ -465,6 +484,37 @@ DIRLAB_LANDMARKS = 300
 DIRLAB_EPOCHS = 2
 DIRLAB_INITIAL_TOL = 0.01
 DIRLAB_SEED = 5
+
+# s2d: the encoder's first two stages in their space-to-depth form
+# (liftreg_tpu_torch/models/s2d.py) against the plain ConvBlock pair on
+# the same seeded parameters (tools/torch_s2d_stages.py: 160^3, f32 and
+# bf16, B = 30 and 4, cudnn.benchmark off and on): the forward within
+# S2D_REL_TOL of the plain forward's largest value, each parameter's
+# gradient within S2D_GRAD_REL_TOL of the plain gradient's largest (the
+# same sums in another order; in bf16 each form rounds its stage-0 output
+# and the gradients into it once). The weight gradients of a random
+# cotangent cancel over the B x 80^3 or 160^3 voxels they sum, so their
+# order's rounding shows at ~1e-3 of the result in f32 and ~4e-2 in bf16
+# (measured on an H100: at most 1.3e-6 and 1.25e-3 in f32, 5.5e-3 and
+# 3.6e-2 in bf16)
+S2D_REL_TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -6}
+S2D_GRAD_REL_TOL = {"float32": 5e-3, "bfloat16": 2.0 ** -3}
+# and one reference train step (f32, B = 30) with s2d_encoder on against
+# the plain step from the same parameters on the same batch: the loss
+# within S2D_STEP_LOSS_REL relative, each leaf's gradient within
+# S2D_STEP_GRAD_RTOL of its largest value; then S2D_STEP_TIMED steps
+# timed after a warm-up. register with s2d_encoder on (main_path's bf16
+# config and weights) against the plain pipeline: phi within
+# S2D_REGISTER_TOL[0] and warped within [1] (a bf16 encoder's coefficients
+# round differently in the two forms); S2D_REGISTER_TIMED calls of each in
+# turns (plain, s2d, s2d, plain) after 2 warm-ups. Measured on an H100:
+# the losses equal, the gradients at most 1.1e-4 of their leaf's largest
+# value; phi 2.1e-5 and warped 2.9e-3 apart (random-noise volumes)
+S2D_STEP_LOSS_REL = 1e-5
+S2D_STEP_GRAD_RTOL = 1e-3
+S2D_STEP_TIMED = 3
+S2D_REGISTER_TOL = (1e-4, 1e-2)
+S2D_REGISTER_TIMED = 5
 
 # image_grad_bf16_check: the image gradient of bf16 taps (the f32 kernel's
 # sums, cast to bf16 once) against its plain version, within the f32
@@ -1409,11 +1459,16 @@ def serving_phase(torch, kernels, pipe, pca, args, proj, refined, root,
             want = pipe_r.register(pca_r, *args_r)
             sync()
             live_launches = _counts(kernels)
+            # the served refiner, rebuilt at load, builds the adjoint's
+            # plan at its first call; the live one kept its own
+            first_plan = int(domain == "projection" and device == "cuda")
             row = {"phi_max_abs_diff": _max_err(got[1], want[1]),
                    "warped_max_abs_diff": _max_err(got[0], want[0]),
                    "bit_equal": all(bool(torch.equal(a, b))
                                     for a, b in zip(got, want)),
-                   "launches_equal_live": served_launches == live_launches,
+                   "launches_equal_live": served_launches == dict(
+                       live_launches, drr_adjoint_plan=live_launches[
+                           "drr_adjoint_plan"] + first_plan),
                    "launches": served_launches,
                    "history_first_last": [
                        float(srv_r.last_refine["total_history"][0]),
@@ -1917,6 +1972,148 @@ def dirlab_parity(root, chain):
 
 
 
+@contextlib.contextmanager
+def counted(module, name):
+    """Within the block, ``module.name`` counts its calls: yields a list
+    that holds one entry per call."""
+    fn, calls = getattr(module, name), []
+
+    def wrapper(*args, **kw):
+        calls.append(1)
+        return fn(*args, **kw)
+
+    setattr(module, name, wrapper)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, fn)
+
+
+def s2d_phase(torch, kernels, s2d, tr, batch, names, train_root,
+              expected_step, main_path, serving_launches):
+    """The s2d phase (see the constants above): ``tr`` is the train phase's
+    trainer (the reference config, plain encoder) and ``batch``/``names``
+    its step's batch; ``main_path`` (pipeline, basis, register's inputs)
+    and ``serving_launches`` main_path's. Returns the phase's numbers and
+    the s2d trainer; raises where a check fails."""
+    from liftreg_tpu_torch.pipeline import RegistrationPipeline
+    from liftreg_tpu_torch.train import RegistrationTrainer
+    from liftreg_tpu_torch.train.trainer import loss_and_grads
+    from tools import torch_s2d_stages
+
+    out = {"stages": []}
+    # (a) stages 0+1 alone, both forms
+    for dtype_name in torch_s2d_stages.DTYPES:
+        for b in torch_s2d_stages.BATCHES:
+            out["stages"] += torch_s2d_stages.measure(torch, b, dtype_name,
+                                                      batch["source"].device)
+    for line in out["stages"]:
+        err = line["rel_err"]
+        _require(err["forward"] <= S2D_REL_TOL[line["dtype"]]
+                 and all(err[k] <= S2D_GRAD_REL_TOL[line["dtype"]]
+                         for k in ("w0", "b0", "w1", "b1")),
+                 f"the s2d stages disagree with the plain pair: {line}")
+
+    # (b) one reference step with s2d_encoder on, from the same parameters
+    # on the same batch
+    cfg = train_setting(TRAIN_CONFIG, os.path.join(train_root, "data"),
+                        os.path.join(train_root, "out_s2d"), epoch=0,
+                        debug_on=False)
+    cfg["train"]["model"]["s2d_encoder"] = True
+    tr_s = RegistrationTrainer(cfg)
+    tr_s.model.load_state_dict(tr.model.state_dict())
+    reg = tr.loss.factor(tr.cur_epoch)
+    step = {}
+    with counted(s2d, "conv_pair_s2d") as calls:
+        got = loss_and_grads(tr_s.model, tr_s.loss, tr_s.params, batch,
+                             tr_s.pca, reg, tr_s._weights(len(names)),
+                             tr_s.mesh)
+    want = loss_and_grads(tr.model, tr.loss, tr.params, batch, tr.pca, reg,
+                          tr._weights(len(names)), tr.mesh)
+    step["s2d_calls"] = len(calls)
+    step["loss_rel_diff"] = {
+        k: abs(float(got[0][k]) - float(v)) / abs(float(v))
+        for k, v in want[0].items() if float(v) != 0.0}
+    step["grad_rel_diff"] = {
+        k: float((got[1][k] - g).abs().max() / g.abs().max())
+        for k, g in want[1].items()}
+    del got, want
+    torch.cuda.synchronize()
+    _zero(kernels)
+    tr_s.step(batch, names)
+    torch.cuda.synchronize()
+    step["launches"] = _counts(kernels)
+    torch.cuda.reset_peak_memory_stats()
+    step["step_ms"] = []
+    for _ in range(S2D_STEP_TIMED):
+        t0 = time.perf_counter()
+        tr_s.step(batch, names)
+        torch.cuda.synchronize()
+        step["step_ms"].append((time.perf_counter() - t0) * 1e3)
+    step["step_ms_median"] = statistics.median(step["step_ms"])
+    step["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    _require(all(bool(l["finite"]) for _, l in tr_s._pending_losses),
+             "a non-finite loss in the s2d train steps")
+    tr_s._pending_losses.clear()
+    out["train_step"] = step
+    _require(step["s2d_calls"] == 1,
+             f"the s2d step ran the s2d stages {step['s2d_calls']} times")
+    _require(step["launches"] == expected_step,
+             f"the s2d train step launched {step['launches']}")
+    _require(max(step["loss_rel_diff"].values()) <= S2D_STEP_LOSS_REL
+             and max(step["grad_rel_diff"].values()) <= S2D_STEP_GRAD_RTOL,
+             f"the s2d train step disagrees with the plain step: {step}")
+
+    # (c) register at main_path's config with s2d_encoder on, against the
+    # plain pipeline on the same weights and inputs
+    pipe, pca, args = main_path
+    pipe_s = RegistrationPipeline(pipe.img_sz, latent_dim=LATENT,
+                                  compute_dtype=torch.bfloat16,
+                                  s2d_encoder=True)
+    pipe_s.model.load_state_dict(pipe.model.state_dict())
+    reg_line = {}
+    with counted(s2d, "conv_pair_s2d") as calls:
+        _zero(kernels)
+        got = pipe_s.register(pca, *args)
+        torch.cuda.synchronize()
+        reg_line["launches"] = _counts(kernels)
+    want = pipe.register(pca, *args)
+    reg_line["s2d_calls"] = len(calls)
+    reg_line["phi_max_abs_diff"] = _max_err(got[1], want[1])
+    reg_line["warped_max_abs_diff"] = _max_err(got[0], want[0])
+    del got, want
+    calls_ms = {"plain": [], "s2d": []}
+    for p in (pipe, pipe_s):
+        for _ in range(2):
+            p.register(pca, *args)
+    torch.cuda.synchronize()
+    for name, p in (("plain", pipe), ("s2d", pipe_s), ("s2d", pipe_s),
+                    ("plain", pipe)):
+        for _ in range(S2D_REGISTER_TIMED):
+            t0 = time.perf_counter()
+            p.register(pca, *args)
+            torch.cuda.synchronize()
+            calls_ms[name].append((time.perf_counter() - t0) * 1e3)
+    reg_line["calls_ms"] = calls_ms
+    reg_line["plain_ms"] = statistics.mean(calls_ms["plain"])
+    reg_line["s2d_ms"] = statistics.mean(calls_ms["s2d"])
+    out["register"] = reg_line
+    del pipe_s
+    torch.cuda.empty_cache()
+    _require(reg_line["s2d_calls"] == 1
+             and reg_line["launches"] == serving_launches,
+             f"the s2d register: {reg_line}")
+    _require(reg_line["phi_max_abs_diff"] <= S2D_REGISTER_TOL[0]
+             and reg_line["warped_max_abs_diff"] <= S2D_REGISTER_TOL[1],
+             f"the s2d register disagrees with the plain one: {reg_line}")
+    out["tol"] = {"stages_forward_rel": S2D_REL_TOL,
+                  "stages_grad_rel": S2D_GRAD_REL_TOL,
+                  "step_loss_rel": S2D_STEP_LOSS_REL,
+                  "step_grad_rel": S2D_STEP_GRAD_RTOL,
+                  "register": S2D_REGISTER_TOL}
+    return out, tr_s
+
+
 def _kernel_table():
     """The kernels' wrappers by name; each counts its launches."""
     from liftreg_tpu_torch.ops.drr_kernel import (backproject_taps,
@@ -2309,6 +2506,7 @@ def main():
     import torch.nn.functional as F
 
     from liftreg_tpu_torch import RegistrationPipeline
+    from liftreg_tpu_torch.models import s2d
     from liftreg_tpu_torch.models.subspace_backproj import mask_lung
     from liftreg_tpu_torch.ops import resample
     from liftreg_tpu_torch.ops import _build, drr, warp_kernel
@@ -2811,7 +3009,7 @@ def main():
     res_p = pipe_p.last_refine
     # the target DRR, N+1 steps and the final evaluation; the encoder's
     # warp, N+2 in the refiner and the rewarp of the masked CT; one plan of
-    # the adjoint for all the steps
+    # the adjoint, built at the refiner's first call and kept
     expected_p = {"drr_project": REFINE_STEPS + 3,
                   "drr_project_adjoint": REFINE_STEPS + 1,
                   "drr_adjoint_plan": 1,
@@ -2864,8 +3062,10 @@ def main():
     _require(bool(torch.isfinite(warped_pp).all()
                   and torch.isfinite(phi_pp).all()),
              "non-finite output of register_projections")
+    # the refiner's second call: its plan is kept from the first
     _require(projections_launches == dict(expected_p,
-                                          drr_project=REFINE_STEPS + 2),
+                                          drr_project=REFINE_STEPS + 2,
+                                          drr_adjoint_plan=0),
              f"register_projections launch counts {projections_launches}")
     _require(bool((refined_pp <= unrefined_p).all()),
              f"register_projections' refinement made a case worse: "
@@ -3279,17 +3479,36 @@ def main():
     tr_bf16 = RegistrationTrainer(bf16_cfg)
     _require(tr_bf16.pca["vectors"].dtype == torch.bfloat16,
              "the fast_train basis is not bf16")
+    _require(tr_bf16.model.encoder.s2d_stage01,
+             "the fast_train model does not run the s2d encoder stages")
     bf16_launches, bf16_ms = [], []
-    for _ in range(BF16_STEPS):
-        _zero(KERNELS)
-        t0 = time.perf_counter()
-        tr_bf16.step(batch_t, names_t)
-        torch.cuda.synchronize()
-        bf16_ms.append((time.perf_counter() - t0) * 1e3)
-        bf16_launches.append(_counts(KERNELS))
+    with counted(s2d, "conv_pair_s2d") as s2d_calls:
+        for _ in range(BF16_STEPS):
+            _zero(KERNELS)
+            t0 = time.perf_counter()
+            tr_bf16.step(batch_t, names_t)
+            torch.cuda.synchronize()
+            bf16_ms.append((time.perf_counter() - t0) * 1e3)
+            bf16_launches.append(_counts(KERNELS))
+    _require(len(s2d_calls) == BF16_STEPS,
+             f"{BF16_STEPS} bf16 steps ran the s2d stages {len(s2d_calls)} "
+             "times")
     tr_bf16._flush_losses()
     bf16_totals = read_metrics(os.path.dirname(
         tr_bf16.check_point_path))["Train/total_loss"]
+    # the same trainer with its encoder's first two stages plain, timed
+    # the same way in this call
+    tr_bf16.model.encoder.s2d_stage01 = False
+    plain_enc_ms = []
+    for _ in range(BF16_STEPS):
+        t0 = time.perf_counter()
+        tr_bf16.step(batch_t, names_t)
+        torch.cuda.synchronize()
+        plain_enc_ms.append((time.perf_counter() - t0) * 1e3)
+    _require(all(bool(l["finite"]) for _, l in tr_bf16._pending_losses),
+             "a non-finite loss in the plain-encoder bf16 steps")
+    tr_bf16._pending_losses.clear()
+    tr_bf16.model.encoder.s2d_stage01 = True
     chunks = -(-TRAIN_B // MAX_CHUNK)
     expected_bf16 = dict(expected_step, pca_expand=chunks, pca_grad=chunks)
     # the PCA kernels at the step's shapes (B = 30: three launches of 8
@@ -3318,6 +3537,9 @@ def main():
     errs["pca_expand"] = max(errs["pca_expand"], pca_t["expand"])
     errs["pca_grad"] = max(errs["pca_grad"], pca_t["grad"])
     _emit(launches_per_step=bf16_launches, step_ms=bf16_ms,
+          step_ms_median=statistics.median(bf16_ms[1:]),
+          plain_encoder_step_ms=plain_enc_ms,
+          plain_encoder_step_ms_median=statistics.median(plain_enc_ms[1:]),
           total_loss_per_step=list(bf16_totals.values()),
           dtypes={k: fast_model[k] for k in bf16_keys},
           pca_max_err=pca_t, pca_tol=PCA_TOL,
@@ -3332,6 +3554,19 @@ def main():
              and pca_t["plain_f64_excess"] <= 0 and pca_t["grad_bf16_values"],
              f"the PCA kernels at the train step's shapes disagree: {pca_t}")
     del tr_bf16, V_t, mean_t
+    torch.cuda.empty_cache()
+
+    # -- the encoder's space-to-depth stages --------------------------------
+    _begin("s2d")
+    s2d_line, tr_s2d = s2d_phase(torch, KERNELS, s2d, tr, batch_t, names_t,
+                                 train_root, expected_step,
+                                 (pipe, pca, (src_hu, tgt_hu, seg, seg)),
+                                 serving)
+    _emit(**s2d_line)
+    _begin("profile_train_s2d")
+    profile_call(lambda: tr_s2d.step(batch_t, names_t), steps=1)
+    tr_s2d._pending_losses.clear()
+    del tr_s2d
     torch.cuda.empty_cache()
 
     _begin("profile_train")

@@ -19,12 +19,13 @@ from .subspace_backproj import SubspaceEncoder, expand_pca, mask_lung
 
 class LiftRegSubspace(nn.Module):
     """``forward(inputs, pca)`` as the JAX model; returns its output dict.
-    ``s2d_encoder``, ``fast_vjp``, ``warp_plane_window`` and
-    ``pca_expand_pallas`` are the JAX model's options and are accepted:
-    the first two change the traced program, not the result (see
-    :class:`.subspace_backproj.LiftRegSubspaceBackproj`); the Pallas window
-    warp is a TPU serving path whose result the port's exact warp gives;
-    and the port expands a bf16 basis with its PCA kernel whatever
+    ``s2d_encoder`` runs the encoder's first two stages as space-to-depth
+    convolutions, as :class:`.subspace_backproj.LiftRegSubspaceBackproj`
+    does. ``fast_vjp``, ``warp_plane_window`` and ``pca_expand_pallas`` are
+    the JAX model's options and are accepted: ``fast_vjp`` changes JAX's
+    traced program, not the result; the Pallas window warp is a TPU
+    serving path whose result the port's exact warp gives; and the port
+    expands a bf16 basis with its PCA kernel whatever
     ``pca_expand_pallas`` says, an f32 basis with ``torch.matmul``."""
 
     def __init__(self, img_sz, latent_dim=56, drr_feature_num=4,
@@ -32,7 +33,7 @@ class LiftRegSubspace(nn.Module):
                  warp_taps_dtype=None, warp_plane_window=None, mask_ct=True,
                  s2d_encoder=False, fast_vjp=False, pca_expand_pallas=False):
         super().__init__()
-        del warp_plane_window, s2d_encoder, fast_vjp, pca_expand_pallas
+        del warp_plane_window, fast_vjp, pca_expand_pallas
         self.img_sz = tuple(int(s) for s in img_sz)
         self.compute_dtype = resolve_dtype(compute_dtype, "compute_dtype")
         self.warp_taps_dtype = resolve_dtype(warp_taps_dtype,
@@ -40,7 +41,8 @@ class LiftRegSubspace(nn.Module):
         self.mask_ct = mask_ct
         self.encoder = SubspaceEncoder(1 + drr_feature_num, latent_dim,
                                        self.img_sz, enc_filters,
-                                       dtype=self.compute_dtype)
+                                       dtype=self.compute_dtype,
+                                       s2d_stage01=s2d_encoder)
 
     @f32_precision()
     def forward(self, inputs, pca):

@@ -17,6 +17,7 @@ from ..device import f32_precision, resolve_dtype
 from ..ops import drr, resample
 from ..ops.drr_kernel import backproject_taps, lift_encoder_input
 from ..ops.pca_kernel import pca_expand_ad
+from . import s2d
 from .blocks import ConvBlock, FullyConnectBlock
 
 
@@ -30,12 +31,16 @@ class SubspaceEncoder(nn.Module):
     """Conv encoder + FC head emitting PCA coefficients (f32).
 
     The FC head consumes a channels-last flatten, as the JAX encoder does,
-    so imported flax Dense kernels need only a transpose."""
+    so imported flax Dense kernels need only a transpose. ``s2d_stage01``
+    runs stages 0+1 as space-to-depth convolutions (:mod:`.s2d`) from the
+    same two ``ConvBlock``s' parameters where the input is eligible
+    (:func:`.s2d.eligible`), and the plain convolutions elsewhere."""
 
     def __init__(self, in_channels, latent_dim, img_sz,
                  enc_filters=(16, 32, 32, 32, 32, 32), fc_widths=(800, 256),
-                 dtype=None):
+                 dtype=None, s2d_stage01=False):
         super().__init__()
+        self.s2d_stage01 = bool(s2d_stage01)
         convs, c = [], in_channels
         for i, feats in enumerate(enc_filters):
             convs.append(ConvBlock(c, feats, stride=1 if i == 0 else 2,
@@ -53,7 +58,14 @@ class SubspaceEncoder(nn.Module):
         self.fcs = nn.ModuleList(fcs)
 
     def forward(self, x):
-        for conv in self.convs:
+        start = 0
+        if self.s2d_stage01 and s2d.eligible(x.shape, self.convs):
+            c0, c1 = self.convs[0], self.convs[1]
+            x = s2d.conv_pair_s2d(x, c0.conv.weight, c0.conv.bias,
+                                  c1.conv.weight, c1.conv.bias,
+                                  c0.negative_slope, c0.dtype)
+            start = 2
+        for conv in self.convs[start:]:
             x = conv(x)
         x = x.permute(0, 2, 3, 4, 1).reshape(x.shape[0], -1)
         for fc in self.fcs:
@@ -89,12 +101,11 @@ class LiftRegSubspaceBackproj(nn.Module):
     name or None, resolved here (an unknown name raises ``ValueError``).
     The forward keeps f32 products and convolutions in f32 on the card
     whatever the caller's TF32 flags (:func:`..device.f32_precision`).
-    ``s2d_encoder`` and ``fast_vjp`` are the JAX model's options and are
-    accepted: ``s2d_encoder`` re-lays the JAX encoder's first two stages as
-    space-to-depth convolutions, the same operator on the same parameter
-    tree, so the port runs the plain convolutions for either value;
-    ``fast_vjp`` picks between two JAX warp VJPs that give the same
-    gradient, and the port has one.
+    ``s2d_encoder`` runs the encoder's first two stages as space-to-depth
+    convolutions (:mod:`.s2d`), the same operator from the same parameters
+    (the state dict does not change). ``fast_vjp`` is the JAX model's
+    option and is accepted: it picks between two JAX warp VJPs that give
+    the same gradient, and the port has one.
     An optional ``inputs["lift_geometry"]`` carries the lift's prebuilt
     ``drr.backward_geometry``, which must be built for the detector size of
     ``inputs["target_proj"]``, and an optional ``inputs["identity_map"]``
@@ -106,7 +117,7 @@ class LiftRegSubspaceBackproj(nn.Module):
                  backproject_chunk=16, warp_taps_dtype=None, mask_ct=True,
                  s2d_encoder=False, fast_vjp=False):
         super().__init__()
-        del s2d_encoder, fast_vjp
+        del fast_vjp
         self.img_sz = tuple(int(s) for s in img_sz)
         self.compute_dtype = resolve_dtype(compute_dtype, "compute_dtype")
         self.backproject_chunk = backproject_chunk
@@ -115,7 +126,8 @@ class LiftRegSubspaceBackproj(nn.Module):
         self.mask_ct = mask_ct
         self.encoder = SubspaceEncoder(1 + drr_feature_num, latent_dim,
                                        self.img_sz, enc_filters,
-                                       dtype=self.compute_dtype)
+                                       dtype=self.compute_dtype,
+                                       s2d_stage01=s2d_encoder)
 
     def lift(self, target_proj, poses, geometry=None):
         """Backproject (B, P, pw, ph) projections into (B, P, D, W, H) f32

@@ -21,6 +21,7 @@ from ..device import f32_precision, resolve_dtype
 from ..ops import drr, resample
 from ..ops.drr_kernel import (backproject_taps, project_adjoint_plan,
                               project_taps_ad)
+from . import s2d
 from .blocks import ConvBlock
 
 #: standard deviation of the flow head's initial weights (reference
@@ -36,11 +37,14 @@ class RegNet2D3D(nn.Module):
     ``torch.Generator`` of their own, seeded from torch's global generator
     (so that a seeded caller gets the same weights).
 
-    ``remat_inverse``, ``s2d_encoder`` and ``fast_vjp`` are the JAX model's
-    options and are accepted: they change what JAX keeps in memory or the
-    program it traces, not the result. The port runs the plain convolutions
-    and stores each step of the inverse iteration for the backward (its
-    coordinates: 7 maps of 3 * 160^3 f32, under 1 GB at B = 1).
+    ``s2d_encoder`` runs the encoder's first two stages as space-to-depth
+    convolutions (:mod:`.s2d`) from the same parameters, and unpacks stage
+    0's output for the decoder's full-resolution skip, as JAX does.
+    ``remat_inverse`` and ``fast_vjp`` are the JAX model's options and are
+    accepted: they change what JAX keeps in memory or the program it
+    traces, not the result. The port stores each step of the inverse
+    iteration for the backward (its coordinates: 7 maps of 3 * 160^3 f32,
+    under 1 GB at B = 1).
     ``backproject_chunk`` and ``project_chunk`` shape only the plain
     versions' products. ``mesh`` (:func:`..parallel.mesh.attach`): the
     re-projections' min-max normalisation takes the extremes of the mesh's
@@ -54,7 +58,8 @@ class RegNet2D3D(nn.Module):
                  compute_dtype=None, backproject_chunk=16, project_chunk=32,
                  remat_inverse=True, s2d_encoder=False, fast_vjp=False):
         super().__init__()
-        del remat_inverse, s2d_encoder, fast_vjp
+        del remat_inverse, fast_vjp
+        self.s2d_encoder = bool(s2d_encoder)
         if len(enc_filters) != 5 or len(dec_filters) != 6:
             raise ValueError("RegNet2D3D takes 5 encoder and 6 decoder "
                              f"widths; got {enc_filters}, {dec_filters}")
@@ -96,7 +101,19 @@ class RegNet2D3D(nn.Module):
     def _flow(self, x):
         """The U-Net: (B, 1+P, D, W, H) -> displacement (B, 3, D, W, H) f32."""
         skips = []
-        for conv in self.convs[:self.n_enc]:
+        start = 0
+        if self.s2d_encoder and s2d.eligible(x.shape,
+                                             self.convs[:self.n_enc]):
+            c0, c1 = self.convs[0], self.convs[1]
+            y2 = s2d.conv0_s2d(x, c0.conv.weight, c0.conv.bias,
+                               c0.negative_slope, self.compute_dtype)
+            # the decoder's last skip is stage 0's output at full resolution
+            skips.append(s2d.unpack_s2d(y2))
+            x = s2d.conv1_s2d(y2, c1.conv.weight, c1.conv.bias,
+                              c1.negative_slope, self.compute_dtype)
+            skips.append(x)
+            start = 2
+        for conv in self.convs[start:self.n_enc]:
             x = conv(x)
             skips.append(x)
         x = self.convs[self.n_enc](skips[-1])

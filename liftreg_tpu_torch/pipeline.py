@@ -79,6 +79,9 @@ class RegistrationPipeline:
     ``torch.dtype`` or its name (``"bfloat16"``), as the JAX pipeline takes
     it; an unknown name raises ``ValueError`` here. A bf16 compute type
     also selects bf16 warp taps unless ``warp_taps_dtype`` overrides it.
+    ``s2d_encoder`` runs the encoder's first two stages as space-to-depth
+    convolutions (:mod:`.models.s2d`), the same operator from the same
+    weights.
     ``device`` None means the CUDA card and raises without
     one; pass ``"cpu"`` to run the kernels' plain versions. The model and
     the refinement keep their f32 products and convolutions in f32 on the
@@ -110,9 +113,9 @@ class RegistrationPipeline:
 
     def __init__(self, img_sz=(160, 160, 160), latent_dim=56, n_proj=4,
                  scan_range_deg=30.0, spacing=(2.2, 2.2, 2.2),
-                 resolution=None, compute_dtype=None, mask_ct=True,
-                 warp_taps_dtype="auto", refine_steps=0, refine_lr=0.05,
-                 refine_sim="ncc", refine_sim_opts=None,
+                 resolution=None, compute_dtype=None, s2d_encoder=False,
+                 mask_ct=True, warp_taps_dtype="auto", refine_steps=0,
+                 refine_lr=0.05, refine_sim="ncc", refine_sim_opts=None,
                  refine_reg_factor=1e-3, refine_domain="image",
                  refine_early_stop_patience=None, refine_early_stop_tol=1e-4,
                  device=None, mesh=None):
@@ -136,7 +139,7 @@ class RegistrationPipeline:
         self.model = LiftRegSubspaceBackproj(
             self.img_sz, latent_dim=latent_dim, drr_feature_num=n_proj,
             compute_dtype=compute_dtype, warp_taps_dtype=warp_taps_dtype,
-            mask_ct=mask_ct).to(self.device).eval()
+            mask_ct=mask_ct, s2d_encoder=s2d_encoder).to(self.device).eval()
         self.refiner = None
         self.last_refine = None
         self.refine_steps = int(refine_steps)
@@ -152,7 +155,8 @@ class RegistrationPipeline:
             img_sz=self.img_sz, latent_dim=int(latent_dim),
             n_proj=int(n_proj), scan_range_deg=float(scan_range_deg),
             spacing=self.spacing, resolution=self.resolution,
-            compute_dtype=compute_dtype, mask_ct=bool(mask_ct),
+            compute_dtype=compute_dtype, s2d_encoder=bool(s2d_encoder),
+            mask_ct=bool(mask_ct),
             warp_taps_dtype=warp_taps_dtype, refine_steps=self.refine_steps,
             refine_lr=float(refine_lr), refine_sim=refine_sim,
             refine_sim_opts=refine_sim_opts,

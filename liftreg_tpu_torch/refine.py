@@ -227,9 +227,10 @@ def make_projection_refiner(img_sz, poses, resolution,
     :func:`make_refiner` (``fast_vjp`` is accepted and changes nothing).
     ``poses`` (P, 3) numpy or tensor in voxel units;
     the projector's geometry is built once here, on the poses' device, and
-    moved to the inputs' device if they lie elsewhere; the plan of its
-    adjoint (:func:`.ops.drr_kernel.project_adjoint_plan`) is built once a
-    call on the card, for all the steps (the plain adjoint on the CPU needs
+    moved to the inputs' device once, the first time they lie elsewhere;
+    the plan of its adjoint (:func:`.ops.drr_kernel.project_adjoint_plan`)
+    is built once per device on the card, at the first call there, and
+    kept for every later call's steps (the plain adjoint on the CPU needs
     none). ``proj_norm``:
     ``"drr"`` (clip [0, 6] -> [-1, 1], the pipeline's convention),
     ``"minmax"`` (min-max over the whole batch -> [-1, 1]) or ``None``
@@ -286,12 +287,22 @@ def make_projection_refiner(img_sz, poses, resolution,
                           early_stop_patience=early_stop_patience,
                           early_stop_tol=early_stop_tol, mesh=mesh)
 
+    # the geometry and its adjoint's plan on each device the refiner has
+    # run on: they depend on the poses alone
+    on_device = {}
+
+    def _geometry(device):
+        if device not in on_device:
+            geom = tuple(t.to(device) for t in geometry)
+            plan = (project_adjoint_plan(geom[0], geom[1], img_sz)
+                    if geom[0].is_cuda else None)
+            on_device[device] = geom, plan
+        return on_device[device]
+
     def refine(coefs0, pca, moving_atten, target_proj):
         taps = resample.warp_taps(moving_atten, scale_intensity=False,
                                   taps_dtype=warp_taps_dtype)
-        geom = tuple(t.to(moving_atten.device) for t in geometry)
-        plan = (project_adjoint_plan(geom[0], geom[1], img_sz)
-                if geom[0].is_cuda else None)
+        geom, plan = _geometry(moving_atten.device)
         return steps(coefs0, pca, taps, target_proj, geom, plan)
 
     return refine

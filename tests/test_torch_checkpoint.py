@@ -2,12 +2,16 @@
 the CPU: a JAX trainer checkpoint (flax msgpack: params, optax Adam and
 AdamW state, epoch, global_step, schedule state) read into the port, the
 port's own format round-tripped, and ``get_model`` with ``s2d_encoder`` on
-against the JAX model with it on.
+against the JAX model with it on: both run their encoder's first two
+stages as space-to-depth convolutions (``models/s2d.py`` in each package)
+from the one parameter tree, and the subspace loss's gradient with
+respect to every parameter against ``jax.grad``.
 
 Tolerances: checkpoint contents exactly (the reader decodes the same
 bytes); the model's outputs phi atol 1e-5 and warped atol 1e-4 (f32
-convolutions summed in another order, and the JAX encoder's space-to-depth
-form of its first two stages against the port's plain convolutions).
+convolutions summed in another order); each parameter's gradient atol
+1e-3 of that leaf's largest value (the encoder's sums carry on through
+the coefficients, as in tests/test_torch_subspace_model.py).
 """
 import os
 
@@ -145,8 +149,9 @@ def test_own_format_round_trip(tmp_path):
 @pytest.mark.parametrize("s2d", [False, True])
 def test_get_model_s2d_against_jax(jax_params, s2d):
     """The JAX model with ``s2d_encoder`` (and ``fast_vjp``) on or off from
-    one parameter tree; the port's get_model accepts both options and
-    gives the same outputs."""
+    one parameter tree, and the port's from get_model with the same
+    options: the same outputs, each side in the encoder form it was asked
+    for."""
     inp = _inputs(5)
     pca = _pca()
     jm = JModel(SZ, latent_dim=L, drr_feature_num=P, s2d_encoder=s2d,
@@ -164,6 +169,38 @@ def test_get_model_s2d_against_jax(jax_params, s2d):
                                atol=1e-5, rtol=0)
     np.testing.assert_allclose(got["warped"].numpy(),
                                np.asarray(want["warped"]), atol=1e-4, rtol=0)
+
+
+def test_s2d_loss_gradients_match_jax(jax_params):
+    """With ``s2d_encoder`` on in both packages: the subspace loss and its
+    gradient with respect to every parameter against ``jax.grad``."""
+    from liftreg_tpu.losses import registration as jreg
+    from liftreg_tpu_torch.losses import registration as treg
+    opt = {"initial_reg_factor": 1.0, "min_reg_factor": 1e-3,
+           "sim_class": "ncc"}
+    inp, pca = _inputs(6), _pca()
+    jm = JModel(SZ, latent_dim=L, drr_feature_num=P, s2d_encoder=True)
+    jin = {k: jnp.asarray(v) for k, v in inp.items()}
+    jpca = {k: jnp.asarray(v) for k, v in pca.items()}
+    jloss = jreg.SubspaceLoss(opt)
+    value, g = jax.value_and_grad(
+        lambda p: jloss(jm.apply(p, jin, jpca), 0.5)["total_loss"])(
+        jax.tree_util.tree_map(jnp.asarray, jax_params))
+    want = params_from_jax(_np_tree(g))
+    tm = get_model("subspace_backproj")(
+        img_sz=SZ, latent_dim=L, drr_feature_num=P, s2d_encoder=True)
+    tm.load_state_dict(params_from_jax(jax_params))
+    total = treg.SubspaceLoss(opt)(
+        tm({k: torch.from_numpy(v) for k, v in inp.items()},
+           {k: torch.from_numpy(v) for k, v in pca.items()}), 0.5)[
+        "total_loss"]
+    total.backward()
+    assert float(total.detach()) == pytest.approx(float(value), rel=1e-5)
+    for k, p in tm.named_parameters():
+        w = want[k].numpy()
+        assert np.abs(w).max() > 0, k
+        np.testing.assert_allclose(p.grad.numpy(), w, rtol=0,
+                                   atol=1e-3 * np.abs(w).max(), err_msg=k)
 
 
 def test_get_model_registry():

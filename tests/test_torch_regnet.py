@@ -171,10 +171,10 @@ def test_resize_nearest_2d_matches_jax(hw, out):
 
 
 def test_s2d_encoder_params_give_the_same_outputs():
-    """A JAX RegNet2D3D with ``s2d_encoder`` (its encoder's stages 0 and 1
-    as space-to-depth convolutions, the same parameter tree) and the
-    port's with the option on, from the same flax parameters: the outputs
-    within the tolerances above."""
+    """A JAX RegNet2D3D with ``s2d_encoder`` and the port's with the option
+    on, both running their encoder's stages 0 and 1 as space-to-depth
+    convolutions (stage 0 unpacked for the skip) from the same flax
+    parameters: the outputs within the tolerances above."""
     inputs = _inputs(1)
     jin = {k: jnp.asarray(v) for k, v in inputs.items()}
     jm = JRegNet(img_sz=(SZ,) * 3, drr_feature_num=P, s2d_encoder=True)
@@ -193,3 +193,30 @@ def test_s2d_encoder_params_give_the_same_outputs():
     for got_t, want_t, tol in zip(got["params"], out["params"], (1e-6, 1e-6)):
         np.testing.assert_allclose(got_t.numpy(), np.asarray(want_t), rtol=0,
                                    atol=tol)
+
+
+def test_s2d_loss_gradients_match_jax():
+    """With ``s2d_encoder`` on in both packages: RegNet2D3DLoss and its
+    gradient with respect to every parameter against ``jax.grad``, within
+    the tolerances above."""
+    inputs = _inputs(2)
+    jin = {k: jnp.asarray(v) for k, v in inputs.items()}
+    jm = JRegNet(img_sz=(SZ,) * 3, drr_feature_num=P, s2d_encoder=True)
+    params = _jax_params(jm, jin, 2)
+    jloss = jreg.RegNet2D3DLoss(OPT)
+    value, g = jax.jit(jax.value_and_grad(
+        lambda p: jloss(jm.apply(p, jin), REG)["total_loss"]))(params)
+    want = params_from_jax(jax.tree_util.tree_map(np.asarray, g))
+    tm = RegNet2D3D((SZ,) * 3, drr_feature_num=P, s2d_encoder=True)
+    tm.load_state_dict(params_from_jax(
+        jax.tree_util.tree_map(np.asarray, params)))
+    total = treg.RegNet2D3DLoss(OPT)(
+        tm({k: torch.from_numpy(v) for k, v in inputs.items()}), REG)[
+        "total_loss"]
+    total.backward()
+    assert float(total.detach()) == pytest.approx(float(value), rel=1e-5)
+    for k, p in tm.named_parameters():
+        w = want[k].numpy()
+        assert np.abs(w).max() > 0, k
+        np.testing.assert_allclose(p.grad.numpy(), w, rtol=0,
+                                   atol=1e-4 * np.abs(w).max(), err_msg=k)

@@ -2,7 +2,9 @@
 the port against liftreg_tpu's on the CPU, from the same parameters
 (``params_from_jax``): its outputs with an f32 and a bf16 basis, with and
 without the lung mask, and the gradient of the subspace loss with respect
-to every parameter.
+to every parameter; the outputs and the gradients also with
+``s2d_encoder`` on in both packages (the encoder's first two stages as
+space-to-depth convolutions).
 
 Tolerances: ``phi`` atol 1e-5 and ``warped`` atol 1e-4, as the backproj
 model's (f32 convolutions summed in another order); the coefficients rtol
@@ -102,16 +104,43 @@ def test_outputs_match_jax(case, basis, mask_ct, monkeypatch):
                                    rtol=0, atol=tol, err_msg=key)
 
 
-def test_loss_gradients_match_jax(case):
+def test_s2d_outputs_match_jax(case):
+    """With ``s2d_encoder`` on in both packages, from the same parameters:
+    the outputs within the tolerances above (f32 basis, lung mask)."""
     inp, pca = _inputs(), _pca()
-    jm = JModel(SZ, latent_dim=L, drr_feature_num=P)
+    jm = JModel(SZ, latent_dim=L, drr_feature_num=P, s2d_encoder=True)
+    want = jm.apply(case, {k: jnp.asarray(v) for k, v in inp.items()},
+                    {k: jnp.asarray(v) for k, v in pca.items()})
+    tm = _torch_model(case, s2d_encoder=True)
+    with torch.no_grad():
+        got = tm({k: torch.from_numpy(v) for k, v in inp.items()},
+                 {k: torch.from_numpy(v) for k, v in pca.items()})
+    np.testing.assert_allclose(got["pca_coefs"].numpy(),
+                               np.asarray(want["pca_coefs"]), rtol=1e-4,
+                               atol=1e-6)
+    for key, tol in (("phi", 1e-5), ("params", 1e-5), ("warped", 1e-4)):
+        np.testing.assert_allclose(got[key].numpy(), np.asarray(want[key]),
+                                   rtol=0, atol=tol, err_msg=key)
+
+
+def test_loss_gradients_match_jax(case):
+    _check_loss_gradients(case)
+
+
+def test_s2d_loss_gradients_match_jax(case):
+    _check_loss_gradients(case, s2d_encoder=True)
+
+
+def _check_loss_gradients(case, **kw):
+    inp, pca = _inputs(), _pca()
+    jm = JModel(SZ, latent_dim=L, drr_feature_num=P, **kw)
     jin = {k: jnp.asarray(v) for k, v in inp.items()}
     jpca = {k: jnp.asarray(v) for k, v in pca.items()}
     jloss = jreg.SubspaceLoss(OPT)
     value, g = jax.value_and_grad(
         lambda p: jloss(jm.apply(p, jin, jpca), 0.5)["total_loss"])(case)
     want = params_from_jax(jax.tree_util.tree_map(np.asarray, g))
-    tm = _torch_model(case)
+    tm = _torch_model(case, **kw)
     total = treg.SubspaceLoss(OPT)(
         tm({k: torch.from_numpy(v) for k, v in inp.items()},
            {k: torch.from_numpy(v) for k, v in pca.items()}), 0.5)[

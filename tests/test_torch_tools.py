@@ -415,3 +415,29 @@ def test_refine_conditioning_needs_a_card(monkeypatch, capsys):
     assert set(torch_refine_conditioning.CONFIGS) == {
         "image_ncc", "image_lncc", "projection_ncc", "projection_ngf"}
     assert cs.REFINE_HISTORY_TOL > 0
+
+
+def test_s2d_stages_tool_on_the_cpu(monkeypatch, capsys):
+    """tools/torch_s2d_stages.py: its operation counts at 160^3, B = 30
+    (plain 5.31e11 + 4.25e11 a forward; the s2d form 2.37 times that),
+    and its error check at 8^3 on the CPU, where the two forms agree
+    within 1e-5 of the largest value in f32; without a card it refuses
+    to time."""
+    import torch_s2d_stages as st
+    ops = st.stage_ops(30)
+    assert ops["plain"] == (530841600000, 424673280000)
+    assert ops["s2d"] == (1258291200000, 1006632960000)
+    assert sum(ops["s2d"]) / sum(ops["plain"]) == pytest.approx(
+        (4 / 3) ** 3, rel=0.01)
+    b = st.bounds(30, "float32")
+    assert b["plain"]["forward_bound_ms"] == pytest.approx(
+        sum(ops["plain"]) / 67e12 * 1e3)
+    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2.0 ** -6)):
+        x, blocks, cot = st.build(torch, 2, dtype, torch.device("cpu"),
+                                  sz=8)
+        errs = st.errors(torch, x, blocks, cot, dtype)
+        assert set(errs) == {"forward", "w0", "b0", "w1", "b1"}
+        assert errs["forward"] <= tol, (dtype, errs)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert st.main([]) == 1
+    assert "no CUDA device" in capsys.readouterr().err

@@ -30,10 +30,11 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 def pipeline_from_setting(setting_path, refine_kw, device):
     """The pipeline of a trained experiment, its weights from the
-    checkpoint, and its basis: ``(pipe, pca)``. The encoder's compute type
-    and the basis type come from the model config; the warp's taps are
-    bf16 only where ``warp_taps_dtype`` says so, as the trainer builds its
-    model (the pipeline's own default would follow the compute type)."""
+    checkpoint, and its basis: ``(pipe, pca)``. The encoder's compute type,
+    its space-to-depth stages and the basis type come from the model
+    config; the warp's taps are bf16 only where ``warp_taps_dtype`` says
+    so, as the trainer builds its model (the pipeline's own default would
+    follow the compute type)."""
     import torch
 
     from liftreg_tpu_torch import RegistrationPipeline
@@ -64,6 +65,7 @@ def pipeline_from_setting(setting_path, refine_kw, device):
         warp_taps_dtype=bf16 if model_cfg.get("warp_taps_dtype")
         == "bfloat16" else None,
         mask_ct=parse_bool(model_cfg.get("mask_ct"), default=True),
+        s2d_encoder=parse_bool(model_cfg.get("s2d_encoder"), default=False),
         device=device, **refine_kw)
     pca = load_pca(model_cfg["pca_path"],
                    dtype=bf16 if model_cfg.get("pca_dtype") == "bfloat16"

@@ -54,6 +54,10 @@ def parse_args(argv=None):
     ap.add_argument("--stage3_epochs", type=int, default=40)
     ap.add_argument("--size", type=int, default=160)
     ap.add_argument("--latent", type=int, default=24)
+    ap.add_argument("--s2d", action="store_true",
+                    help="space-to-depth encoder stages "
+                         "(liftreg_tpu_torch/models/s2d.py) in both the "
+                         "RegNet2D3D stage and the subspace stage")
     ap.add_argument("--stage1_cache", default="auto",
                     help="cache_on_device for stage 1: auto|true|false")
     ap.add_argument("--stage1_batch", type=int, default=1)
@@ -87,25 +91,23 @@ def base_setting(args, exp, epochs):
         "dataset": {"max_num_for_loading": [40, 4, 4, 4]},
         "train": {
             "epoch": epochs,
-            "model": {"latent_dim": args.latent},
+            "model": {"latent_dim": args.latent, "s2d_encoder": args.s2d},
             "save_fig_frequency": 1000,
             "log_flush_steps": 4,
         },
     })
 
 
-def train_regnet(args):
-    """Stage 1 in ``regnet`` mode: RegNet2D3D on the projection loss;
-    returns the path of the experiment's saved setting."""
-    exp_rn = os.path.join(args.out, "exp_regnet")
-    os.makedirs(exp_rn, exist_ok=True)
+def regnet_setting(args, exp_rn):
+    """The task setting of stage 1 in ``regnet`` mode: RegNet2D3D on the
+    projection loss, its experiment in ``exp_rn``."""
     s1 = base_setting(args, exp_rn, epochs=args.stage1_epochs)
     s1["dataset"]["dataset_class"] = "registration2d3d_projloss"
     s1["dataset"]["apply_hu_clip"] = False
     s1["train"]["model_class"] = "regnet2d3d"
     s1["train"]["loss_class"] = ("regnet_image" if args.stage1_loss == "image"
                                  else "regnet2d3d")
-    s1["train"]["model"] = {"drr_feature_num": 4,
+    s1["train"]["model"] = {"drr_feature_num": 4, "s2d_encoder": args.s2d,
                             "inverse_iters": args.stage1_inverse_iters}
     s1["train"]["optim"]["lr"] = 5e-4
     if args.stage1_reg is not None:
@@ -120,6 +122,15 @@ def train_regnet(args):
         "auto" if args.stage1_cache == "auto"
         else args.stage1_cache.lower() == "true")
     s1["train"]["dataloader"]["batch_size"] = args.stage1_batch
+    return s1
+
+
+def train_regnet(args):
+    """Stage 1 in ``regnet`` mode; returns the path of the experiment's
+    saved setting."""
+    exp_rn = os.path.join(args.out, "exp_regnet")
+    os.makedirs(exp_rn, exist_ok=True)
+    s1 = regnet_setting(args, exp_rn)
     RegistrationTrainer(s1, device=args.device).run()
     path = os.path.join(exp_rn, "cur_task_setting.json")
     with open(path, "w") as f:
