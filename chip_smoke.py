@@ -37,6 +37,16 @@ line with its elapsed seconds:
    outside along y and a field clamped onto the faces, each called twice,
    with the share of points that took the kernel's overflow path (which
    the rough field, and the slab under border padding, must take);
+   gather_probe: the gather probes' tools as a user runs them
+   (tools/torch_bench_mosaic_gather.py: the JAX tool's 17 rows at inner 8
+   and one pass an SM, and its decision line beside the port's warp
+   forward; tools/torch_repro_mosaic_gather_500.py: 10 OK rows, exit 0),
+   each with the counts zeroed just before and read just after and checked
+   exactly; then the four probe kernels (row gather, lane gather, roll,
+   warp step) at every shape of both tools against their plain versions,
+   bit for bit (f32 and bf16, inner 1 and 8, grid 1 and one pass an SM,
+   indices of the axis's range and of the whole int32 range), and their
+   times;
 4. main_path: RegistrationPipeline.register at 160^3, B=4, 4 views on a
    240^2 detector, latent 56, bf16 encoder, basis and taps, with random
    seeded weights; the kernels' launch counts are zeroed just before and
@@ -256,8 +266,13 @@ line with its elapsed seconds:
    removed at the end.
 
 Then the nvidia-smi line, one JSON line of per-kernel numbers for the
-nine kernels (``launches``: for the image gradient one RegNet2D3D step's,
-for the others refine_projection's register, which runs all eight;
+thirteen kernels (``launches``: for the image gradient one RegNet2D3D
+step's, for the four gather probes the bench tool's run in gather_probe
+(``repro_launches`` the repro tool's; their times at 160 x 128 f32, at
+the bench's inner 8 and grid, and ``inner1`` at inner 1 and grid 1 with
+the library call; ``smem_bound_ms`` their gathered elements at 128 bytes
+a clock an SM), for the others refine_projection's register, which runs
+all eight;
 ``projection_launches`` from that register, ``serving_launches`` from
 main_path's, ``image_refine_launches`` from refine's,
 ``train_launches``, ``train_bf16_launches``, ``regnet_launches`` and
@@ -569,6 +584,33 @@ DP_MOMENT_RTOL = 1e-3
 # one-process call
 DP_REFINE_PATIENCE = 3
 DP_REFINE_TOL = 1e-4
+
+# gather_probe: the gather probes' two tools as a user runs them
+# (tools/torch_bench_mosaic_gather.py with --reps PROBE_REPS, its default
+# grid of one pass an SM; tools/torch_repro_mosaic_gather_500.py), each with
+# the counts zeroed just before and read just after; then every probe at
+# every shape of both tools against its plain version, bit for bit: f32 and
+# bf16, inner 1 and 8, grid 1 and one pass an SM, indices of the axis's
+# range (0 and its last among them) and of the whole int32 range; then each
+# kernel's times at PROBE_SHAPE f32 (the bench's inner 8 and grid, and
+# inner 1 at grid 1 beside one library call). The kernels' names in the
+# kernels line, their wrappers and the TPU kernels they replace:
+PROBE_KERNELS = {
+    "gather_probe_rows": ("gather_rows", "tools/bench_mosaic_gather.py:94"),
+    "gather_probe_lanes": ("gather_lanes",
+                           "tools/bench_mosaic_gather.py:103"),
+    "gather_probe_roll": ("roll_sum", "tools/bench_mosaic_gather.py:112"),
+    "gather_probe_warp_step": ("warp_step",
+                               "tools/bench_mosaic_gather.py:120")}
+PROBE_REPS = 20
+PROBE_INNER = (1, 8)
+PROBE_SHAPE = (160, 128)
+# f32 operations per gathered element: the add (the warp step: the product
+# and the add); the index arithmetic is integer work and not counted
+PROBE_OPS_PER_ELEM = {"gather_rows": 1, "gather_lanes": 1, "roll_sum": 1,
+                      "warp_step": 2}
+# shared memory serves 128 bytes a clock on each SM
+SMEM_BYTES_PER_CLOCK = 128
 
 _state = {"phase": "start", "t0": time.perf_counter()}
 
@@ -2114,6 +2156,148 @@ def s2d_phase(torch, kernels, s2d, tr, batch, names, train_root,
     return out, tr_s
 
 
+def _bit_equal(torch, a, b):
+    return a.dtype == b.dtype and bool(torch.equal(
+        a.float().view(torch.int32), b.float().view(torch.int32)))
+
+
+def gather_probe_phase(torch, kernels):
+    """The gather_probe phase (see the constants above): returns the
+    kernels line's rows of the four probe kernels; raises where a check
+    fails."""
+    from liftreg_tpu_torch.ops import gather_probe as gp
+    from tools import torch_bench_mosaic_gather as bench
+    from tools import torch_repro_mosaic_gather_500 as repro
+
+    _begin("gather_probe")
+    dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    clock_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.split()[0])
+    name_of = {wrapper: name for name, (wrapper, _) in PROBE_KERNELS.items()}
+
+    # (a) the two tools, each as a user runs it
+    record = {}
+    _zero(kernels)
+    rows = bench.main(["--reps", str(PROBE_REPS)], record=record)
+    torch.cuda.synchronize()
+    bench_launches = _counts(kernels)
+    want = dict({k: 0 for k in kernels}, warp_trilinear=PROBE_REPS + 1)
+    for _, probe, *_ in bench.ROWS:
+        want[name_of[probe]] += PROBE_REPS + 1
+    _require(bench_launches == want,
+             f"the bench tool launched {bench_launches}, expected {want}")
+    _require(len(rows) == 17 and all(r["grid"] == sms for r in rows),
+             f"the bench tool's rows: {rows}")
+    _zero(kernels)
+    repro_rc = repro.main([])
+    torch.cuda.synchronize()
+    repro_launches = _counts(kernels)
+    want_r = {k: 0 for k in kernels}
+    for _, _, _, axis, _ in repro.SHAPES:
+        want_r["gather_probe_rows" if axis == 0 else "gather_probe_lanes"] \
+            += 2
+    _require(repro_rc == 0, "the repro tool found a FAIL row")
+    _require(repro_launches == want_r,
+             f"the repro tool launched {repro_launches}, expected {want_r}")
+
+    # (b) every shape of both tools, kernel against plain, bit for bit
+    shapes = sorted({(probe, M, L) for _, probe, M, L, _ in bench.ROWS}
+                    | {("gather_rows" if axis == 0 else "gather_lanes", r, c)
+                       for _, r, c, axis, _ in repro.SHAPES})
+    g = torch.Generator(device=dev).manual_seed(7)
+    errs = dict.fromkeys(PROBE_KERNELS, 0.0)
+    cases, bad = 0, []
+    for probe, M, L in shapes:
+        high = L if probe == "gather_lanes" else M
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn((M, L), generator=g, device=dev).to(dtype)
+            in_range = torch.randint(0, high, (M, L), generator=g,
+                                     device=dev, dtype=torch.int32)
+            in_range.view(-1)[:2] = torch.tensor([0, high - 1])
+            full = torch.randint(-2 ** 31, 2 ** 31 - 1, (M, L), generator=g,
+                                 device=dev, dtype=torch.int32)
+            for iname, idx in (("range", in_range), ("int32", full)):
+                if probe == "roll_sum" and iname == "int32":
+                    continue
+                for inner in PROBE_INNER:
+                    want_out = gp.plain_version(probe, x, idx, inner)
+                    for grid in (1, sms):
+                        got = bench.probe_call(probe, x, idx, inner, grid)()
+                        cases += 1
+                        err = _max_err(got.float(), want_out.float())
+                        errs[name_of[probe]] = max(errs[name_of[probe]], err)
+                        if not _bit_equal(torch, got, want_out):
+                            bad.append([probe, M, L, str(dtype), iname,
+                                        inner, grid, err])
+    torch.cuda.synchronize()
+
+    # (c) times at PROBE_SHAPE f32: the bench's inner and grid, and inner 1
+    # at grid 1 (the repro tool's call) beside one library call; each with
+    # the bench's device timer (a kernel of a few microseconds takes less
+    # device time than its call takes on the host)
+    M, L = PROBE_SHAPE
+
+    def timed(fn, reps):
+        return bench.timed_ms(fn, dev, reps, warmup=2)
+    inner = record["inner"]
+    smem_rate = SMEM_BYTES_PER_CLOCK * sms * clock_mhz * 1e6
+    out = {}
+    for kname, (probe, replaces) in PROBE_KERNELS.items():
+        x, idx = bench.probe_inputs(probe, M, L, "float32", dev)
+
+        def plain(n, t):
+            return gp.plain_version(probe, x, idx, n, t)
+        nbytes = M * L * (2 * x.element_size() + (0 if idx is None else 4))
+
+        def bound(n, t):
+            gathered = t * n * M * L
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = gathered * PROBE_OPS_PER_ELEM[probe] / PEAK_F32_FLOPS \
+                * 1e3
+            return {"bound_ms": max(t_bytes, t_ops),
+                    "bound_by": "bytes" if t_bytes >= t_ops
+                    else "operations",
+                    "smem_bound_ms": gathered * x.element_size() / smem_rate
+                    * 1e3}
+
+        library = None
+        if probe in ("gather_rows", "gather_lanes"):
+            axis, idx64 = int(probe == "gather_lanes"), idx.long()
+            library = timed(lambda: torch.gather(x, axis, idx64), 20)
+        elif probe == "roll_sum":
+            library = timed(lambda: torch.roll(x, 1, 1), 20)
+        row = {"name": kname, "route": "cuda",
+               "source": "liftreg_tpu_torch/csrc/gather_probe.cu",
+               "replaces": replaces, "launches": bench_launches[kname],
+               "max_abs_err": errs[kname],
+               "ms": timed(bench.probe_call(probe, x, idx, inner, sms), 20),
+               "plain_ms": timed(lambda: plain(inner, sms), 3),
+               **bound(inner, sms), "library_ms": None,
+               "shape": [M, L, "float32"], "inner": inner, "grid": sms}
+        row["inner1"] = {
+            "ms": timed(bench.probe_call(probe, x, idx, 1, 1), 20),
+            "plain_ms": timed(lambda: plain(1, 1), 20),
+            **bound(1, 1), "library_ms": library, "grid": 1}
+        if probe in ("gather_rows", "gather_lanes"):
+            row["repro_replaces"] = "tools/repro_mosaic_gather_500.py:41"
+            row["repro_launches"] = repro_launches[kname]
+        row["bench_rows"] = [
+            {k: r[k] for k in ("label", "dtype", "ms", "ns_per_elem")}
+            for r in rows if r["probe"] == probe]
+        out[kname] = row
+    _emit(rows=rows, decision=record, bench_launches=bench_launches,
+          repro_launches=repro_launches, cases=cases, mismatches=bad,
+          max_abs_err=errs, sm_clock_max_mhz=clock_mhz, sms=sms,
+          times={k: {f: v for f, v in r.items() if f != "bench_rows"}
+                 for k, r in out.items()})
+    _require(not bad, f"probe kernels differ from their plain versions: "
+             f"{bad[:10]}")
+    return out
+
+
 def _kernel_table():
     """The kernels' wrappers by name; each counts its launches."""
     from liftreg_tpu_torch.ops.drr_kernel import (backproject_taps,
@@ -2124,6 +2308,7 @@ def _kernel_table():
     from liftreg_tpu_torch.ops.warp_kernel import (warp_coord_grad,
                                                    warp_image_grad,
                                                    warp_trilinear)
+    from liftreg_tpu_torch.ops import gather_probe
     return {"pca_expand": pca_expand, "pca_grad": pca_grad,
             "warp_trilinear": warp_trilinear,
             "warp_coord_grad": warp_coord_grad,
@@ -2131,7 +2316,9 @@ def _kernel_table():
             "drr_project": project_taps,
             "drr_project_adjoint": project_adjoint_taps,
             "drr_adjoint_plan": project_adjoint_plan,
-            "drr_backproject": backproject_taps}
+            "drr_backproject": backproject_taps,
+            **{name: getattr(gather_probe, wrapper)
+               for name, (wrapper, _) in PROBE_KERNELS.items()}}
 
 
 def _trainer_state(tr):
@@ -2886,6 +3073,9 @@ def main():
                  if re.match(r"phi/c\d_b\d/", key)),
              f"the smooth fields did not take the box: {img_overflow}")
 
+    # -- the gather probes' tools and kernels ------------------------------
+    probe_rows = gather_probe_phase(torch, KERNELS)
+
     # -- the main path -----------------------------------------------------
     _begin("main_path")
     torch.manual_seed(0)
@@ -2909,10 +3099,8 @@ def main():
     # PCA kernels); the projector, whose plane loop the wrapper splits at
     # this shape, runs as two passes (chunks, then their ordered sum) and
     # counts them as one launch, as the PCA backward does
-    serving = {"pca_expand": 1, "pca_grad": 0, "warp_trilinear": 1,
-               "warp_coord_grad": 0, "warp_image_grad": 0, "drr_project": 1,
-               "drr_project_adjoint": 0, "drr_adjoint_plan": 0,
-               "drr_backproject": 1}
+    serving = dict({k: 0 for k in KERNELS}, pca_expand=1,
+                   warp_trilinear=1, drr_project=1, drr_backproject=1)
     _require(launches == serving,
              f"main path launch counts {launches}, expected {serving}")
 
@@ -2947,12 +3135,11 @@ def main():
     first_ms = (time.perf_counter() - t0) * 1e3
     refine_launches = _counts(KERNELS)
     refine_peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-    expected = {"drr_project": 1, "drr_project_adjoint": 0,
-                "drr_adjoint_plan": 0,
-                "drr_backproject": 1, "pca_expand": REFINE_STEPS + 3,
-                "pca_grad": REFINE_STEPS + 1,
-                "warp_trilinear": REFINE_STEPS + 3,
-                "warp_coord_grad": REFINE_STEPS + 1, "warp_image_grad": 0}
+    expected = dict({k: 0 for k in KERNELS}, drr_project=1,
+                    drr_backproject=1, pca_expand=REFINE_STEPS + 3,
+                    pca_grad=REFINE_STEPS + 1,
+                    warp_trilinear=REFINE_STEPS + 3,
+                    warp_coord_grad=REFINE_STEPS + 1)
     res_r = pipe_r.last_refine
     _require(bool(torch.isfinite(warped_r).all()
                   and torch.isfinite(phi_r).all()),
@@ -3010,13 +3197,14 @@ def main():
     # the target DRR, N+1 steps and the final evaluation; the encoder's
     # warp, N+2 in the refiner and the rewarp of the masked CT; one plan of
     # the adjoint, built at the refiner's first call and kept
-    expected_p = {"drr_project": REFINE_STEPS + 3,
-                  "drr_project_adjoint": REFINE_STEPS + 1,
-                  "drr_adjoint_plan": 1,
-                  "drr_backproject": 1, "pca_expand": REFINE_STEPS + 3,
-                  "pca_grad": REFINE_STEPS + 1,
-                  "warp_trilinear": REFINE_STEPS + 4,
-                  "warp_coord_grad": REFINE_STEPS + 1, "warp_image_grad": 0}
+    expected_p = dict({k: 0 for k in KERNELS},
+                      drr_project=REFINE_STEPS + 3,
+                      drr_project_adjoint=REFINE_STEPS + 1,
+                      drr_adjoint_plan=1, drr_backproject=1,
+                      pca_expand=REFINE_STEPS + 3,
+                      pca_grad=REFINE_STEPS + 1,
+                      warp_trilinear=REFINE_STEPS + 4,
+                      warp_coord_grad=REFINE_STEPS + 1)
     _require(bool(torch.isfinite(warped_p).all()
                   and torch.isfinite(phi_p).all()),
              "non-finite projection-refined output")
@@ -4343,22 +4531,26 @@ def main():
     }
     kernels = []
     for name in KERNELS:
-        t_bytes = nbytes[name] / HBM_BYTES_PER_S * 1e3
-        t_ops = ops[name][0] / ops[name][1] * 1e3
-        # launches on the main path that runs the kernel: RegNet2D3D's
-        # train step for the image gradient, projection-refined register
-        # (which runs the other eight) for the rest
-        main_launches = (regnet_launches if name == "warp_image_grad"
-                         else projection_launches)
-        kernels.append({
-            "name": name, "route": "cuda", "source": sources[name],
-            "replaces": replaces[name],
-            "launches": main_launches[name],
-            "max_abs_err": errs[name],
-            "ms": ms[name], "plain_ms": plain_ms[name],
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": lib_ms[name]})
+        if name in probe_rows:
+            # launches from the bench tool's run (gather_probe)
+            kernels.append(probe_rows[name])
+        else:
+            t_bytes = nbytes[name] / HBM_BYTES_PER_S * 1e3
+            t_ops = ops[name][0] / ops[name][1] * 1e3
+            # launches on the main path that runs the kernel: RegNet2D3D's
+            # train step for the image gradient, projection-refined
+            # register (which runs the other eight) for the rest
+            main_launches = (regnet_launches if name == "warp_image_grad"
+                             else projection_launches)
+            kernels.append({
+                "name": name, "route": "cuda", "source": sources[name],
+                "replaces": replaces[name],
+                "launches": main_launches[name],
+                "max_abs_err": errs[name],
+                "ms": ms[name], "plain_ms": plain_ms[name],
+                "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "library_ms": lib_ms[name]})
         kernels[-1].update(optreg_call_launches=learned["call"][name],
                            optreg_step_launches=learned["step"][name],
                            oracle_pair_launches=learned["oracle_pair"][name],

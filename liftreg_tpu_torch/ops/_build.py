@@ -25,7 +25,7 @@ _PKG = Path(__file__).resolve().parent.parent
 SOURCES = tuple(_PKG / "csrc" / name
                 for name in ("pca_expand.cu", "warp_trilinear.cu",
                              "drr_project.cu", "drr_project_adjoint.cu",
-                             "drr_backproject.cu"))
+                             "drr_backproject.cu", "gather_probe.cu"))
 BUILD_ROOT = _PKG.parent / "build" / "liftreg_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -142,6 +142,8 @@ SIGNATURES = {
                                  _I64, _I64, _PTR],
     "liftreg_drr_backproject": [_PTR, _PTR, _PTR, _PTR, _I32, _I64, _I64,
                                 _I64, _I64, _I64, _I64, _I64, _I64, _PTR],
+    "liftreg_gather_probe": [_I32, _PTR, _I32, _PTR, _PTR, _I64, _I64, _I32,
+                             _I32, _PTR],
 }
 
 

@@ -512,3 +512,24 @@ def warp_trilinear_ad(taps, coords, border, normalized=False,
                               scale_intensity)
     return _WarpTrilinear.apply(taps, coords, border, normalized,
                                 scale_intensity)
+
+
+def displacement_window(coords):
+    """A field's (dy, dx) window, as ``liftreg_tpu/ops/pallas_warp.py:317``
+    measures it: coords (B, D, W, H, 3) pixel (z, y, x) -> ``(max |y0 - y|,
+    max |x0 - x|)`` over the clamped interpolation starts ``y0 =
+    clip(floor(c_y), 0, W - 2)`` (x alike), 0-d tensors in the coordinates'
+    type. It is the smallest window that a warp keeping only the rows
+    ``y - dy .. y + dy`` of each plane on chip would need: the TPU kernel's
+    ``dy_max``/``dx_max``, and the slab height of a locality warp. The
+    port's warp is exact for any field and takes no window."""
+    if coords.dim() != 5 or coords.shape[-1] != 3:
+        raise ValueError("displacement_window: want coords (B, D, W, H, 3); "
+                         f"got {tuple(coords.shape)}")
+    W, H = coords.shape[2:4]
+    yi = torch.arange(W, dtype=coords.dtype, device=coords.device)
+    xi = torch.arange(H, dtype=coords.dtype, device=coords.device)
+    y0 = torch.clamp(torch.floor(coords[..., 1]), 0, W - 2)
+    x0 = torch.clamp(torch.floor(coords[..., 2]), 0, H - 2)
+    return ((y0 - yi[:, None]).abs().max(),
+            (x0 - xi[None, :]).abs().max())

@@ -31,7 +31,9 @@ gives the same bits (no float atomics); its plan equals the plain plan,
 and the serving geometry takes none of its general path. LNCC on the card
 with TF32 allowed for convolutions against the CPU (f32 box sums in another
 order): the value rtol 1e-5, atol 1e-6; the gradient rtol 1e-4, atol 1e-4 *
-max|CPU| (TF32 sums would be off by ~1e-3)."""
+max|CPU| (TF32 sums would be off by ~1e-3). The gather probes repeat the
+plain versions' sums in the same order, without fused multiply-adds and
+with bf16 rounded where the plain bf16 arithmetic rounds: bit-equal."""
 import pytest
 import torch
 
@@ -46,6 +48,7 @@ from liftreg_tpu_torch.ops.drr_kernel import (backproject_taps,
                                               project_adjoint_taps_plain,
                                               project_taps,
                                               project_taps_plain)
+from liftreg_tpu_torch.ops import gather_probe
 from liftreg_tpu_torch.ops.pca_kernel import (MAX_CHUNK, pca_expand,
                                               pca_expand_plain, pca_grad,
                                               pca_grad_plain)
@@ -822,3 +825,44 @@ def test_warp_image_grad_zero_padding_adds_nothing(device):
     got = warp_image_grad(vol, pix, torch.ones((1, 3, 4), device=device),
                           False)
     assert int(torch.count_nonzero(got)) == 0
+
+
+@pytest.mark.parametrize("probe", ["gather_lanes", "gather_rows",
+                                   "roll_sum", "warp_step"])
+@pytest.mark.parametrize("shape", [(8, 128), (160, 160), (37, 45),
+                                   (1280, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("inner,grid", [(1, 1), (8, 3), (15, 1)])
+def test_gather_probe_matches_plain(device, probe, shape, dtype, inner,
+                                    grid):
+    """Each probe kernel against its plain version, bit for bit, on
+    indices over the whole int32 range (the floor modulo at negative
+    indices and ``idx + k`` wrapping) with 0 and M - 1 among them."""
+    g = torch.Generator(device=device).manual_seed(3)
+    x = torch.randn(shape, generator=g, device=device).to(dtype)
+    idx = torch.randint(-2 ** 31, 2 ** 31 - 1, shape, generator=g,
+                        device=device, dtype=torch.int32)
+    idx[0, :3] = torch.tensor([0, shape[0] - 1, 2 ** 31 - 1])
+    fn = getattr(gather_probe, probe)
+    before = fn.launches
+    got = fn(x, inner, grid) if probe == "roll_sum" else fn(x, idx, inner,
+                                                            grid)
+    want = gather_probe.plain_version(probe, x, idx, inner)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert got.dtype == dtype and torch.equal(
+        got.float().view(torch.int32), want.float().view(torch.int32))
+
+
+def test_gather_probe_refuses_a_band_past_shared_memory(device):
+    """A row band (M * 32 elements) or a lane band (8 rows) that does not
+    fit a block's shared memory is refused before any launch."""
+    x = torch.zeros((2048, 64), device=device)
+    idx = torch.zeros((2048, 64), dtype=torch.int32, device=device)
+    before = gather_probe.gather_rows.launches
+    with pytest.raises(ValueError, match="shared"):
+        gather_probe.gather_rows(x, idx, 1)
+    wide = torch.zeros((8, 8192), device=device)
+    with pytest.raises(ValueError, match="shared"):
+        gather_probe.roll_sum(wide, 1)
+    assert gather_probe.gather_rows.launches == before

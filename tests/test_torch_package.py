@@ -21,12 +21,16 @@ def test_no_jax_or_reference_imports():
     files = sorted((ROOT / "liftreg_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     tools = sorted((ROOT / "tools").glob("torch_*.py"))
-    assert len(tools) >= 21
+    assert len(tools) >= 23
     files += tools
     assert len(files) > 10
     bad = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
            for f in files for m in FORBIDDEN.finditer(f.read_text())]
     assert not bad, bad
+    # the JAX tools' timing helper (tools/_timing.py) imports JAX
+    timing = re.compile(r"^\s*(import|from)\s+(tools\.)?_timing\b",
+                        re.MULTILINE)
+    assert not [f for f in files if timing.search(f.read_text())]
 
 
 def test_kernel_sources_exist():

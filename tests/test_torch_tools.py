@@ -441,3 +441,46 @@ def test_s2d_stages_tool_on_the_cpu(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert st.main([]) == 1
     assert "no CUDA device" in capsys.readouterr().err
+
+
+def test_export_tool_exports_the_named_checkpoint(tmp_path):
+    """``tools/torch_export_serving.py --checkpoint`` exports that
+    checkpoint, as the JAX tool's option does (``tools/export_serving.py``);
+    without it the experiment's ``model_best.ckpt``. The served phi of a
+    second, different checkpoint equals its pipeline's and differs from
+    ``model_best``'s."""
+    import json
+    import os
+
+    import numpy as np
+
+    from liftreg_tpu_torch import serving
+    from liftreg_tpu_torch.train import RegistrationTrainer
+    from tools.torch_export_serving import main, pipeline_from_setting
+    from torch_train_data import setting, write_dataset
+    os.environ["LIFTREG_NO_TB"] = "1"
+    cfg = setting(write_dataset(str(tmp_path / "data")),
+                  str(tmp_path / "exp"))
+    path = str(tmp_path / "setting.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    tr = RegistrationTrainer(cfg, device="cpu")
+    tr.save_model("init", is_best=True)
+    with torch.no_grad():
+        for p in tr.model.parameters():
+            p.add_(0.05 * torch.randn(p.shape, generator=torch.Generator()
+                                      .manual_seed(p.numel())))
+    other = tr.save_model("epoch_1", is_best=False)
+    assert os.path.basename(other) != "model_best.ckpt"
+    rng = np.random.default_rng(5)
+    vols = [torch.from_numpy(rng.uniform(-1000, 0, (1, 1, 16, 16, 16))
+                             .astype(np.float32)) for _ in range(2)]
+    best, pca = pipeline_from_setting(path, {}, "cpu")
+    pipe, _ = pipeline_from_setting(path, {}, "cpu", checkpoint=other)
+    want = pipe.register(pca, *vols)[1]
+    assert float((want - best.register(pca, *vols)[1]).abs().max()) > 1e-4
+    out = main(["-s", path, "--checkpoint", other, "-o",
+                str(tmp_path / "other.liftreg"), "-b", "1", "--device",
+                "cpu"])
+    got = serving.ServingModel.load(out, device="cpu").register(*vols)[1]
+    assert torch.equal(got, want)

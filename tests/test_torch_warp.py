@@ -214,3 +214,21 @@ def test_grad_offset_check_is_a_function_of_the_shape(taps_shape, M, fits):
     else:
         with pytest.raises(ValueError):
             check_offsets(taps_shape, M)
+
+
+@pytest.mark.parametrize("shape,far", [((6, 9, 7), 0), ((5, 12, 10), 40),
+                                       ((4, 2, 8), 5)])
+def test_displacement_window_matches_jax(shape, far):
+    """``displacement_window`` against ``pallas_warp.displacement_window``
+    on seeded smooth fields, with points far outside the volume (the
+    clamped starts then span it) and a dim of 2 (starts clamped to 0)."""
+    from liftreg_tpu_torch.ops.warp_kernel import displacement_window
+    rng = np.random.default_rng(11)
+    coords = _field(rng, shape, 2, 1.7, far=far)
+    want = pallas_warp.displacement_window(jnp.asarray(coords))
+    got = displacement_window(torch.from_numpy(coords))
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and g.dim() == 0
+        assert float(g) == float(w)
+    with pytest.raises(ValueError):
+        displacement_window(torch.from_numpy(coords[..., :2]))

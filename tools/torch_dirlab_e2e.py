@@ -50,8 +50,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from liftreg_tpu_torch import pca as pca_lib  # noqa: E402
 from liftreg_tpu_torch.device import resolve_device  # noqa: E402
-from liftreg_tpu_torch.ops import (drr_kernel, pca_kernel,  # noqa: E402
-                                   warp_kernel)
+from liftreg_tpu_torch.ops import (drr_kernel, gather_probe,  # noqa: E402
+                                   pca_kernel, warp_kernel)
 from liftreg_tpu_torch.train import RegistrationTrainer  # noqa: E402
 from liftreg_tpu_torch.utils.settings import default_task_setting  # noqa: E402
 from liftreg_tpu_torch.utils.tre import eval_copd_highres  # noqa: E402
@@ -106,7 +106,11 @@ def launch_counts():
                 "drr_project": drr_kernel.project_taps,
                 "drr_project_adjoint": drr_kernel.project_adjoint_taps,
                 "drr_adjoint_plan": drr_kernel.project_adjoint_plan,
-                "drr_backproject": drr_kernel.backproject_taps}
+                "drr_backproject": drr_kernel.backproject_taps,
+                "gather_probe_rows": gather_probe.gather_rows,
+                "gather_probe_lanes": gather_probe.gather_lanes,
+                "gather_probe_roll": gather_probe.roll_sum,
+                "gather_probe_warp_step": gather_probe.warp_step}
     return {name: fn.launches for name, fn in wrappers.items()}
 
 

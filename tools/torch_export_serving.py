@@ -9,6 +9,9 @@ From a trained experiment (its settings, ``model_best.ckpt`` and basis)::
     python tools/torch_export_serving.py -s EXP/cur_task_setting.json \
         -o flagship.liftreg -b 4
 
+``--checkpoint PATH`` exports another checkpoint of the experiment (the
+last one, an earlier epoch's), as the JAX tool's option does.
+
 Synthetic smoke test (random seeded weights and basis, no experiment)::
 
     python tools/torch_export_serving.py --demo 32 -o demo.liftreg
@@ -28,9 +31,10 @@ import sys
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
-def pipeline_from_setting(setting_path, refine_kw, device):
-    """The pipeline of a trained experiment, its weights from the
-    checkpoint, and its basis: ``(pipe, pca)``. The encoder's compute type,
+def pipeline_from_setting(setting_path, refine_kw, device, checkpoint=None):
+    """The pipeline of a trained experiment, its weights from
+    ``checkpoint`` (default the experiment's ``model_best.ckpt``), and its
+    basis: ``(pipe, pca)``. The encoder's compute type,
     its space-to-depth stages and the basis type come from the model
     config; the warp's taps are bf16 only where ``warp_taps_dtype`` says
     so, as the trainer builds its model (the pipeline's own default would
@@ -70,8 +74,8 @@ def pipeline_from_setting(setting_path, refine_kw, device):
     pca = load_pca(model_cfg["pca_path"],
                    dtype=bf16 if model_cfg.get("pca_dtype") == "bfloat16"
                    else None, device=pipe.device)
-    ckpt = os.path.join(train["output_path"], "checkpoints",
-                        "model_best.ckpt")
+    ckpt = checkpoint or os.path.join(train["output_path"], "checkpoints",
+                                      "model_best.ckpt")
     state = load_checkpoint(ckpt)
     pipe.model.load_state_dict(state["params"])
     print(f"loaded checkpoint '{ckpt}' (epoch {int(state.get('epoch', -1))})")
@@ -103,6 +107,9 @@ def main(argv=None):
                     help="output artifact path (e.g. flagship.liftreg)")
     ap.add_argument("-b", "--batch_size", type=int, default=4,
                     help="serving batch the program is specialized to")
+    ap.add_argument("--checkpoint", type=str, default="",
+                    help="checkpoint to export (default: the experiment's "
+                         "model_best.ckpt)")
     ap.add_argument("--demo", type=int, default=0, metavar="SZ",
                     help="export a randomly initialised SZ^3 model instead "
                          "of a trained experiment (smoke testing)")
@@ -134,7 +141,7 @@ def main(argv=None):
         pipe, pca = demo_pipeline(args.demo, refine_kw, args.device)
     elif args.setting_path:
         pipe, pca = pipeline_from_setting(args.setting_path, refine_kw,
-                                          args.device)
+                                          args.device, args.checkpoint)
     else:
         ap.error("either --setting_path or --demo is required")
     out = export_serving(pipe, pca, batch_size=args.batch_size,
