@@ -44,9 +44,10 @@ line with its elapsed seconds:
    each with the counts zeroed just before and read just after and checked
    exactly; then the four probe kernels (row gather, lane gather, roll,
    warp step) at every shape of both tools against their plain versions,
-   bit for bit (f32 and bf16, inner 1 and 8, grid 1 and one pass an SM,
-   indices of the axis's range and of the whole int32 range), and their
-   times;
+   bit for bit (f32 and bf16, inner 1, 8 and 64, grid 1 and one pass an
+   SM, indices of the axis's range, of the whole int32 range and where
+   the kernels' index walk turns), and their times, with the slope
+   between inner 8 and 64 at 160 x 128 and 1280 x 128 f32;
 4. main_path: RegistrationPipeline.register at 160^3, B=4, 4 views on a
    240^2 detector, latent 56, bf16 encoder, basis and taps, with random
    seeded weights; the kernels' launch counts are zeroed just before and
@@ -270,9 +271,12 @@ thirteen kernels (``launches``: for the image gradient one RegNet2D3D
 step's, for the four gather probes the bench tool's run in gather_probe
 (``repro_launches`` the repro tool's; their times at 160 x 128 f32, at
 the bench's inner 8 and grid, and ``inner1`` at inner 1 and grid 1 with
-the library call; ``smem_bound_ms`` their gathered elements at 128 bytes
-a clock an SM), for the others refine_projection's register, which runs
-all eight;
+the library call; ``bound_ms`` the largest of their device bytes, f32
+operations and gathered elements read from shared memory at 128 bytes a
+clock an SM, ``bound_of`` which; ``slope`` their times at inner 8 and 64
+at 160 x 128 and 1280 x 128 f32 and the marginal gathered elements a
+clock an SM between the two), for the others refine_projection's
+register, which runs all eight;
 ``projection_launches`` from that register, ``serving_launches`` from
 main_path's, ``image_refine_launches`` from refine's,
 ``train_launches``, ``train_bf16_launches``, ``regnet_launches`` and
@@ -590,11 +594,15 @@ DP_REFINE_TOL = 1e-4
 # grid of one pass an SM; tools/torch_repro_mosaic_gather_500.py), each with
 # the counts zeroed just before and read just after; then every probe at
 # every shape of both tools against its plain version, bit for bit: f32 and
-# bf16, inner 1 and 8, grid 1 and one pass an SM, indices of the axis's
-# range (0 and its last among them) and of the whole int32 range; then each
-# kernel's times at PROBE_SHAPE f32 (the bench's inner 8 and grid, and
-# inner 1 at grid 1 beside one library call). The kernels' names in the
-# kernels line, their wrappers and the TPU kernels they replace:
+# bf16, inner 1, 8 and 64, grid 1 and one pass an SM, indices of the axis's
+# range (0 and its last among them), of the whole int32 range, and where
+# the kernels' index walk turns (INT32_MAX - 63 .. INT32_MAX, where idx + k
+# wraps, INT32_MIN, INT32_MIN + 1, -1, -n, n - 1); then each kernel's times
+# at PROBE_SHAPE f32 (the bench's inner 8 and grid, and inner 1 at grid 1
+# beside one library call), and at inner 8 and 64 at each of PROBE_SLOPE's
+# f32 shapes, one pass an SM: the slope between the two gives the marginal
+# gathered elements a clock an SM. The kernels' names in the kernels line,
+# their wrappers and the TPU kernels they replace:
 PROBE_KERNELS = {
     "gather_probe_rows": ("gather_rows", "tools/bench_mosaic_gather.py:94"),
     "gather_probe_lanes": ("gather_lanes",
@@ -603,13 +611,17 @@ PROBE_KERNELS = {
     "gather_probe_warp_step": ("warp_step",
                                "tools/bench_mosaic_gather.py:120")}
 PROBE_REPS = 20
-PROBE_INNER = (1, 8)
+PROBE_INNER = (1, 8, 64)
 PROBE_SHAPE = (160, 128)
+PROBE_SLOPE = ((160, 128), (1280, 128))
+PROBE_SLOPE_INNER = (8, 64)
 # f32 operations per gathered element: the add (the warp step: the product
 # and the add); the index arithmetic is integer work and not counted
 PROBE_OPS_PER_ELEM = {"gather_rows": 1, "gather_lanes": 1, "roll_sum": 1,
                       "warp_step": 2}
-# shared memory serves 128 bytes a clock on each SM
+# shared memory serves 128 bytes a clock on each SM: each gathered element
+# is one read of it, which bounds the probes below the device bytes and
+# the f32 operations
 SMEM_BYTES_PER_CLOCK = 128
 
 _state = {"phase": "start", "t0": time.perf_counter()}
@@ -2184,9 +2196,11 @@ def gather_probe_phase(torch, kernels):
     rows = bench.main(["--reps", str(PROBE_REPS)], record=record)
     torch.cuda.synchronize()
     bench_launches = _counts(kernels)
-    want = dict({k: 0 for k in kernels}, warp_trilinear=PROBE_REPS + 1)
+    # each timed call: the warm-up, the call that sizes the timer's spin
+    # kernel, and the reps
+    want = dict({k: 0 for k in kernels}, warp_trilinear=PROBE_REPS + 2)
     for _, probe, *_ in bench.ROWS:
-        want[name_of[probe]] += PROBE_REPS + 1
+        want[name_of[probe]] += PROBE_REPS + 2
     _require(bench_launches == want,
              f"the bench tool launched {bench_launches}, expected {want}")
     _require(len(rows) == 17 and all(r["grid"] == sms for r in rows),
@@ -2212,6 +2226,10 @@ def gather_probe_phase(torch, kernels):
     cases, bad = 0, []
     for probe, M, L in shapes:
         high = L if probe == "gather_lanes" else M
+        turns = torch.tensor(
+            [2 ** 31 - 1 - t for t in range(max(PROBE_INNER))]
+            + [-2 ** 31, -2 ** 31 + 1, -1, -high, high - 1],
+            dtype=torch.int32, device=dev)
         for dtype in (torch.float32, torch.bfloat16):
             x = torch.randn((M, L), generator=g, device=dev).to(dtype)
             in_range = torch.randint(0, high, (M, L), generator=g,
@@ -2219,8 +2237,11 @@ def gather_probe_phase(torch, kernels):
             in_range.view(-1)[:2] = torch.tensor([0, high - 1])
             full = torch.randint(-2 ** 31, 2 ** 31 - 1, (M, L), generator=g,
                                  device=dev, dtype=torch.int32)
-            for iname, idx in (("range", in_range), ("int32", full)):
-                if probe == "roll_sum" and iname == "int32":
+            walk = turns[torch.randint(0, len(turns), (M, L), generator=g,
+                                       device=dev)]
+            for iname, idx in (("range", in_range), ("int32", full),
+                               ("walk", walk)):
+                if probe == "roll_sum" and iname != "range":
                     continue
                 for inner in PROBE_INNER:
                     want_out = gp.plain_version(probe, x, idx, inner)
@@ -2235,8 +2256,9 @@ def gather_probe_phase(torch, kernels):
     torch.cuda.synchronize()
 
     # (c) times at PROBE_SHAPE f32: the bench's inner and grid, and inner 1
-    # at grid 1 (the repro tool's call) beside one library call; each with
-    # the bench's device timer (a kernel of a few microseconds takes less
+    # at grid 1 (the repro tool's call) beside one library call; then inner
+    # 8 and 64 at PROBE_SLOPE's shapes, one pass an SM; each with the
+    # bench's device timer (a kernel of a few microseconds takes less
     # device time than its call takes on the host)
     M, L = PROBE_SHAPE
 
@@ -2253,15 +2275,19 @@ def gather_probe_phase(torch, kernels):
         nbytes = M * L * (2 * x.element_size() + (0 if idx is None else 4))
 
         def bound(n, t):
+            # the device bytes (x, idx and out once), the f32 operations,
+            # and the shared-memory reads (one a gathered element, which
+            # the card serves at smem_rate): the largest
             gathered = t * n * M * L
-            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            t_ops = gathered * PROBE_OPS_PER_ELEM[probe] / PEAK_F32_FLOPS \
-                * 1e3
-            return {"bound_ms": max(t_bytes, t_ops),
-                    "bound_by": "bytes" if t_bytes >= t_ops
-                    else "operations",
-                    "smem_bound_ms": gathered * x.element_size() / smem_rate
-                    * 1e3}
+            times = {"device memory bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+                     "f32 operations": gathered * PROBE_OPS_PER_ELEM[probe]
+                     / PEAK_F32_FLOPS * 1e3,
+                     "shared memory bytes": gathered * x.element_size()
+                     / smem_rate * 1e3}
+            of = max(times, key=times.get)
+            return {"bound_ms": times[of],
+                    "bound_by": "operations" if of == "f32 operations"
+                    else "bytes", "bound_of": of}
 
         library = None
         if probe in ("gather_rows", "gather_lanes"):
@@ -2287,6 +2313,24 @@ def gather_probe_phase(torch, kernels):
         row["bench_rows"] = [
             {k: r[k] for k in ("label", "dtype", "ms", "ns_per_elem")}
             for r in rows if r["probe"] == probe]
+        row["slope"] = {}
+        for sM, sL in PROBE_SLOPE:
+            sx, sidx = bench.probe_inputs(probe, sM, sL, "float32", dev)
+            lo, hi = PROBE_SLOPE_INNER
+            t_lo, t_hi = (timed(bench.probe_call(probe, sx, sidx, n, sms), 20)
+                          for n in (lo, hi))
+            # gathered elements a clock an SM between inner lo and hi,
+            # each of the sms passes on an SM of its own; and over the
+            # whole call at hi, which counts the staging and the device
+            # memory traffic too (the slope can pass the 32 f32 reads a
+            # clock that the banks serve where the call at hi hides more
+            # of that traffic under its gathers than the call at lo)
+            row["slope"][f"{sM}x{sL}"] = {
+                f"inner{lo}_ms": t_lo, f"inner{hi}_ms": t_hi,
+                "elems_per_clock_sm": (hi - lo) * sM * sL
+                / ((t_hi - t_lo) * 1e-3 * clock_mhz * 1e6),
+                f"elems_per_clock_sm_inner{hi}": hi * sM * sL
+                / (t_hi * 1e-3 * clock_mhz * 1e6)}
         out[kname] = row
     _emit(rows=rows, decision=record, bench_launches=bench_launches,
           repro_launches=repro_launches, cases=cases, mismatches=bad,

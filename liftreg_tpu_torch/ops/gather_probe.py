@@ -47,8 +47,9 @@ DTYPES = (torch.float32, torch.bfloat16)
 _IDX = (torch.int32,)
 #: the kernel entries of csrc/gather_probe.cu
 ROWS, LANES, ROLL, WARP_STEP = 0, 1, 2, 3
-#: columns of an axis-0 block's band and rows of an axis-1 block's band
-#: (``kBand`` and ``kRowBand`` in the source)
+#: columns of an axis-0 block's band (a bf16 band is twice as wide where
+#: it fits, :func:`band_columns`) and rows of an axis-1 block's band at
+#: most (``kMaxRowBand`` in the source)
 BAND_COLUMNS, BAND_ROWS = 32, 8
 #: shared memory a block may use on an H100 (232,448 bytes)
 SMEM_BYTES = 232448
@@ -76,14 +77,26 @@ def _check(name, x, idx, inner, grid):
     return device
 
 
+def band_columns(M, dtype):
+    """Columns of an axis-0 band of an M-row tile of ``dtype``: 32, or 64
+    for bf16 where those fit a block (M <= 1816), so that the lanes of a
+    warp read 32 banks whatever rows they gather."""
+    if dtype == torch.bfloat16 and M * 2 * BAND_COLUMNS * 2 <= SMEM_BYTES:
+        return 2 * BAND_COLUMNS
+    return BAND_COLUMNS
+
+
 def band_bytes(op, shape, dtype):
-    """Shared-memory bytes of one block of kernel ``op`` on an (M, L) tile
-    of ``dtype``: all M rows of a 32-column band (axis 0), or 8 whole rows
-    (axis 1 and the roll)."""
+    """Shared-memory bytes of the tile's elements that one block of kernel
+    ``op`` stages from an (M, L) tile of ``dtype``: all M rows of an
+    axis-0 band (:func:`band_columns`), or 8 whole rows (axis 1 and the
+    roll). The kernel adds up to 7 wrapped copies of rows (axis 0) or
+    columns (axis 1) where they fit, and stages fewer axis-1 rows where
+    one pass would leave the card empty."""
     M, L = shape
     size = torch.empty((), dtype=dtype).element_size()
     if op in (ROWS, WARP_STEP):
-        return M * BAND_COLUMNS * size
+        return M * band_columns(M, dtype) * size
     return min(BAND_ROWS, M) * L * size
 
 
@@ -170,8 +183,8 @@ def plain_version(probe, x, idx, inner, grid=1):
 
 def gather_rows(x, idx, inner, grid=1):
     """:func:`gather_sum_plain` along axis 0: the kernel on CUDA tensors
-    (a block stages all M rows of a 32-column band in shared memory), the
-    plain version on CPU tensors."""
+    (a block stages all M rows of a 32- or 64-column band in shared
+    memory), the plain version on CPU tensors."""
     if _check("gather_rows", x, idx, inner, grid).type == "cpu":
         return gather_sum_plain(x, idx, inner, 0, grid)
     out = _launch(ROWS, "gather_rows", x, idx, inner, grid)
@@ -181,8 +194,8 @@ def gather_rows(x, idx, inner, grid=1):
 
 def gather_lanes(x, idx, inner, grid=1):
     """:func:`gather_sum_plain` along axis 1: the kernel on CUDA tensors
-    (a block stages 8 whole rows in shared memory), the plain version on
-    CPU tensors."""
+    (a block stages up to 8 whole rows in shared memory), the plain
+    version on CPU tensors."""
     if _check("gather_lanes", x, idx, inner, grid).type == "cpu":
         return gather_sum_plain(x, idx, inner, 1, grid)
     out = _launch(LANES, "gather_lanes", x, idx, inner, grid)
@@ -198,8 +211,8 @@ def gather_sum(x, idx, inner, axis, grid=1):
 
 
 def roll_sum(x, inner, grid=1):
-    """:func:`roll_sum_plain`: the kernel on CUDA tensors (8 whole rows a
-    block), the plain version on CPU tensors."""
+    """:func:`roll_sum_plain`: the kernel on CUDA tensors (up to 8 whole
+    rows a block), the plain version on CPU tensors."""
     if _check("roll_sum", x, None, inner, grid).type == "cpu":
         return roll_sum_plain(x, inner, grid)
     out = _launch(ROLL, "roll_sum", x, None, inner, grid)
@@ -209,7 +222,7 @@ def roll_sum(x, inner, grid=1):
 
 def warp_step(x, idx, inner, grid=1):
     """:func:`warp_step_plain`: the kernel on CUDA tensors (all M rows of a
-    32-column band a block), the plain version on CPU tensors."""
+    32- or 64-column band a block), the plain version on CPU tensors."""
     if _check("warp_step", x, idx, inner, grid).type == "cpu":
         return warp_step_plain(x, idx, inner, grid)
     out = _launch(WARP_STEP, "warp_step", x, idx, inner, grid)

@@ -827,22 +827,28 @@ def test_warp_image_grad_zero_padding_adds_nothing(device):
     assert int(torch.count_nonzero(got)) == 0
 
 
-@pytest.mark.parametrize("probe", ["gather_lanes", "gather_rows",
-                                   "roll_sum", "warp_step"])
-@pytest.mark.parametrize("shape", [(8, 128), (160, 160), (37, 45),
-                                   (1280, 128)])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("inner,grid", [(1, 1), (8, 3), (15, 1)])
-def test_gather_probe_matches_plain(device, probe, shape, dtype, inner,
-                                    grid):
-    """Each probe kernel against its plain version, bit for bit, on
-    indices over the whole int32 range (the floor modulo at negative
-    indices and ``idx + k`` wrapping) with 0 and M - 1 among them."""
-    g = torch.Generator(device=device).manual_seed(3)
-    x = torch.randn(shape, generator=g, device=device).to(dtype)
-    idx = torch.randint(-2 ** 31, 2 ** 31 - 1, shape, generator=g,
-                        device=device, dtype=torch.int32)
-    idx[0, :3] = torch.tensor([0, shape[0] - 1, 2 ** 31 - 1])
+def _probe_indices(kind, shape, n, inner, g, device):
+    """int32 indices of ``shape`` for a probe whose gathered axis has n
+    elements: ``int32`` draws from the whole int32 range, with 0, n - 1
+    and INT32_MAX among them; ``wrap`` picks from the indices where the
+    kernels' index walk turns: INT32_MAX - inner + 1 .. INT32_MAX (where
+    idx + k wraps to INT32_MIN), INT32_MIN, INT32_MIN + 1, -1, -n and
+    n - 1."""
+    if kind == "int32":
+        idx = torch.randint(-2 ** 31, 2 ** 31 - 1, shape, generator=g,
+                            device=device, dtype=torch.int32)
+        idx.view(-1)[:3] = torch.tensor([0, n - 1, 2 ** 31 - 1])
+        return idx
+    special = torch.tensor([2 ** 31 - 1 - t for t in range(inner)]
+                           + [-2 ** 31, -2 ** 31 + 1, -1, -n, n - 1],
+                           dtype=torch.int32, device=device)
+    pick = torch.randint(0, len(special), shape, generator=g, device=device)
+    return special[pick]
+
+
+def _probe_bit_equal(probe, x, idx, inner, grid):
+    """One launch of wrapper ``probe``, counted, bit-equal to its plain
+    version."""
     fn = getattr(gather_probe, probe)
     before = fn.launches
     got = fn(x, inner, grid) if probe == "roll_sum" else fn(x, idx, inner,
@@ -850,8 +856,62 @@ def test_gather_probe_matches_plain(device, probe, shape, dtype, inner,
     want = gather_probe.plain_version(probe, x, idx, inner)
     torch.cuda.synchronize()
     assert fn.launches == before + 1
-    assert got.dtype == dtype and torch.equal(
+    assert got.dtype == x.dtype and torch.equal(
         got.float().view(torch.int32), want.float().view(torch.int32))
+
+
+@pytest.mark.parametrize("probe", ["gather_lanes", "gather_rows",
+                                   "roll_sum", "warp_step"])
+@pytest.mark.parametrize("shape", [(8, 128), (160, 160), (37, 45),
+                                   (1280, 128), (160, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("inner,grid", [(1, 1), (8, 3), (15, 1), (64, 1),
+                                        (64, 2)])
+@pytest.mark.parametrize("indices", ["int32", "wrap"])
+def test_gather_probe_matches_plain(device, probe, shape, dtype, inner,
+                                    grid, indices):
+    """Each probe kernel against its plain version, bit for bit, on
+    indices over the whole int32 range (the floor modulo at negative
+    indices and ``idx + k`` wrapping) with 0 and M - 1 among them, and on
+    the indices where the kernels' index walk turns; inner 64 runs past
+    n at (8, 128), and grid 1 at (160, 128) splits a band's rows over
+    several blocks."""
+    g = torch.Generator(device=device).manual_seed(3)
+    x = torch.randn(shape, generator=g, device=device).to(dtype)
+    n = shape[1] if probe == "gather_lanes" else shape[0]
+    idx = _probe_indices(indices, shape, n, inner, g, device)
+    _probe_bit_equal(probe, x, idx, inner, grid)
+
+
+@pytest.mark.parametrize("probe,shape,dtype", [
+    ("gather_rows", (2048, 64), torch.bfloat16),
+    ("warp_step", (3632, 33), torch.bfloat16),
+    ("gather_rows", (1812, 64), torch.bfloat16),
+    ("gather_rows", (1816, 32), torch.float32),
+    ("warp_step", (1809, 40), torch.float32),
+    ("gather_lanes", (1, 58111), torch.float32),
+    ("roll_sum", (1, 58112), torch.float32),
+    ("gather_lanes", (3, 19370), torch.float32),
+    ("roll_sum", (2, 58000), torch.bfloat16)])
+@pytest.mark.parametrize("grid", [1, 2])
+def test_gather_probe_at_the_shared_memory_edge(device, probe, shape, dtype,
+                                                grid):
+    """Tiles whose band only just fits a block are still taken, bit-equal:
+    a bf16 row gather with 1816 < M <= 3632 keeps the 32-column band (its
+    64-column one would not fit), and bands that leave no room for the
+    wrapped copies of rows or columns run without them."""
+    if probe in ("gather_rows", "warp_step"):
+        op = gather_probe.ROWS
+        assert gather_probe.band_columns(shape[0], dtype) == (
+            32 if dtype == torch.float32 or shape[0] > 1816 else 64)
+    else:
+        op = gather_probe.LANES
+    assert gather_probe.band_bytes(op, shape, dtype) <= gather_probe.SMEM_BYTES
+    g = torch.Generator(device=device).manual_seed(5)
+    x = torch.randn(shape, generator=g, device=device).to(dtype)
+    n = shape[1] if probe == "gather_lanes" else shape[0]
+    idx = _probe_indices("wrap", shape, n, 9, g, device)
+    _probe_bit_equal(probe, x, idx, 9, grid)
 
 
 def test_gather_probe_refuses_a_band_past_shared_memory(device):

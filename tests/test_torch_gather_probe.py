@@ -203,6 +203,81 @@ def test_floor_modulo_at_negative_and_extreme_indices():
         np.testing.assert_array_equal(got.numpy(), want)
 
 
+#: rows of the JAX bench tool run at inner 64 and grid 1 (the (8, 128) row
+#: gather runs past n = 8) on indices where the port's index walk turns
+WALK_ROWS = (0, 2, 7, 10, 12, 14)
+WALK_INNER = 64
+
+
+def _walk_indices(kind, shape, n, rng):
+    """``wrap``: indices picked from INT32_MAX - 63 .. INT32_MAX (where
+    idx + k wraps to INT32_MIN inside 64 taps), INT32_MIN, INT32_MIN + 1,
+    -1, -n and n - 1; ``int32``: the whole int32 range."""
+    if kind == "int32":
+        return rng.integers(-2 ** 31, 2 ** 31, shape, dtype=np.int32)
+    special = np.array([2 ** 31 - 1 - t for t in range(WALK_INNER)]
+                       + [-2 ** 31, -2 ** 31 + 1, -1, -n, n - 1], np.int32)
+    return special[rng.integers(0, len(special), shape)]
+
+
+@pytest.fixture(scope="module")
+def walk_runs():
+    """{kind: {row: (kernel name, x, idx, out)}} of the JAX bench tool's
+    WALK_ROWS in interpret mode at inner 64 and grid 1, its indices drawn
+    by :func:`_walk_indices` (the other rows are not run)."""
+    runs = {}
+    orig_call = pl.pallas_call
+    for kind in ("wrap", "int32"):
+        rng = np.random.default_rng(11)
+        names, got = [], {}
+
+        def pallas_call(kernel, **kw):
+            names.append(kernel.__name__)
+            return orig_call(kernel, **kw)
+
+        def timed_ms(fn, *xs, reps, warmup=1):
+            row = len(names) - 1
+            if row in WALK_ROWS:
+                out = fn(*xs)
+                got[row] = (names[row], *(np.asarray(a)
+                                          for a in (*xs, out)))
+            return 1.0
+
+        def randint(key, shape, minval, maxval, dtype):
+            return jax.numpy.asarray(_walk_indices(kind, shape, maxval, rng))
+
+        mp = pytest.MonkeyPatch()
+        mp.setattr(pl, "pallas_call", pallas_call)
+        mp.setattr(bench_mosaic_gather, "timed_ms", timed_ms)
+        mp.setattr(jax.random, "randint", randint)
+        try:
+            bench_mosaic_gather.main(["--interpret", "--reps", "1", "--grid",
+                                      "1", "--inner", str(WALK_INNER)])
+        finally:
+            mp.undo()
+        runs[kind] = got
+    return runs
+
+
+@pytest.mark.parametrize("row", WALK_ROWS)
+@pytest.mark.parametrize("kind", ["wrap", "int32"])
+def test_probe_matches_bench_kernel_where_the_walk_turns(walk_runs, kind,
+                                                         row):
+    """The plain versions (which the card's kernels are held to, bit for
+    bit) against the JAX tool's kernels at inner 64, past n for the
+    (8, 128) row gather, on indices where ``idx + k`` wraps past INT32_MAX
+    and at INT32_MIN, -1, -n and n - 1, and over the whole int32 range."""
+    name, x, idx, out = walk_runs[kind][row]
+    _, probe, M, L, dtype = tbench.ROWS[row]
+    assert PROBES[name] == probe and x.shape == (M, L)
+    if kind == "wrap" and probe != "roll_sum":
+        n = L if probe == "gather_lanes" else M
+        assert int(idx.max()) == 2 ** 31 - 1 and int(idx.min()) == -2 ** 31
+        assert {-1, -n, n - 1} <= set(np.unique(idx).tolist())
+    _assert_bit_equal(gp.plain_version(probe, _torch(x), _torch(idx),
+                                       WALK_INNER), out)
+
+
 def test_wrappers_reject_bad_inputs():
     x = torch.zeros((8, 128))
     idx = torch.zeros((8, 128), dtype=torch.int32)
@@ -232,6 +307,20 @@ def test_band_bytes_of_the_probe_tiles():
     assert gp.band_bytes(gp.LANES, (160, 256), torch.float32) == 8192
     assert gp.band_bytes(gp.ROWS, (2048, 128), torch.float32) \
         > gp.SMEM_BYTES
+
+
+@pytest.mark.parametrize("M,dtype,columns", [
+    (1280, torch.bfloat16, 64), (1816, torch.bfloat16, 64),
+    (1817, torch.bfloat16, 32), (3632, torch.bfloat16, 32),
+    (160, torch.float32, 32), (1816, torch.float32, 32)])
+def test_band_columns(M, dtype, columns):
+    """An axis-0 bf16 band is 64 columns wide (lane l reads bank l for any
+    row) where that fits a block, else 32, which every accepted tile
+    fits; f32 bands are 32 wide."""
+    assert gp.band_columns(M, dtype) == columns
+    assert gp.band_bytes(gp.ROWS, (M, 64), dtype) \
+        == M * columns * torch.empty((), dtype=dtype).element_size() \
+        <= gp.SMEM_BYTES
 
 
 def test_bench_tool_on_the_cpu(capsys):

@@ -26,9 +26,10 @@ element 0 has slabs far outside the volume, and of its other elements.
 Times are the device time between CUDA events around ``--reps`` calls
 after one warm-up, their mean; the calls wait behind a spin kernel until
 all are enqueued, so that no time the card spends waiting for the host
-counts (:func:`timed_ms`). The default ``--grid`` fills the card: one
-pass of the tile for each of its SMs (``multi_processor_count``; the JAX
-tool ran 64 passes on one TPU core, one after another). Runs on the CUDA
+counts (:func:`timed_ms`; one more call, after the warm-up, sizes the
+spin). The default ``--grid`` fills the card: one pass of the tile for
+each of its SMs (``multi_processor_count``; the JAX tool ran 64 passes on
+one TPU core, one after another). Runs on the CUDA
 card; ``--device cpu`` runs the plain versions on the host clock (no
 device number), with ``--warp_size`` setting the decision's warp (160 on
 the card).
@@ -109,7 +110,6 @@ def timed_ms(fn, device, reps, warmup=1):
     host takes to enqueue them, so that the card never waits for the host
     (a small probe takes less device time than its call takes on the
     host). On the CPU: the host clock."""
-    t0 = time.perf_counter()
     for _ in range(warmup):
         fn()
     if device.type != "cuda":
@@ -117,8 +117,13 @@ def timed_ms(fn, device, reps, warmup=1):
         for _ in range(reps):
             fn()
         return (time.perf_counter() - t0) / reps * 1e3
+    # the host's time for one more call, after the warm-up (whose first
+    # call may build the kernels), sizes the spin
     torch.cuda.synchronize(device)
-    call_s = (time.perf_counter() - t0) / max(warmup, 1)
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize(device)
+    call_s = time.perf_counter() - t0
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     torch.cuda._sleep(int(SPIN_CYCLES_PER_S * (2 * reps * call_s + 1e-3)))
