@@ -130,9 +130,11 @@ line with its elapsed seconds:
    forward + backward beside its bound; one reference train step (f32,
    B = 30) with s2d_encoder on against the train phase's plain step from
    the same parameters on the same batch: the losses within
-   S2D_STEP_LOSS_REL, each leaf's gradient within S2D_STEP_GRAD_RTOL, the
-   s2d stages run once, the step's launches exact, 3 steps timed and the
-   peak memory; register at main_path's config with s2d_encoder on
+   S2D_STEP_LOSS_REL, the gradients of stages 0 and 1 of each form within
+   S2D_STEP_GRAD_RTOL of the exact (f64) gradients of its own stage input
+   and cotangent, every other leaf's within S2D_STEP_GRAD_RTOL of the
+   plain step's, the s2d stages run once, the step's launches exact, 3
+   steps timed and the peak memory; register at main_path's config with s2d_encoder on
    against the plain pipeline: phi and warped within S2D_REGISTER_TOL,
    launches exact, the s2d stages run once, both timed in turns;
    profile_train_s2d: one reference step with s2d_encoder on under
@@ -192,6 +194,26 @@ line with its elapsed seconds:
    there;
    profile_regnet: one RegNet2D3D step under torch.profiler, with the
    image gradient's device ms and launches;
+   entry: liftreg_tpu_torch.entry.entry() (the counterpart of
+   __graft_entry__.py: LiftRegSubspaceBackproj in f32 at 160^3, 4 views,
+   latent 56, B = 1, on the JAX entry's seeded inputs), one call of its
+   forward, finite, its launches (counts zeroed just before and read just
+   after) equal to those of the model's own forward (the lift and the
+   warp once each), then its ms after a warm-up;
+   timing_tools: the six timing tools (tools/torch_bench_train_step.py on
+   the train phase's dataset for one epoch at B = 4,
+   torch_bench_refine.py, torch_profile_refine.py,
+   torch_bench_pallas_frontier.py, torch_bench_stage0.py,
+   torch_bench_ab.py), each as a user runs it in a process of its own at
+   the fewest reps that still time something: exit 0, its JSON line
+   echoed, run on this card, each reported launch count exact, the
+   frontier's kernels within their checks' tolerances of their plain
+   versions;
+   dryrun: dryrun_multichip(4) as a caller runs it, started in a process
+   of its own before timing_tools and waited for here (the production
+   trainer for two epochs, a resumed third and refined serving on 4 gloo
+   ranks of the CPU, in a child process that sees no card): its ok line
+   and its own seconds;
 9. times: each kernel, its plain version and one PyTorch library call of
    the same function, with CUDA events (the warp and its gradient in both
    layouts and with both tap types; the lift also as the serving path
@@ -520,15 +542,23 @@ S2D_REL_TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -6}
 S2D_GRAD_REL_TOL = {"float32": 5e-3, "bfloat16": 2.0 ** -3}
 # and one reference train step (f32, B = 30) with s2d_encoder on against
 # the plain step from the same parameters on the same batch: the loss
-# within S2D_STEP_LOSS_REL relative, each leaf's gradient within
-# S2D_STEP_GRAD_RTOL of its largest value; then S2D_STEP_TIMED steps
-# timed after a warm-up. register with s2d_encoder on (main_path's bf16
-# config and weights) against the plain pipeline: phi within
-# S2D_REGISTER_TOL[0] and warped within [1] (a bf16 encoder's coefficients
-# round differently in the two forms); S2D_REGISTER_TIMED calls of each in
-# turns (plain, s2d, s2d, plain) after 2 warm-ups. Measured on an H100:
-# the losses equal, the gradients at most 1.1e-4 of their leaf's largest
-# value; phi 2.1e-5 and warped 2.9e-3 apart (random-noise volumes)
+# within S2D_STEP_LOSS_REL relative; the weight and bias gradients of
+# stages 0 and 1 of each form within S2D_STEP_GRAD_RTOL of the largest
+# value of the exact (f64, on the card) gradients of that form's own stage
+# input and cotangent at stage 1's output
+# (tools/torch_s2d_step_precision.py), the pair's difference printed
+# beside; every other leaf's gradient within S2D_STEP_GRAD_RTOL of the
+# plain leaf's largest value; then S2D_STEP_TIMED steps timed after a
+# warm-up. The plain f32 step is no oracle for the stages' leaves: over
+# 17 points of training on an H100 each form came within 3.6e-4 (s2d) and
+# 9.8e-4 (plain) of the exact gradients, their difference within 9.9e-4,
+# and one run of the pair reached 1.47e-3 (ROADMAP C12). register with
+# s2d_encoder on (main_path's bf16 config and weights) against the plain
+# pipeline: phi within S2D_REGISTER_TOL[0] and warped within [1] (a bf16
+# encoder's coefficients round differently in the two forms);
+# S2D_REGISTER_TIMED calls of each in turns (plain, s2d, s2d, plain) after
+# 2 warm-ups. Measured on an H100: phi 2.1e-5 and warped 2.9e-3 apart
+# (random-noise volumes)
 S2D_STEP_LOSS_REL = 1e-5
 S2D_STEP_GRAD_RTOL = 1e-3
 S2D_STEP_TIMED = 3
@@ -623,6 +653,26 @@ PROBE_OPS_PER_ELEM = {"gather_rows": 1, "gather_lanes": 1, "roll_sum": 1,
 # is one read of it, which bounds the probes below the device bytes and
 # the f32 operations
 SMEM_BYTES_PER_CLOCK = 128
+
+# entry / timing_tools / dryrun: the entry points
+# (liftreg_tpu_torch/entry.py: entry()'s forward at 160^3, 4 views, latent
+# 56, B = 1, timed ENTRY_TIMED calls after a warm-up; dryrun_multichip on
+# DRYRUN_RANKS gloo ranks of the CPU, in a process of its own that runs
+# beside timing_tools, at most DRYRUN_TIMEOUT_S) and the six timing tools,
+# each as a
+# user runs it, in a process of its own (at most TOOL_TIMEOUT_S), at the
+# fewest reps that still time something: the train step on the train
+# phase's dataset for one epoch at B = TOOL_TRAIN_B, refinement of
+# TOOL_REFINE_STEPS steps
+ENTRY_TIMED = 3
+DRYRUN_RANKS = 4
+TIMING_TOOLS = ("torch_bench_train_step", "torch_bench_refine",
+                "torch_profile_refine", "torch_bench_pallas_frontier",
+                "torch_bench_stage0", "torch_bench_ab")
+TOOL_TIMEOUT_S = 300
+DRYRUN_TIMEOUT_S = 600
+TOOL_TRAIN_B = 4
+TOOL_REFINE_STEPS = 2
 
 _state = {"phase": "start", "t0": time.perf_counter()}
 
@@ -2052,8 +2102,12 @@ def s2d_phase(torch, kernels, s2d, tr, batch, names, train_root,
     the s2d trainer; raises where a check fails."""
     from liftreg_tpu_torch.pipeline import RegistrationPipeline
     from liftreg_tpu_torch.train import RegistrationTrainer
+    import torch.nn.functional as F
+
     from liftreg_tpu_torch.train.trainer import loss_and_grads
     from tools import torch_s2d_stages
+    from tools.torch_s2d_step_precision import (STAGE_LEAVES, StageTap,
+                                                exact_stage_grads)
 
     out = {"stages": []}
     # (a) stages 0+1 alone, both forms
@@ -2077,21 +2131,42 @@ def s2d_phase(torch, kernels, s2d, tr, batch, names, train_root,
     tr_s = RegistrationTrainer(cfg)
     tr_s.model.load_state_dict(tr.model.state_dict())
     reg = tr.loss.factor(tr.cur_epoch)
-    step = {}
-    with counted(s2d, "conv_pair_s2d") as calls:
-        got = loss_and_grads(tr_s.model, tr_s.loss, tr_s.params, batch,
-                             tr_s.pca, reg, tr_s._weights(len(names)),
-                             tr_s.mesh)
-    want = loss_and_grads(tr.model, tr.loss, tr.params, batch, tr.pca, reg,
-                          tr._weights(len(names)), tr.mesh)
-    step["s2d_calls"] = len(calls)
+    step, taps, found = {}, {}, {}
+    for form, trainer in (("s2d", tr_s), ("plain", tr)):
+        # each form's stage input and cotangent at stage 1's output
+        taps[form] = StageTap(trainer.model.encoder)
+        try:
+            with counted(s2d, "conv_pair_s2d") as calls:
+                found[form] = loss_and_grads(
+                    trainer.model, trainer.loss, trainer.params, batch,
+                    trainer.pca, reg, trainer._weights(len(names)),
+                    trainer.mesh)
+        finally:
+            taps[form].remove()
+        if form == "s2d":
+            step["s2d_calls"] = len(calls)
+    got, want = found["s2d"], found["plain"]
     step["loss_rel_diff"] = {
         k: abs(float(got[0][k]) - float(v)) / abs(float(v))
         for k, v in want[0].items() if float(v) != 0.0}
     step["grad_rel_diff"] = {
         k: float((got[1][k] - g).abs().max() / g.abs().max())
         for k, g in want[1].items()}
-    del got, want
+    # stages 0+1's leaves: each form against the f64 gradients of its own
+    # stage input and cotangent
+    slope = tr.model.encoder.convs[0].negative_slope
+    step["stage_f64_rel_err"] = {}
+    for form, (_, grads) in found.items():
+        exact = exact_stage_grads(torch, F, tr.model.encoder, taps[form].x0,
+                                  taps[form].dy1, slope)
+        step["stage_f64_rel_err"][form] = {
+            k: float((grads[k].double() - e).abs().max() / e.abs().max())
+            for k, e in exact.items()}
+        del exact
+    step["cotangent_rel_diff"] = float(
+        (taps["s2d"].dy1 - taps["plain"].dy1).abs().max()
+        / taps["plain"].dy1.abs().max())
+    del got, want, found, taps
     torch.cuda.synchronize()
     _zero(kernels)
     tr_s.step(batch, names)
@@ -2115,8 +2190,14 @@ def s2d_phase(torch, kernels, s2d, tr, batch, names, train_root,
     _require(step["launches"] == expected_step,
              f"the s2d train step launched {step['launches']}")
     _require(max(step["loss_rel_diff"].values()) <= S2D_STEP_LOSS_REL
-             and max(step["grad_rel_diff"].values()) <= S2D_STEP_GRAD_RTOL,
-             f"the s2d train step disagrees with the plain step: {step}")
+             and all(v <= S2D_STEP_GRAD_RTOL
+                     for errs in step["stage_f64_rel_err"].values()
+                     for v in errs.values())
+             and all(v <= S2D_STEP_GRAD_RTOL
+                     for k, v in step["grad_rel_diff"].items()
+                     if k not in STAGE_LEAVES),
+             f"the s2d train step disagrees with the plain step or with the "
+             f"exact gradients: {step}")
 
     # (c) register at main_path's config with s2d_encoder on, against the
     # plain pipeline on the same weights and inputs
@@ -2340,6 +2421,179 @@ def gather_probe_phase(torch, kernels):
     _require(not bad, f"probe kernels differ from their plain versions: "
              f"{bad[:10]}")
     return out
+
+
+def entry_phase(torch, kernels):
+    """The entry phase: ``liftreg_tpu_torch.entry.entry()`` on the card,
+    one call of its forward with the counted launches, the same of the
+    model's own forward, and ms a call after a warm-up. Raises where a
+    check fails."""
+    from liftreg_tpu_torch.entry import entry
+    t0 = time.perf_counter()
+    fn, args = entry()
+    torch.cuda.synchronize()
+    line = {"build_s": time.perf_counter() - t0}
+    model, inputs, pca = args
+    expected = dict({k: 0 for k in kernels}, drr_backproject=1,
+                    warp_trilinear=1)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        _zero(kernels)
+        out = fn(*args)
+        torch.cuda.synchronize()
+        line["launches"] = _counts(kernels)
+        _zero(kernels)
+        model(inputs, pca)
+        torch.cuda.synchronize()
+        line["model_launches"] = _counts(kernels)
+        line["finite"] = all(bool(torch.isfinite(v).all())
+                             for v in out.values())
+        line["shapes"] = {k: list(out[k].shape) for k in ("warped", "phi")}
+        del out
+        line["ms"] = _cuda_ms(lambda: fn(*args), ENTRY_TIMED, warmup=1)
+    del fn, args, model, inputs, pca
+    torch.cuda.empty_cache()
+    _require(line["finite"], f"entry's forward is not finite: {line}")
+    _require(line["shapes"] == {"warped": [1, 1] + [SZ] * 3,
+                                "phi": [1, 3] + [SZ] * 3},
+             f"entry's forward has the wrong shapes: {line}")
+    _require(line["launches"] == line["model_launches"] == expected,
+             f"entry's forward launched {line['launches']}, the model's "
+             f"{line['model_launches']}, expected {expected}")
+    return line
+
+
+def start_dryrun(root):
+    """Start ``dryrun_multichip(DRYRUN_RANKS)`` in a process of its own, as
+    a caller runs it, its output written to ``root``/dryrun.log; returns
+    the process. Its ranks run on the CPU, beside the card's work."""
+    os.makedirs(root, exist_ok=True)
+    log = open(os.path.join(root, "dryrun.log"), "w")
+    code = ("from liftreg_tpu_torch.entry import dryrun_multichip; "
+            f"dryrun_multichip({DRYRUN_RANKS})")
+    proc = subprocess.Popen([sys.executable, "-c", code], stdout=log,
+                            stderr=subprocess.STDOUT)
+    proc.log, proc.started = log, time.time()
+    _state.setdefault("children", []).append(proc)
+    return proc
+
+
+def dryrun_phase(proc):
+    """Wait for the dry run of :func:`start_dryrun`; returns its ok line and
+    its own seconds (from its start to its log's last write)."""
+    proc.wait(timeout=DRYRUN_TIMEOUT_S)
+    proc.log.close()
+    with open(proc.log.name) as f:
+        lines = f.read().splitlines()
+    _require(proc.returncode == 0, f"dryrun_multichip exited "
+             f"{proc.returncode}: " + "\n".join(lines[-30:]))
+    ok = [line for line in lines
+          if line.startswith(f"dryrun_multichip({DRYRUN_RANKS}) ok")]
+    _require(len(ok) == 1, "dryrun_multichip printed no ok line: "
+             + "\n".join(lines[-20:]))
+    return {"ok_line": ok[0],
+            "ran_s": os.path.getmtime(proc.log.name) - proc.started}
+
+
+def _nonzero(counts):
+    return {k: v for k, v in counts.items() if v}
+
+
+def timing_tools_phase(data_root, serving_launches, smi):
+    """The timing_tools phase: each of TIMING_TOOLS as a user runs it, in a
+    process of its own, its JSON line echoed and its counted launches
+    checked. Returns the phase's numbers; raises where a check fails."""
+    args = {
+        "torch_bench_train_step": [
+            "--data", data_root, "--model", "subspace_backproj", "--size",
+            str(SZ), "--latent", str(LATENT), "--batch",
+            str(TOOL_TRAIN_B), "--epochs", "0"],
+        "torch_bench_refine": ["--steps", str(TOOL_REFINE_STEPS)],
+        "torch_profile_refine": ["--reps", "2"],
+        "torch_bench_pallas_frontier": ["--reps", "3"],
+        "torch_bench_stage0": ["--iters", "2"],
+        "torch_bench_ab": ["--iters", "2", "--train_iters", "2"],
+    }
+    seconds, records = {}, {}
+    for tool in TIMING_TOOLS:
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, f"tools/{tool}.py"] + args[tool],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        _state.setdefault("children", []).append(proc)
+        try:
+            out, err = proc.communicate(timeout=TOOL_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, err = proc.communicate()
+        seconds[tool] = time.perf_counter() - t0
+        _require(proc.returncode == 0 and out.strip(),
+                 f"{tool} exited {proc.returncode}: {err[-3000:]}")
+        last = out.strip().splitlines()[-1]
+        print(last, flush=True)
+        records[tool] = json.loads(last)
+        _require(records[tool]["card"] == smi
+                 and records[tool]["device"].startswith("cuda"),
+                 f"{tool} ran on {records[tool]['device']}, "
+                 f"{records[tool]['card']}")
+    serve = _nonzero(serving_launches)
+    # image-domain refinement of n steps: n + 1 steps of the objective and
+    # its gradient, then the best iterate's expansion and warp
+    n = TOOL_REFINE_STEPS
+    refined = dict(serve, pca_expand=n + 3, pca_grad=n + 1,
+                   warp_trilinear=n + 3, warp_coord_grad=n + 1)
+
+    def refiner(k):
+        return {"pca_expand": k + 2, "pca_grad": k + 1,
+                "warp_trilinear": k + 2, "warp_coord_grad": k + 1}
+
+    train = records["torch_bench_train_step"]
+    steps, vals = train["steps"], train["val_batches"]
+    calls = records["torch_bench_refine"]["calls"]
+    expected = {
+        "torch_bench_train_step": train["launches"] == {
+            "drr_backproject": steps + vals,
+            "warp_trilinear": steps + vals, "warp_coord_grad": steps}
+        and steps == TRAIN_B // TOOL_TRAIN_B and vals == 1
+        and math.isfinite(train["value"]),
+        "torch_bench_refine": calls["0"]["launches"] == serve
+        and calls[str(n)]["launches"] == refined,
+        "torch_profile_refine": [
+            r["launches"] for r in records["torch_profile_refine"]["rows"]]
+        == [{"pca_expand": 1}, {"pca_expand": 1, "pca_grad": 1},
+            {"warp_trilinear": 1},
+            {"warp_trilinear": 1, "warp_coord_grad": 1}, {}, {}, {},
+            refiner(1), refiner(3)],
+        "torch_bench_pallas_frontier": all(
+            r["kernel_ms"] is not None
+            and r["launches"] == {r["kind"]: 1}
+            and r["rel_err"] <= {"pca_expand": PCA_TOL,
+                                 "drr_project": PROJ_REL_TOL,
+                                 "drr_backproject": LIFT_TOL}[r["kind"]]
+            for r in records["torch_bench_pallas_frontier"]["rows"]),
+        "torch_bench_stage0": all(
+            math.isfinite(v)
+            for v in records["torch_bench_stage0"]["ms"].values()),
+        "torch_bench_ab": all(
+            line["launches"] == serve
+            for per_b in records["torch_bench_ab"]["serving"].values()
+            for line in per_b.values())
+        and all(line["loss_finite"] and line["launches"] == {
+            "drr_backproject": 1, "pca_expand": 1, "pca_grad": 1,
+            "warp_trilinear": 1, "warp_coord_grad": 1}
+            for line in records["torch_bench_ab"]["training"].values()),
+    }
+    failed = [tool for tool, ok in expected.items() if not ok]
+    _require(not failed, f"the timing tools' checks failed: {failed}")
+    frontier = {r["op"]: {k: r[k] for k in ("kernel_ms", "library_ms",
+                                             "plain_ms", "bound_ms",
+                                             "bound_by", "share_of_bound",
+                                             "rel_err")}
+                for r in records["torch_bench_pallas_frontier"]["rows"]}
+    return {"tool_seconds": seconds, "frontier": frontier,
+            "train_step_ms": train["value"],
+            "refine_ms_per_step": records["torch_bench_refine"][
+                "refine_ms_per_step"]}
 
 
 def _kernel_table():
@@ -4235,6 +4489,16 @@ def main():
     tr_rn._pending_losses.clear()
     del tr_rn, batch_rn, names_rn
     torch.cuda.empty_cache()
+
+    # -- the entry points and the timing tools -----------------------------
+    _begin("entry")
+    _emit(**entry_phase(torch, KERNELS))
+    # the dry run's ranks run on the CPU while the tools use the card
+    dryrun = start_dryrun(os.path.join(train_root, "dryrun"))
+    _begin("timing_tools")
+    _emit(**timing_tools_phase(data_root, serving, smi))
+    _begin("dryrun")
+    _emit(ranks=DRYRUN_RANKS, **dryrun_phase(dryrun))
     shutil.rmtree(train_root, ignore_errors=True)
 
     # -- times -------------------------------------------------------------
