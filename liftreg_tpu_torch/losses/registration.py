@@ -19,6 +19,7 @@ import functools
 import numpy as np
 
 from ..ops import fd
+from ..tracing import spanned
 from .similarity import RankShare, _batch_mean, get_similarity
 
 
@@ -29,6 +30,7 @@ def sigmoid_decay(ep, static=5, k=5):
     return float(k / (k + np.exp((ep - static) / k)))
 
 
+@spanned("loss.regulariser")
 def displacement_reg(disp, reduction="mean", weights=None):
     """Mean (or per-sample-mean-then-sum) of ``||grad disp||^2`` with
     spacing ``2/(N-1)``; ``reduction="none"`` returns the per-sample vector.

@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from ..device import f32_precision
+from ..tracing import spanned
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,6 +66,7 @@ def _reduce(per_sample_cc, weights, reduction):
     return one - _batch_mean(per_sample_cc, share)
 
 
+@spanned("loss.similarity")
 def ncc_loss(pred, target, weights=None, reduction="mean"):
     """1 - mean_batch NCC, with the reference's ``+1e-10`` on the centred
     values."""
@@ -78,6 +80,7 @@ def ncc_loss(pred, target, weights=None, reduction="mean"):
     return _reduce(ncc, weights, reduction)
 
 
+@spanned("loss.similarity")
 def ncc_sqr_loss(pred, target, weights=None, reduction="mean"):
     """Squared-NCC variant: per-channel squared correlation, channel mean,
     ``1 - batch_mean``."""
@@ -103,6 +106,7 @@ def _ngf_gradient(x, eps):
     return g / torch.sqrt(torch.sum(g ** 2, dim=-1, keepdim=True) + eps)
 
 
+@spanned("loss.similarity")
 def ngf_loss(i0, i1, eps=1e-10, weights=None, reduction="mean"):
     """Normalized-gradient-field loss of 2D images (B, C, H, W):
     ``1 - mean((g0 . g1)^2)`` per sample."""
@@ -195,6 +199,7 @@ def _avg_pool3(x, k):
     return F.avg_pool3d(x, k, k)
 
 
+@spanned("loss.similarity")
 def lncc_loss(pred, target, win=9, eps=1e-5, weights=None, smooth=0,
               scales=None, reduction="mean"):
     """Local NCC over ``win``-cubed windows of (B, 1, D, W, H) volumes,

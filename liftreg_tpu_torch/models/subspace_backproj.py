@@ -17,6 +17,7 @@ from ..device import f32_precision, resolve_dtype
 from ..ops import drr, resample
 from ..ops.drr_kernel import backproject_taps, lift_encoder_input
 from ..ops.pca_kernel import pca_expand_ad
+from ..tracing import span
 from . import s2d
 from .blocks import ConvBlock, FullyConnectBlock
 
@@ -169,18 +170,22 @@ class LiftRegSubspaceBackproj(nn.Module):
         else:
             moving_cp, target_cp = moving, target
 
-        x = self.encoder_input(moving, target_proj, poses,
-                               inputs.get("lift_geometry"))
-        coefs = self.encoder(x)
-
-        disp = expand_pca(coefs, pca["vectors"], pca["mean"], self.img_sz)
-        idm = inputs.get("identity_map")
-        if idm is None:
-            idm = identity_map(self.img_sz, device=disp.device)
-        phi = disp + idm[None]
-        warped = resample.warp_image(moving_cp, phi, zero_boundary=True,
-                                     scale_intensity=True,
-                                     taps_dtype=self.warp_taps_dtype)
+        with span("model.lift"):
+            x = self.encoder_input(moving, target_proj, poses,
+                                   inputs.get("lift_geometry"))
+        with span("model.encoder"):
+            coefs = self.encoder(x)
+        with span("model.pca"):
+            disp = expand_pca(coefs, pca["vectors"], pca["mean"],
+                              self.img_sz)
+        with span("model.warp"):
+            idm = inputs.get("identity_map")
+            if idm is None:
+                idm = identity_map(self.img_sz, device=disp.device)
+            phi = disp + idm[None]
+            warped = resample.warp_image(moving_cp, phi, zero_boundary=True,
+                                         scale_intensity=True,
+                                         taps_dtype=self.warp_taps_dtype)
         return {
             "warped": warped,
             "phi": phi,

@@ -26,6 +26,7 @@ from .ops import drr
 from .ops.drr_kernel import project_taps
 from .ops.resample import warp_image
 from .refine import make_projection_refiner, make_refiner
+from .tracing import span, spanned
 
 normalize_drr = drr.normalize_drr
 
@@ -242,6 +243,7 @@ class RegistrationPipeline:
         return inputs["target_proj"]
 
     @torch.no_grad()
+    @spanned("entry.register")
     def register(self, pca, source_hu, target_hu, source_seg=None,
                  target_seg=None):
         """source_hu/target_hu: (B, 1, D, W, H) HU volumes (SPR
@@ -254,13 +256,15 @@ class RegistrationPipeline:
         return self._refine_tail(out, pca, source_hu, inputs)
 
     def _refine_tail(self, out, pca, source_hu, inputs):
-        warped, phi, self.last_refine = refine_tail(
-            self.refiner, self.refine_domain, self.warp_taps_dtype,
-            out["pca_coefs"], pca, self._moving_cp(inputs),
-            self.refine_target(out, inputs), source_hu)
+        with span("refine"):
+            warped, phi, self.last_refine = refine_tail(
+                self.refiner, self.refine_domain, self.warp_taps_dtype,
+                out["pca_coefs"], pca, self._moving_cp(inputs),
+                self.refine_target(out, inputs), source_hu)
         return warped, phi
 
     @torch.no_grad()
+    @spanned("entry.register_projections")
     def register_projections(self, pca, source_hu, target_proj,
                              source_seg=None):
         """Register from projections only (no target CT): ``target_proj``

@@ -40,6 +40,7 @@ from .losses.similarity import get_similarity
 from .models.subspace_backproj import expand_pca
 from .ops import drr, resample
 from .ops.drr_kernel import project_adjoint_plan, project_taps_ad
+from .tracing import span
 
 #: optax.adam's defaults besides the learning rate
 ADAM_B1, ADAM_B2, ADAM_EPS, ADAM_EPS_ROOT = 0.9, 0.999, 1e-8, 0.0
@@ -107,44 +108,50 @@ def _build_refine(losses_fn, lr, n_steps, early_stop_patience=None,
         stale = 0
         steps_run = 0
         for _ in range(n_steps + 1):
-            with torch.enable_grad():
-                zg = z.detach().requires_grad_(True)
-                per_total, (per_sim, _, _) = losses_fn(zg, *args)
-                total = batch_mean(per_total)
-                (g,) = torch.autograd.grad(total, zg)
-            per_total = per_total.detach()
-            if early_stop_patience is not None:
-                # significant movement of any sample's best; the best
-                # tracking itself stays strict
-                improved = (per_total < best_total - early_stop_tol).any()
-                if mesh is not None:
-                    improved = mesh.any(improved)
-                stale = 0 if bool(improved) else stale + 1
-            better = per_total < best_total
-            # the (B,) mask over z's trailing dims: (B, L) coefficients, or
-            # optreg's (B, 3, g, g, g) control grids
-            best_z = torch.where(
-                better.view((-1,) + (1,) * (z.dim() - 1)), z, best_z)
-            best_total = torch.where(better, per_total, best_total)
-            z = opt.step(z, g)
-            totals.append(total.detach())
-            sims.append(batch_mean(per_sim.detach()))
-            steps_run += 1
+            with span("refine.step"):
+                with torch.enable_grad():
+                    with span("refine.forward"):
+                        zg = z.detach().requires_grad_(True)
+                        per_total, (per_sim, _, _) = losses_fn(zg, *args)
+                        total = batch_mean(per_total)
+                    with span("refine.backward"):
+                        (g,) = torch.autograd.grad(total, zg)
+                with span("refine.update"):
+                    per_total = per_total.detach()
+                    if early_stop_patience is not None:
+                        # significant movement of any sample's best; the
+                        # best tracking itself stays strict
+                        improved = (per_total
+                                    < best_total - early_stop_tol).any()
+                        if mesh is not None:
+                            improved = mesh.any(improved)
+                        stale = 0 if bool(improved) else stale + 1
+                    better = per_total < best_total
+                    # the (B,) mask over z's trailing dims: (B, L)
+                    # coefficients, or optreg's (B, 3, g, g, g) control
+                    # grids
+                    best_z = torch.where(
+                        better.view((-1,) + (1,) * (z.dim() - 1)), z, best_z)
+                    best_total = torch.where(better, per_total, best_total)
+                    z = opt.step(z, g)
+                    totals.append(total.detach())
+                    sims.append(batch_mean(per_sim.detach()))
+                    steps_run += 1
             if early_stop_patience is not None \
                     and stale >= early_stop_patience:
                 break
 
-        with torch.no_grad():
+        with torch.no_grad(), span("refine.select"):
             sel_total, (sel_sim, phi, warped) = losses_fn(best_z, *args)
             totals, sims = torch.stack(totals), torch.stack(sims)
             sel = torch.stack([batch_mean(sel_total), batch_mean(sel_sim)])
             if mesh is not None:
                 totals, sims, sel = mesh.all_reduce(torch.cat(
                     [totals, sims, sel])).split([steps_run, steps_run, 2])
-        nan = torch.full((n_steps + 1 - steps_run,), math.nan,
-                         device=z.device)
-        totals = torch.cat([totals, nan])
-        sims = torch.cat([sims, nan])
+            nan = torch.full((n_steps + 1 - steps_run,), math.nan,
+                             device=z.device)
+            totals = torch.cat([totals, nan])
+            sims = torch.cat([sims, nan])
         out = {
             "coefs": best_z,
             "phi": phi,
@@ -201,8 +208,9 @@ def make_refiner(img_sz, sim="ncc", sim_opts=None, n_steps=30, lr=0.05,
 
     def refine(coefs0, pca, moving, target):
         # the moving image's taps are the same in every step: built once
-        taps = resample.warp_taps(moving, scale_intensity=True,
-                                  taps_dtype=warp_taps_dtype)
+        with span("refine.taps"):
+            taps = resample.warp_taps(moving, scale_intensity=True,
+                                      taps_dtype=warp_taps_dtype)
         return steps(coefs0, pca, taps, target)
 
     return refine
@@ -300,9 +308,10 @@ def make_projection_refiner(img_sz, poses, resolution,
         return on_device[device]
 
     def refine(coefs0, pca, moving_atten, target_proj):
-        taps = resample.warp_taps(moving_atten, scale_intensity=False,
-                                  taps_dtype=warp_taps_dtype)
-        geom, plan = _geometry(moving_atten.device)
+        with span("refine.taps"):
+            taps = resample.warp_taps(moving_atten, scale_intensity=False,
+                                      taps_dtype=warp_taps_dtype)
+            geom, plan = _geometry(moving_atten.device)
         return steps(coefs0, pca, taps, target_proj, geom, plan)
 
     return refine

@@ -68,6 +68,7 @@ from ..ops.fd import compute_jacobi_map
 from ..ops.resample import warp_image
 from ..parallel import mesh as mesh_lib
 from ..pca import load_pca
+from ..tracing import span, spanned
 from ..utils import visualize
 from ..utils.checkpoint import resume_train, save_checkpoint
 from ..utils.config import TrackedConfig
@@ -199,10 +200,12 @@ def loss_and_grads(model, loss, params, batch, pca, reg_factor, weights,
     detached, the same on every rank."""
     keys = list(params)
     with f32_precision():
-        out = model(batch, pca)
-        losses = loss(out, reg_factor, weights=weights)
-        grads = torch.autograd.grad(losses["total_loss"],
-                                    [params[k] for k in keys])
+        with span("train.forward"):
+            out = model(batch, pca)
+            losses = loss(out, reg_factor, weights=weights)
+        with span("train.backward"):
+            grads = torch.autograd.grad(losses["total_loss"],
+                                        [params[k] for k in keys])
     del out
     with torch.no_grad():
         flat = mesh.all_reduce(torch.cat([g.reshape(-1) for g in grads]))
@@ -293,8 +296,12 @@ class RegistrationTrainer(TrainerBase):
             make_dir(p)
 
         self.save_model_frequency = get(train_setting, "save_model_frequency", 5)
-        # train.profile_dir: a torch.profiler trace of train steps
-        # [3, 3 + profile_steps)
+        # train.profile_dir: a torch.profiler trace (trace.json) of train
+        # steps [3, 3 + profile_steps), the card's kernels with the
+        # liftreg.* spans of .tracing on one clock: each step's
+        # liftreg.train.step with its .forward, .backward and .update, the
+        # model's and the losses' spans inside the forward, and
+        # liftreg.train.flush where the losses' flush falls in those steps
         self.profile_dir = get(train_setting, "profile_dir", "")
         self.profile_steps = get(train_setting, "profile_steps", 5)
         self._profiler = None
@@ -505,7 +512,7 @@ class RegistrationTrainer(TrainerBase):
         losses, grads = loss_and_grads(
             self.model, self.loss, self.params, batch, self.pca, reg_factor,
             self._weights(n_valid), self.mesh)
-        with torch.no_grad():
+        with torch.no_grad(), span("train.update"):
             updates, new_state = self.tx.update(grads, self.opt_state,
                                                 self.params)
             new_params = apply_updates(self.params, updates)
@@ -638,21 +645,25 @@ class RegistrationTrainer(TrainerBase):
         on the card and flushed every ``log_flush_steps`` steps and at the
         end of the epoch."""
         self._start_watchdog()
+        # before the step's span: the profiler starts and stops between
+        # steps
         self._maybe_profile()
-        reg_factor = self.loss.factor(self.cur_epoch)
-        self.iter_count += 1
-        # the first step includes the kernels' build
-        self._watch(scale=60.0 if self.iter_count == 1 else 1.0)
-        try:
-            losses = self._train_step(batch, reg_factor, len(names))
-        finally:
-            # a raising step must not leave the watchdog armed
-            self._unwatch()
-        self._pending_losses.append((self.global_step["train"], losses))
-        if len(self._pending_losses) >= self._loss_flush_steps:
-            self._flush_losses()
+        with span("train.step"):
+            reg_factor = self.loss.factor(self.cur_epoch)
+            self.iter_count += 1
+            # the first step includes the kernels' build
+            self._watch(scale=60.0 if self.iter_count == 1 else 1.0)
+            try:
+                losses = self._train_step(batch, reg_factor, len(names))
+            finally:
+                # a raising step must not leave the watchdog armed
+                self._unwatch()
+            self._pending_losses.append((self.global_step["train"], losses))
+            if len(self._pending_losses) >= self._loss_flush_steps:
+                self._flush_losses()
         return losses
 
+    @spanned("train.flush")
     def _flush_losses(self):
         """Read back and log the buffered step losses (one host read)."""
         if not self._pending_losses:
